@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the conversational-search metric cache.
+
+The JAX package ``repro`` is the reference; this package mirrors its module
+layout (``core``, ``kernels``, ``dist``, ``serve``, ``data``) with PyTorch
+idiom and hand-written CUDA kernels for an NVIDIA H100 (``csrc/``).  It
+imports neither ``jax`` nor any ``repro`` module.
+
+Entry points take ``device=None``, which means ``cuda``: without a card
+they raise unless the caller passes ``device="cpu"``.  Kernel wrappers
+dispatch on the tensor's device alone — a CUDA tensor launches the hand
+written kernel (or raises), a CPU tensor takes the plain PyTorch version
+beside it.
+"""

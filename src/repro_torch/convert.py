@@ -1,0 +1,91 @@
+"""Carry state across from the JAX package (and back, for comparisons).
+
+The system has no model weights: its state is the corpus and the cache.
+Both packages exchange it as numpy arrays.
+
+  * ``cache_state_from_numpy`` — a JAX ``CacheState`` (any object with the
+    same fields, or a mapping) as numpy arrays at the JAX physical extents:
+    sliced to the logical extents of ``cfg`` and re-padded to this port's
+    layout with the empty-slot sentinels.
+  * ``cache_state_to_numpy`` — any ``CacheState`` (this port's or the JAX
+    package's) at the logical extents, bf16 payloads widened to f32 — the
+    form two states are compared in.
+  * ``corpus_from_numpy`` — a (quantized) corpus payload with its scales and
+    ids, padded to this port's feature width, on a device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import layout
+from repro_torch.core.cache_ops import (CacheConfig, CacheState,
+                                        init_batched_cache, pad_features,
+                                        to_numpy)
+from repro_torch.kernels.dispatch import resolve_device
+
+__all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
+           "corpus_from_numpy"]
+
+
+def _fields(leaves) -> dict:
+    if isinstance(leaves, dict):
+        return {f: leaves[f] for f in CacheState._fields}
+    return {f: getattr(leaves, f) for f in CacheState._fields}
+
+
+def cache_state_to_numpy(state, cfg: CacheConfig) -> CacheState:
+    """The state at logical extents as numpy arrays."""
+    c, d, q = cfg.capacity, cfg.dim, cfg.max_queries
+    a = {f: to_numpy(v) for f, v in _fields(state).items()}
+    return CacheState(
+        doc_emb=a["doc_emb"][..., :c, :d], doc_ids=a["doc_ids"][..., :c],
+        doc_stamp=a["doc_stamp"][..., :c], q_emb=a["q_emb"][..., :q, :d],
+        q_radius=a["q_radius"][..., :q], n_docs=a["n_docs"],
+        n_queries=a["n_queries"], step=a["step"],
+        doc_scale=a["doc_scale"][..., :c], q_scale=a["q_scale"][..., :q])
+
+
+def cache_state_from_numpy(leaves, cfg: CacheConfig, device=None) -> CacheState:
+    """A (batched or unbatched) state at this port's physical extents whose
+    logical content equals ``leaves``'."""
+    logical = cache_state_to_numpy(leaves, cfg)
+    batched = np.ndim(logical.n_docs) > 0
+    if not batched:
+        logical = CacheState(*(x[None] for x in logical))
+    state = init_batched_cache(cfg, logical.n_docs.shape[0], device)
+    c, d, q = cfg.capacity, cfg.dim, cfg.max_queries
+    dev = state.doc_ids.device
+
+    def put(dst, src):
+        dst.copy_(torch.as_tensor(np.array(src), device=dev)
+                  .to(dst.dtype))
+
+    put(state.doc_emb[:, :c, :d], logical.doc_emb)
+    put(state.q_emb[:, :q, :d], logical.q_emb)
+    for f in ("doc_ids", "doc_stamp", "doc_scale"):
+        put(getattr(state, f)[:, :c], getattr(logical, f))
+    for f in ("q_radius", "q_scale"):
+        put(getattr(state, f)[:, :q], getattr(logical, f))
+    for f in ("n_docs", "n_queries", "step"):
+        put(getattr(state, f), getattr(logical, f))
+    return state if batched else CacheState(*(x[0] for x in state))
+
+
+def corpus_from_numpy(data, scale, ids, device=None):
+    """(docs (N, phys_dim(D)) in the payload's dtype, scale (N,) f32 or
+    None, ids (N,) int32) on ``device``.  A bf16 payload arrives as the
+    numpy bfloat16 array the JAX package hands out."""
+    dev = resolve_device(device)
+    raw = np.asarray(data)
+    if raw.dtype.name == "bfloat16":
+        docs = torch.as_tensor(raw.astype(np.float32), device=dev) \
+            .to(torch.bfloat16)
+    else:
+        docs = torch.as_tensor(np.array(raw), device=dev)
+    docs = pad_features(docs, layout.phys_dim(docs.shape[1]))
+    sc = None if scale is None else torch.as_tensor(
+        np.asarray(scale, np.float32), device=dev)
+    return docs, sc, torch.as_tensor(np.asarray(ids, np.int32), device=dev)
+

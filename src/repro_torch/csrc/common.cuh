@@ -1,0 +1,47 @@
+// Shared device helpers of the port's CUDA kernels.
+#pragma once
+
+#include <cmath>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+// Storage codes passed from Python: 0 fp32, 1 bf16, 2 int8.
+enum Store { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Order-preserving uint32 key of a float: a > b as floats <=> key(a) > key(b).
+// -0.0 is folded onto +0.0 first, so equal floats always share one key.
+__device__ __forceinline__ uint32_t float_key(float f) {
+  if (f == 0.0f) f = 0.0f;
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(uint32_t k) {
+  const uint32_t u = (k & 0x80000000u) ? (k & 0x7fffffffu) : ~k;
+  return __uint_as_float(u);
+}
+
+// Raise the dynamic shared-memory limit of a kernel when it needs more than
+// the default 48 KB.
+template <typename K>
+__host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace repro

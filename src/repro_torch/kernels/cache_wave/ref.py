@@ -1,0 +1,40 @@
+"""Plain PyTorch version of the wave kernel (``csrc/cache_wave.cu``).
+
+``insert_scatter`` writes the kept rows at their precomputed positions
+(positions outside [0, Cp) are drops) and the (psi, r_a, scale) record at
+the ring slot when ``rec`` is set — in place, like the kernel.
+``query_topk`` scores every slot (f32 dot times the slot scale, -inf for
+empty slots) and keeps the first k of a stable descending sort, so empty
+slots come last in ascending order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def insert_scatter(doc_emb, doc_ids, doc_stamp, doc_scale, q_emb, q_radius,
+                   q_scale, emb_q, emb_scale, new_ids, pos, psi_q, psi_scale,
+                   radius, rec, qslot, step) -> None:
+    cp = doc_ids.shape[1]
+    rows, cols = torch.nonzero((pos >= 0) & (pos < cp), as_tuple=True)
+    p = pos[rows, cols].long()
+    doc_emb[rows, p] = emb_q[rows, cols]
+    doc_ids[rows, p] = new_ids[rows, cols]
+    doc_scale[rows, p] = emb_scale[rows, cols]
+    doc_stamp[rows, p] = step[rows]
+    r = torch.nonzero(rec, as_tuple=True)[0]
+    slot = qslot[r].long()
+    q_emb[r, slot] = psi_q[r]
+    q_radius[r, slot] = radius[r]
+    q_scale[r, slot] = psi_scale[r]
+
+
+def query_topk(doc_emb, doc_ids, doc_scale, psi, k: int):
+    """(vals (S, k) f32, ids (S, k) int32, slots (S, k) int32)."""
+    scores = torch.bmm(doc_emb.to(torch.float32), psi[:, :, None])[..., 0]
+    scores = torch.where(doc_ids >= 0, scores * doc_scale,
+                         torch.tensor(float("-inf"), device=scores.device))
+    vals, slots = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, slots = vals[:, :k], slots[:, :k]
+    return vals, torch.gather(doc_ids, 1, slots), slots.to(torch.int32)

@@ -1,0 +1,14 @@
+"""Serving layer of the port: batched engine, router, scheduler, telemetry."""
+
+from repro_torch.serve.engine import EngineTurn
+from repro_torch.serve.router import (AnswerValidationError, CircuitBreaker,
+                                      RouterStats, ShardAnswer, ShardedRouter,
+                                      validate_answer)
+from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.session import BatchedEngine, SessionManager
+from repro_torch.serve.telemetry import ServeTelemetry, TurnSpans
+
+__all__ = ["EngineTurn", "AnswerValidationError", "CircuitBreaker",
+           "RouterStats", "ShardAnswer", "ShardedRouter", "validate_answer",
+           "ContinuousScheduler", "BatchedEngine", "SessionManager",
+           "ServeTelemetry", "TurnSpans"]

@@ -1,0 +1,224 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: without a CUDA device every test skips (decided inside the
+test, so every worker collects the same tests).  Run on a machine with a
+card::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The kernels and the plain versions sum f32 dot products in different
+orders, so scores agree within 1e-5 and ranks by
+``repro_torch.kernels.parity.assert_topk_agree``; states written by the
+wave kernel must equal the plain scatter bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import cache_ops as tc
+from repro_torch.core import quant
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.cache_probe import ops as probe_ops
+from repro_torch.kernels.cache_probe import ref as probe_ref
+from repro_torch.kernels.cache_wave import ops as wave_ops
+from repro_torch.kernels.cache_wave import ref as wave_ref
+from repro_torch.kernels.knn import ops as knn_ops
+from repro_torch.kernels.knn import ref as knn_ref
+from repro_torch.kernels.parity import assert_close, assert_topk_agree
+
+pytestmark = pytest.mark.gpu
+
+TOL = 1e-5
+DIM = 769
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return gen
+
+
+def _unit(*shape, gen):
+    return torch.nn.functional.normalize(
+        torch.randn(*shape, generator=gen, device="cuda"), dim=-1)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_probe_kernel_matches_plain(card, dtype):
+    cfg = tc.CacheConfig(capacity=64, dim=DIM, max_queries=13)
+    s, qp, dp = 9, cfg.phys_max_queries, cfg.phys_dim
+    psi = tc.pad_features(_unit(s, DIM, gen=card), dp)
+    recs = tc.pad_features(_unit(s, qp, DIM, gen=card), dp)
+    q_emb, q_scale = tc.store_rows(recs, dtype)
+    radius = torch.rand(s, qp, generator=card, device="cuda") + 0.5
+    dispatch.reset_counters()
+    rk = probe_ops.probe_rhat_batched(q_emb, psi, radius, q_scale)
+    assert dispatch.counters()["cache_probe"].launches == 1
+    rp = probe_ref.probe_rhat_batched(q_emb, psi, radius, q_scale)
+    assert_close(rk, rp, 1e-4, "r_hat")
+    n_q = torch.tensor([0, 1, 5, 13, 14, 30, 2, 7, 9], dtype=torch.int32,
+                       device="cuda")
+    got = probe_ops.cache_probe_batched(q_emb, psi[:, :DIM], radius, n_q,
+                                        0.2, q_scale=q_scale, max_queries=13)
+    want = probe_ops.cache_probe_batched(
+        q_emb.cpu(), psi[:, :DIM].cpu(), radius.cpu(), n_q.cpu(), 0.2,
+        q_scale=q_scale.cpu(), max_queries=13)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+
+
+@pytest.mark.parametrize("dtype,i8", [("fp32", False), ("bf16", False),
+                                      ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("b,k", [(7, 100), (70, 1024), (3, 1)])
+def test_knn_kernels_match_plain(card, dtype, i8, b, k):
+    n = 20011
+    docs = tc.pad_features(_unit(n, DIM, gen=card), 800)
+    docs[500] = docs[17]                     # exact ties
+    docs[9000] = docs[17]
+    qc = quant.quantize(docs, dtype)
+    ids = torch.arange(n, dtype=torch.int32, device="cuda") + 5
+    ids[[3, 17 + 1, 12000]] = -1             # sentinel rows
+    q = _unit(b, DIM, gen=card)
+    q[0] = docs[17, :DIM]
+    dispatch.reset_counters()
+    v, i = knn_ops.knn_search(qc.data, ids, q, k, scale=qc.scale, int8_dot=i8)
+    c = dispatch.counters()
+    assert c["knn_score"].launches == c["knn_select"].launches == 1
+    qq, qs = tc.pad_features(q, 800), None
+    if i8:
+        qqc = quant.quantize(qq, "int8")
+        qq, qs = qqc.data, qqc.scale
+    rv, ri = knn_ref.search(qc.data, ids, qq, k, qc.scale, qs)
+    assert_topk_agree(v, i, rv, ri, TOL, f"knn {dtype} i8={i8}")
+    if k >= 3:
+        assert {22, 505, 9005} <= set(i[0, :3].tolist())
+    # k above the valid rows: (-inf, -1) past them
+    few = torch.full((40,), -1, dtype=torch.int32, device="cuda")
+    few[:10] = torch.arange(10, dtype=torch.int32, device="cuda")
+    v, i = knn_ops.knn_search(qc.data[:40], few, q, 64,
+                              scale=None if qc.scale is None
+                              else qc.scale[:40], int8_dot=i8)
+    assert (i[:, 10:] == -1).all() and torch.isneginf(v[:, 10:]).all()
+    assert (i[:, :10] >= 0).all()
+
+
+@pytest.mark.parametrize("mode", ["insert_query", "query_topk",
+                                  "insert_scatter"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_wave_kernel_matches_plain(card, dtype, mode):
+    cfg = tc.CacheConfig(capacity=700, dim=DIM, max_queries=8,
+                         store_dtype=dtype)
+    s, kc, k = 5, 150, 128
+    state = tc.init_batched_cache(cfg, s, "cuda")
+    rows = _unit(s, 300, DIM, gen=card)
+    data, scale = tc.store_rows(rows, dtype)
+    state.doc_emb[:, :300, :DIM] = data
+    state.doc_scale[:, :300] = scale
+    state.doc_ids[:, :300] = torch.arange(s * 300, dtype=torch.int32,
+                                          device="cuda").view(s, 300)
+    state.n_docs.fill_(300)
+    state.n_queries.copy_(torch.tensor([0, 3, 8, 9, 20], dtype=torch.int32))
+    new_q, new_scale = tc.store_rows(_unit(s, kc, DIM, gen=card), dtype)
+    pos = (300 + torch.arange(kc, device="cuda")).repeat(s, 1)
+    pos[:, ::3] = cfg.phys_capacity                      # drops
+    pos[1] = cfg.phys_capacity                           # a do=False row
+    psi = _unit(s, DIM, gen=card)
+    psi_q, psi_scale = tc.store_rows(psi, dtype)
+    ins = (tc.pad_features(new_q, 800), new_scale,
+           torch.arange(kc, dtype=torch.int32, device="cuda").repeat(s, 1)
+           + 10 ** 6, pos.to(torch.int32), tc.pad_features(psi_q, 800),
+           psi_scale, torch.rand(s, device="cuda"),
+           torch.tensor([True, False, True, True, False], device="cuda"),
+           torch.remainder(state.n_queries, 8),
+           torch.full((s,), 4, dtype=torch.int32, device="cuda"))
+    psi_p = tc.pad_features(psi, 800)
+    sk = tc.CacheState(*(x.clone() for x in state))
+    sp = tc.CacheState(*(x.clone() for x in state))
+    lk = (sk.doc_emb, sk.doc_ids, sk.doc_stamp, sk.doc_scale, sk.q_emb,
+          sk.q_radius, sk.q_scale)
+    lp = (sp.doc_emb, sp.doc_ids, sp.doc_stamp, sp.doc_scale, sp.q_emb,
+          sp.q_radius, sp.q_scale)
+    dispatch.reset_counters()
+    if mode == "insert_query":
+        v, i, sl = wave_ops.wave_insert_query(*lk, *ins, psi_p, k)
+        wave_ref.insert_scatter(*lp, *ins)
+        rv, ri, rsl = wave_ref.query_topk(sp.doc_emb, sp.doc_ids,
+                                          sp.doc_scale, psi_p, k)
+    elif mode == "query_topk":
+        v, i, sl = wave_ops.wave_query_topk(sk.doc_emb, sk.doc_ids,
+                                            sk.doc_scale, psi_p, k)
+        rv, ri, rsl = wave_ref.query_topk(sp.doc_emb, sp.doc_ids,
+                                          sp.doc_scale, psi_p, k)
+    else:
+        wave_ops.wave_insert_scatter(*lk, *ins)
+        wave_ref.insert_scatter(*lp, *ins)
+    assert dispatch.counters()[f"wave_{mode}"].launches == 1
+    for f, a, b in zip(tc.CacheState._fields, sk, sp):
+        assert torch.equal(a, b), f
+    if mode != "insert_scatter":
+        assert_topk_agree(v, i, rv, ri, TOL, f"wave {mode} {dtype}")
+        assert torch.equal(torch.gather(sk.doc_ids, 1, sl.long()), i)
+        # empty slots follow in ascending slot order, as the plain sort
+        empty = ri < 0
+        assert torch.equal(sl[empty], rsl[empty])
+
+
+def test_engine_on_card_matches_cpu(card):
+    """A small world served on the card answers turn for turn as the
+    plain CPU path does."""
+    from repro_torch.core.embedding import transform_documents
+    from repro_torch.core.embedding import transform_queries
+    from repro_torch.data.conversations import WorldConfig, make_world
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.serve.router import ShardedRouter
+    from repro_torch.serve.session import BatchedEngine
+
+    w = make_world(WorldConfig(n_topics=4, docs_per_topic=500,
+                               n_background=1000, dim=64, turns=5,
+                               n_conversations=6, seed=3))
+    docs = transform_documents(torch.as_tensor(w.doc_emb,
+                                               dtype=torch.float32))[0]
+    qs = [transform_queries(torch.as_tensor(c.queries, dtype=torch.float32))
+          for c in w.conversations]
+    turns = {}
+    for dev in ("cuda", "cpu"):
+        ids = np.arange(docs.shape[0], dtype=np.int32)
+        with ShardedRouter([DeviceShard(docs, ids, device=dev)],
+                           deadline_s=60) as router:
+            eng = BatchedEngine(router, docs, dim=docs.shape[1], n_sessions=6,
+                                k=10, k_c=200, capacity=1200, device=dev)
+            dispatch.reset_counters()
+            turns[dev] = [eng.answer_batch(range(6), [q[t] for q in qs])
+                          for t in range(5)]
+            if dev == "cuda":
+                c = dispatch.counters()
+                assert c["cache_probe"].launches == 5
+                assert c["knn_score"].launches >= 1
+    for wa, wb in zip(turns["cuda"], turns["cpu"]):
+        for a, b in zip(wa, wb):
+            assert a.tier == b.tier
+            assert_topk_agree(a.scores[None], a.ids[None], b.scores[None],
+                              b.ids[None], TOL, "engine turn")
+
+
+def test_kernels_refuse_bad_inputs(card):
+    docs = torch.zeros(100, 800, device="cuda")
+    ids = torch.arange(100, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        knn_ops.knn_select(torch.zeros(2, 2000, device="cuda"),
+                           torch.arange(2000, dtype=torch.int32,
+                                        device="cuda"), 1025)
+    with pytest.raises(ValueError):
+        knn_ops.knn_score(docs[:, :790], ids, torch.zeros(2, 790,
+                                                          device="cuda"))
+    with pytest.raises(ValueError):
+        wave_ops.wave_query_topk(torch.zeros(1, 64, 800, device="cuda"),
+                                 torch.zeros(1, 64, dtype=torch.int32,
+                                             device="cuda"),
+                                 torch.ones(1, 64, device="cuda"),
+                                 torch.zeros(1, 800, device="cuda"), 129)

@@ -1,0 +1,94 @@
+"""The port stands alone: no JAX, no ``repro`` import, no silent fallback.
+
+* every ``repro_torch`` module imports in a process where ``jax`` cannot
+  be imported;
+* no source line of ``src/repro_torch`` or ``chip_smoke.py`` imports
+  ``repro`` or ``jax``;
+* an entry point given ``device=None`` means the card and raises when there
+  is none — only ``device="cpu"`` selects the plain path.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    return sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                  .removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
+def test_every_module_imports_without_jax():
+    mods = _port_modules()
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'repro' or k.startswith('repro.')"
+            " for k in sys.modules)\n"
+            "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_no_source_imports_repro_or_jax():
+    pat = re.compile(r"^\s*(import\s+(repro|jax)\b(?!_)|from\s+(repro|jax)"
+                     r"(\.|\s)(?!_))", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in pat.finditer(f.read_text())]
+    assert not bad, bad
+    assert (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_a_card(no_card):
+    from repro_torch.core.cache import BatchedMetricCache
+    from repro_torch.core.cache_ops import CacheConfig, init_batched_cache
+    from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.serve.session import BatchedEngine
+
+    cfg = CacheConfig(capacity=8, dim=5)
+    docs = np.eye(6, 5, dtype=np.float32)
+    for make in (lambda: resolve_device(None),
+                 lambda: init_batched_cache(cfg, 2),
+                 lambda: BatchedMetricCache(cfg, 2),
+                 lambda: MetricIndex(docs),
+                 lambda: DeviceShard(docs, np.arange(6)),
+                 lambda: BatchedEngine(None, docs, dim=5, n_sessions=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
+    """Without a visible card, or run from a directory holding nothing of
+    the repo but the script, ``chip_smoke.py`` exits non-zero and prints
+    no result."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = tmp_path / "chip_smoke.py"
+        script.write_text((ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                       text=True, cwd=script.parent, env=env, timeout=120)
+    assert r.returncode != 0 and r.stdout == "", (r.returncode, r.stdout)
