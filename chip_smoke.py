@@ -11,24 +11,47 @@ Run from the repository root.  Phases, each fatal on failure:
   2. build   — ``nvcc`` builds every kernel source of ``src/repro_torch/csrc``
      (one process per source, all started together).
   3. kernels — every kernel against its plain PyTorch version on the card,
-     on the same inputs, at the serving path's shapes: the probe (S=64,
-     Qmax=64, dim 769), the wave in its three modes and three store dtypes
-     (S=64, capacity 16000, k_c=1000, k=10), and the kNN search (B=64,
-     k=1000; fp32 at N=8,841,823, bf16 / int8 / int8-dot at N=1,000,000).
-     Each is timed with CUDA events beside its plain version, its bound and,
-     where one PyTorch call computes the same function, that call.
-  4. main    — the serving path: ``make_world`` (60,000 docs, 64
-     conversations of 10 turns, dim 768) plus background distractors drawn
-     on the card from a seeded generator fill the corpus to N = 8,841,823
-     (the MS MARCO passage collection of TREC CAsT 2019); one Eq. 1 M over
-     the whole corpus.  ``SessionManager`` -> ``BatchedEngine(64 sessions,
-     k=10, k_c=1000, epsilon=0.04, capacity=16000)`` ->
-     ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns of every
-     conversation, then one round that re-asks each last turn.  The kernel
-     counters, zeroed just before, must show 3 launches per wave with a
-     miss (the kNN search counted as one) and 2 per wave without; every
-     miss turn must match an exact plain search over the whole corpus, and
-     the same engine on a small input must answer as the CPU path does.
+     on the same inputs, at its path's shapes: the batched probe (S=64,
+     Qmax=64, dim 769) and the single-session probe (Qmax=64, dim 769, rings
+     of 0, 1, 64 and 73 records), the wave in its three modes and three
+     store dtypes (S=64, capacity 16000, k_c=1000, k=10; and the query at
+     k=200), the kNN search (B=64, k=1000 and k=2048; fp32 at N=8,841,823,
+     bf16 / int8 / int8-dot at N=1,000,000; and B=1), and the two-stage
+     scan (B=64, k=1000 at N=1,000,000: fp32 and int8-dot with the tuned
+     tile, fp32 with tile_n=256).  Each is timed with CUDA events beside its
+     plain version, its bound and, where one PyTorch call computes the same
+     function, that call.
+  4. corpus  — ``make_world`` (60,000 docs, 64 conversations of 10 turns,
+     dim 768) plus background distractors drawn on the card from a seeded
+     generator fill the corpus to N = 8,841,823 (the MS MARCO passage
+     collection of TREC CAsT 2019); one Eq. 1 M over the whole corpus.
+  5. ab      — the two-stage A/B baseline over that corpus:
+     ``knn_search(two_stage=True)`` for the 64 first turns at k = k_c =
+     1000, against the fused search and the plain two-stage version.
+  6. main    — the batched serving path: ``SessionManager`` ->
+     ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity=
+     16000)`` -> ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns
+     of every conversation, then one round that re-asks each last turn.  3
+     launches per wave with a miss (the kNN search counted as one) and 2
+     per wave without; every miss turn matches an exact plain search over
+     the whole corpus, and the same engine on a small input answers as the
+     CPU path does.
+  7. paper   — Algorithm 1 for one session: ``ConversationalSearcher(
+     MetricIndex(corpus), k=200, k_c=1000, epsilon=0.04, capacity=12000)``
+     under the ``none``, ``static`` and ``dynamic`` policies over the 64
+     conversations, with Table 1's columns (hit rate over turns 2-10,
+     MAP@200, MRR@200, nDCG@3, P@1, P@3, cov@10), the largest cache and the
+     per-turn latency; every ``none`` turn equals the exact top-200; per
+     turn one probe and one cache query, per miss one kNN search and one
+     insert.  First, on 8 conversations x 4 turns over the 60,000 world
+     docs (k_c=100), the card answers as the CPU path does.
+  8. engine  — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
+     (corpus)])`` serves 8 conversations x 10 turns (k=10, k_c=1000) and
+     agrees turn for turn with the dynamic searcher.
+
+Every path (ab, main, the three paper runs, engine) runs with the kernel
+counters zeroed just before it and read just after; each checks its own
+launch accounting, and the ``launches`` of the kernels line are their sums.
 
 Tolerances (the kernels and the plain versions sum f32 dot products in
 different orders): scores and r_hat within 1e-5 and 1e-4 (r_hat takes a
@@ -55,6 +78,8 @@ N_CORPUS = 8_841_823          # MS MARCO passages (TREC CAsT 2019 collection)
 N_SMALL = 1_000_000           # corpus of the bf16 / int8 kNN checks
 S, QMAX, DIM_RAW = 64, 64, 768
 CAPACITY, KC, K, EPS = 16000, 1000, 10, 0.04
+PAPER_K = 200                 # Table 1's evaluation depth (MAP@200)
+PAPER_CAP = 12000             # (turns + 2) * k_c, as evaluate_policy sets it
 SCORE_TOL, RHAT_TOL = 1e-5, 1e-4
 DEV = "cuda"
 # H100 SXM data sheet, dense: HBM bytes/s; f32 (CUDA cores) and int8
@@ -70,6 +95,8 @@ KERNELS = {
     "wave_insert_query": ("cache_wave.cu", "cache_wave/ops.py:255"),
     "wave_query_topk": ("cache_wave.cu", "cache_wave/ops.py:163"),
     "wave_insert_scatter": ("cache_wave.cu", "cache_wave/ops.py:234"),
+    "probe_rhat": ("cache_probe.cu", "cache_probe/cache_probe.py:49"),
+    "knn_tile_topk": ("knn.cu", "knn/knn.py:285"),
 }
 
 
@@ -113,14 +140,33 @@ class Report:
             f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
             f"library_ms={library_ms}")
 
-    def line(self, counters):
+    def line(self, launches):
         out = []
         for name, (src, tpu) in KERNELS.items():
             row = self.rows[name]
             out.append({"name": name, "route": "cuda", "source": SRC + src,
-                        "replaces": TPU + tpu,
-                        "launches": counters[name].launches, **row})
+                        "replaces": TPU + tpu, "launches": launches[name],
+                        **row})
         return json.dumps({"kernels": out})
+
+
+def counted(torch, fn):
+    """Run one path with every kernel counter zeroed just before it; return
+    (its result, {kernel: launches} read just after)."""
+    from repro_torch.kernels import dispatch
+    dispatch.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    # a CPU rehearsal launches nothing: it counts wrapper calls instead
+    field = "launches" if DEV == "cuda" else "calls"
+    return out, {n: getattr(c, field)
+                 for n, c in dispatch.counters().items()}
+
+
+def pad_to(torch, q, width: int):
+    """Queries (..., 769) zero-padded to the corpus width, on the card."""
+    q = torch.as_tensor(q, dtype=torch.float32, device=DEV)
+    return torch.nn.functional.pad(q, (0, width - q.shape[-1]))
 
 
 # ------------------------------------------------------------------ probe
@@ -173,6 +219,60 @@ def probe_phase(torch, rep: Report, gen):
     rep.add("cache_probe", err=err, ms=ms, plain_ms=plain,
             nbytes=S * qp * dp * 4 + S * dp * 4 + 3 * S * qp * 4,
             ops=2 * S * qp * dp, rate=F32_OPS)
+
+
+def probe_single_phase(torch, rep: Report, gen):
+    """The single-session probe of Algorithm 1 at the searcher's ring."""
+    from repro_torch.core import cache_ops as tc
+    from repro_torch.kernels.cache_probe import ops as probe_ops
+    from repro_torch.kernels.cache_probe import ref as probe_ref
+    from repro_torch.kernels.parity import assert_close
+
+    cfg = tc.CacheConfig(capacity=PAPER_CAP, dim=DIM_RAW + 1,
+                         max_queries=QMAX)
+    dp, qp = cfg.phys_dim, cfg.phys_max_queries
+    psi = torch.zeros(dp, device=DEV)
+    psi[:cfg.dim] = torch.nn.functional.normalize(
+        torch.randn(cfg.dim, generator=gen, device=DEV), dim=0)
+    noise = torch.zeros(qp, dp, device=DEV)
+    noise[:, :cfg.dim] = torch.randn(qp, cfg.dim, generator=gen, device=DEV)
+    spread = torch.linspace(0.3, 1.5, qp, device=DEV)[:, None]
+    recs = torch.nn.functional.normalize(psi + spread * noise
+                                         / cfg.dim ** 0.5, dim=1)
+    radius = 0.3 + 0.8 * torch.rand(qp, generator=gen, device=DEV)
+    hits = set()
+    for dtype in ("fp32", "bf16", "int8"):
+        q_emb, q_scale = tc.store_rows(recs, dtype)
+        rk = probe_ops.probe_rhat(q_emb, psi, radius, q_scale)
+        rp = probe_ref.probe_rhat(q_emb, psi, radius, q_scale)
+        err = assert_close(rk, rp, RHAT_TOL, f"probe_rhat {dtype}")
+        for n_q in (0, 1, QMAX, QMAX + 9):
+            got = probe_ops.cache_probe(q_emb, psi[:cfg.dim], radius, n_q,
+                                        0.25, q_scale=q_scale,
+                                        max_queries=QMAX)
+            want = probe_ops.cache_probe(
+                q_emb.cpu(), psi[:cfg.dim].cpu(), radius.cpu(), n_q, 0.25,
+                q_scale=q_scale.cpu(), max_queries=QMAX)
+            if bool(got[0]) != bool(want[0]) or int(got[2]) != int(want[2]):
+                raise AssertionError(f"probe_rhat {dtype} n_queries={n_q}: "
+                                     f"hit / nearest differ from the CPU")
+            if n_q:
+                assert_close(got[1].cpu(), want[1], RHAT_TOL,
+                             f"probe_rhat {dtype} best")
+            hits.add(bool(got[0]))
+        log(f"[kernels] probe_rhat {dtype}: ok (max_abs_err {err:.3g})")
+        if dtype == "fp32":
+            fp32 = (q_emb, q_scale, err)
+    if hits != {True, False}:
+        raise AssertionError("single-probe inputs must mix hits and misses")
+    q_emb, q_scale, err = fp32
+    rep.add("probe_rhat", err=err,
+            ms=timed(torch, lambda: probe_ops.probe_rhat(
+                q_emb, psi, radius, q_scale), 200),
+            plain_ms=timed(torch, lambda: probe_ref.probe_rhat(
+                q_emb, psi, radius, q_scale), 50),
+            nbytes=qp * dp * 4 + dp * 4 + 3 * qp * 4, ops=2 * qp * dp,
+            rate=F32_OPS)
 
 
 # ------------------------------------------------------------------- wave
@@ -264,8 +364,17 @@ def wave_phase(torch, rep: Report, gen):
         same(sk, sp, f"wave_insert_scatter {dtype}")
         errs["wave_insert_scatter"] = 0.0
         del sp
+        # the repaired limit: the query at k = 200 (Table 1's depth)
+        vk, ik, _ = wave_ops.wave_query_topk(sk.doc_emb, sk.doc_ids,
+                                             sk.doc_scale, psi, PAPER_K)
+        vr, ir, _ = wave_ref.query_topk(sk.doc_emb, sk.doc_ids, sk.doc_scale,
+                                        psi, PAPER_K)
+        e200 = assert_topk_agree(vk, ik, vr, ir, SCORE_TOL,
+                                 f"wave_query_topk {dtype} k={PAPER_K}")
+        del vk, ik, vr, ir
         log(f"[kernels] cache_wave {dtype}: ok "
-            f"({n_kept} rows written, max_abs_err {errs})")
+            f"({n_kept} rows written, max_abs_err {errs}; query at "
+            f"k={PAPER_K}: {e200:.3g})")
         if dtype == "fp32":
             isz, dp, cp = 4, cfg.phys_dim, cfg.phys_capacity
             scan = S * cp * (dp * isz + 8)
@@ -339,6 +448,63 @@ def build_corpus(torch, seed: int):
     return world, corpus, streams
 
 
+# ------------------------------------------------------------ two-stage
+def tiles_agree(torch, vk, pk, vr, pr, what) -> float:
+    """Per (tile, row) candidate lists, on the card: the same -inf pattern,
+    values within SCORE_TOL, and equal positions wherever a finite value
+    lies more than SCORE_TOL from both neighbours (a tied run, or the last
+    rank, may hold other positions; a -inf entry any masked or padded one).
+    Returns the largest value difference."""
+    if not torch.equal(torch.isneginf(vk), torch.isneginf(vr)):
+        raise AssertionError(f"{what}: -inf patterns differ")
+    fin = torch.isfinite(vr)
+    err = float(torch.where(fin, (vk - vr).abs(), 0.0).max())
+    if err > SCORE_TOL:
+        raise AssertionError(f"{what}: max |diff| {err:.3g} > {SCORE_TOL}")
+    gap = vr[..., :-1] - vr[..., 1:]
+    iso = fin.clone()
+    iso[..., 1:] &= gap > SCORE_TOL
+    iso[..., :-1] &= gap > SCORE_TOL
+    iso[..., -1] = False
+    if not torch.equal(pk[iso], pr[iso]):
+        raise AssertionError(f"{what}: tile positions differ")
+    return err
+
+
+def two_stage_check(torch, docs, ids, q, k, *, scale=None, i8=False,
+                    tile_n=None):
+    """``knn_search(two_stage=True)`` and its tile stage against the plain
+    versions.  Returns (max error, tile_n, k_eff, the queries as the tile
+    stage takes them)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_topk_agree
+
+    n, dp = docs.shape
+    what = f"two-stage {docs.dtype} int8-dot={i8} tile_n={tile_n}"
+    qq, qs = torch.nn.functional.pad(q, (0, dp - q.shape[1])), None
+    if i8:
+        qqc = quant.quantize(qq, "int8")
+        qq, qs = qqc.data, qqc.scale
+    t_n, k_eff = (knn_ops.autotune_knn(n, dp, q.shape[0], k,
+                                       docs.element_size())
+                  if tile_n is None else (tile_n, min(k, tile_n)))
+    vk, pk = knn_ops.knn_tile_topk(docs, ids, qq, k_eff, t_n, scale, qs)
+    vr, pr = knn_ref.tile_topk(docs, ids, qq, k_eff, t_n, scale, qs)
+    err = tiles_agree(torch, vk, pk, vr, pr, what)
+    del vk, pk
+    rv, ri = knn_ref.merge_tiles(vr, pr, ids, k)
+    del vr, pr
+    torch.cuda.empty_cache()
+    v, i = knn_ops.knn_search(docs, ids, q, k, scale=scale, int8_dot=i8,
+                              tile_n=tile_n, two_stage=True)
+    assert_topk_agree(v, i, rv, ri, SCORE_TOL, what)
+    del v, i, rv, ri
+    torch.cuda.empty_cache()
+    return err, t_n, k_eff, qq
+
+
 # -------------------------------------------------------------------- knn
 def knn_phase(torch, rep: Report, corpus, streams):
     import numpy as np
@@ -391,6 +557,29 @@ def knn_phase(torch, rep: Report, corpus, streams):
         f"plain_ms={op_plain:.4f} library_ms={op_lib:.4f} "
         f"bound_ms={op_bound[0]:.4f} ({op_bound[1]})")
     torch.cuda.empty_cache()
+    # the repaired limit: k = 2048 > the old 1024
+    vk, ik = knn_ops.knn_search(corpus, ids, q, 2048)
+    vp, ip = knn_ref.search(corpus, ids, q, 2048)
+    e2048 = assert_topk_agree(vk, ik, vp, ip, SCORE_TOL, "knn fp32 k=2048")
+    del vk, ik, vp, ip
+    torch.cuda.empty_cache()
+    ms2048 = timed(torch, lambda: knn_ops.knn_search(corpus, ids, q, 2048), 2)
+    log(f"[kernels] knn_search fp32 k=2048 N={N_CORPUS}: ok (max_abs_err "
+        f"{e2048:.3g}) ms={ms2048:.4f}")
+    # a single query, every miss of Algorithm 1 for one session
+    for k in (KC, PAPER_K):
+        v1, i1 = knn_ops.knn_search(corpus, ids, q[:1], k)
+        vp, ip = knn_ref.search(corpus, ids, q[:1], k)
+        assert_topk_agree(v1, i1, vp, ip, SCORE_TOL, f"knn B=1 k={k}")
+        s1 = knn_ops.knn_score(corpus, ids, q[:1])
+        score_ms = timed(torch, lambda: knn_ops.knn_score(corpus, ids, q[:1]),
+                         5)
+        select_ms = timed(torch, lambda: knn_ops.knn_select(s1, ids, k), 5)
+        plain = timed(torch, lambda: knn_ref.search(corpus, ids, q[:1], k), 3)
+        log(f"[kernels] knn_search fp32 B=1 k={k} N={N_CORPUS}: ok; "
+            f"knn_score ms={score_ms:.4f} knn_select ms={select_ms:.4f} "
+            f"(op {score_ms + select_ms:.4f}) plain_ms={plain:.4f}")
+    torch.cuda.empty_cache()
     # quantized corpora at N_SMALL
     sub = corpus[:N_SMALL]
     for dtype, i8 in (("bf16", False), ("int8", False), ("int8", True)):
@@ -413,6 +602,73 @@ def knn_phase(torch, rep: Report, corpus, streams):
             f"ok (max_abs_err {e:.3g}) ms={ms:.4f} bound_ms={bms:.4f} ({by})")
         del qc, vp, ip
         torch.cuda.empty_cache()
+    # the two-stage scan at N_SMALL: the tuned tile (fp32: k_eff < k),
+    # int8-dot with its tuned tile, and a small explicit tile
+    for dtype, i8, tile_n in (("fp32", False, None), ("int8", True, None),
+                              ("fp32", False, 256)):
+        qc = quant.quantize(sub, dtype)
+        err, t_n, k_eff, _ = two_stage_check(
+            torch, qc.data, ids[:N_SMALL], q, KC, scale=qc.scale, i8=i8,
+            tile_n=tile_n)
+        ms = timed(torch, lambda: knn_ops.knn_search(
+            qc.data, ids[:N_SMALL], q, KC, scale=qc.scale, int8_dot=i8,
+            tile_n=tile_n, two_stage=True), 3)
+        log(f"[kernels] knn two-stage {dtype}{' int8-dot' if i8 else ''} "
+            f"N={N_SMALL} tile_n={t_n} k_eff={k_eff}: ok (max_abs_err "
+            f"{err:.3g}) ms={ms:.4f}")
+        del qc
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ A/B
+def ab_phase(torch, rep: Report, corpus, streams):
+    """The two-stage A/B baseline over the main path's corpus: the 64 first
+    turns at k = k_c through ``knn_search(two_stage=True)`` (counted),
+    against the fused search and the plain two-stage version; then the
+    ``knn_tile_topk`` row at this shape."""
+    import numpy as np
+
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_topk_agree
+
+    n, dp = corpus.shape
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    q = pad_to(torch, np.stack([s[0] for s in streams]), dp)
+    b = q.shape[0]
+    (v2, i2), launches = counted(torch, lambda: knn_ops.knn_search(
+        corpus, ids, q, KC, two_stage=True))
+    want = {name: 0 for name in launches}
+    want.update(knn_score=1, knn_tile_topk=1)
+    if launches != want:
+        raise AssertionError(f"[ab] launches {launches} != {want}")
+    vf, i_f = knn_ops.knn_search(corpus, ids, q, KC)
+    assert_topk_agree(v2, i2, vf, i_f, SCORE_TOL, "two-stage vs fused")
+    del v2, i2, vf, i_f
+    torch.cuda.empty_cache()
+    err, tile_n, k_eff, qq = two_stage_check(torch, corpus, ids, q, KC)
+    tiles = -(-n // tile_n)
+    ms = timed(torch, lambda: knn_ops.knn_tile_topk(corpus, ids, qq, k_eff,
+                                                    tile_n), 3)
+    plain = timed(torch, lambda: knn_ref.tile_topk(corpus, ids, qq, k_eff,
+                                                   tile_n), 1)
+    torch.cuda.empty_cache()
+
+    def library():
+        s = torch.nn.functional.pad(torch.mm(qq, corpus.T),
+                                    (0, tiles * tile_n - n),
+                                    value=float("-inf"))
+        return torch.topk(s.view(b, tiles, tile_n), k_eff, dim=2)
+
+    lib = timed(torch, library, 2)
+    torch.cuda.empty_cache()
+    rep.add("knn_tile_topk", err=err, ms=ms, plain_ms=plain,
+            nbytes=n * (dp * 4 + 8) + b * dp * 4 + tiles * b * k_eff * 8,
+            ops=2 * b * n * dp, rate=F32_OPS, library_ms=lib)
+    log(f"[ab] two-stage knn_search (tile_n={tile_n}, k_eff={k_eff}, "
+        f"{tiles} tiles) over {n} docs at B={b}, k={KC}: equals the fused "
+        f"search and the plain two-stage version; launches {launches}")
+    return launches
 
 
 # ------------------------------------------------------------ main path
@@ -467,7 +723,6 @@ def check_turns(engine, n_turns):
 def main_phase(torch, corpus, streams):
     import numpy as np
 
-    from repro_torch.kernels import dispatch
     from repro_torch.kernels.knn import ref as knn_ref
     from repro_torch.kernels.parity import assert_topk_agree
 
@@ -491,20 +746,16 @@ def main_phase(torch, corpus, streams):
     torch.cuda.empty_cache()
 
     waves: list = []
-    dispatch.reset_counters()
     t0 = time.perf_counter()
-    engine = serve(torch, corpus, streams, n_sessions=S, k_c=KC,
-                   capacity=CAPACITY, device=DEV, waves_seen=waves)
-    torch.cuda.synchronize()
+    engine, launches = counted(torch, lambda: serve(
+        torch, corpus, streams, n_sessions=S, k_c=KC, capacity=CAPACITY,
+        device=DEV, waves_seen=waves))
     wall = time.perf_counter() - t0
-    counters = dispatch.counters()
     miss, clean = sum(waves), len(waves) - sum(waves)
-    # a CPU rehearsal launches nothing: it counts wrapper calls instead
-    count = "launches" if DEV == "cuda" else "calls"
-    got = {n: getattr(counters[n], count) for n in KERNELS}
+    got = {n: launches.get(n, 0) for n in KERNELS}
     want = {"cache_probe": len(waves), "knn_score": miss, "knn_select": miss,
             "wave_insert_query": miss, "wave_query_topk": clean,
-            "wave_insert_scatter": 0}
+            "wave_insert_scatter": 0, "probe_rhat": 0, "knn_tile_topk": 0}
     if got != want or miss == 0 or clean == 0:
         raise AssertionError(f"launches {got} != {want} for {miss} waves "
                              f"with misses and {clean} without")
@@ -545,7 +796,220 @@ def main_phase(torch, corpus, streams):
          "wave_service": summ["wave_service_s"]}))
     log(f"[main] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return counters
+    return launches
+
+
+# ------------------------------------------------------------ Algorithm 1
+def converse(torch, index, streams, policy, *, k_c, capacity):
+    """Every conversation through one ``ConversationalSearcher``; returns
+    (turn records per conversation, the largest cache)."""
+    from repro_torch.core.conversation import ConversationalSearcher
+
+    s = ConversationalSearcher(index, k=PAPER_K, k_c=k_c, epsilon=EPS,
+                               policy=policy, cache_capacity=capacity)
+    recs, max_docs = [], 0
+    for stream in streams:
+        s.start_conversation()
+        qs = pad_to(torch, stream, index.dim)
+        recs.append([s.answer(q) for q in qs])
+        max_docs = max(max_docs, s.cache.n_docs)
+    return recs, max_docs
+
+
+def rec_scores(recs):
+    """(rows, k) scores back from the records' f32 distances (unit vectors:
+    s = 1 - d^2 / 2, exact to about 1e-7), -inf past the cached docs."""
+    import numpy as np
+    d = np.stack([r.distances for r in recs]).astype(np.float64)
+    return np.where(np.isfinite(d), 1.0 - d * d / 2.0, -np.inf)
+
+
+def agree_to_k(vals, ids, ref_vals, ref_ids, tol, what):
+    """``assert_topk_agree`` for two answers cut at the same k, neither of
+    which shows rank k + 1: the reference's last entry is appended to both,
+    so a last rank tied with an unseen neighbour may hold either doc."""
+    import numpy as np
+
+    from repro_torch.kernels.parity import assert_topk_agree
+    return assert_topk_agree(np.concatenate([vals, ref_vals[:, -1:]], 1),
+                             np.concatenate([ids, ref_ids[:, -1:]], 1),
+                             np.concatenate([ref_vals, ref_vals[:, -1:]], 1),
+                             np.concatenate([ref_ids, ref_ids[:, -1:]], 1),
+                             tol, what)
+
+
+def paper_phase(torch, corpus, world, streams):
+    import numpy as np
+
+    from repro_torch.core import cache_ops as tc
+    from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.kernels.cache_wave import ops as wave_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_topk_agree
+    from repro_torch.metrics import ir
+
+    # small input first: the card answers as the CPU path does
+    small = [s[:4] for s in streams[:8]]
+    world_docs = corpus[:60_000]
+    gpu_index = MetricIndex(world_docs, transformed=True, device=DEV)
+    cpu_index = MetricIndex(world_docs.cpu(), transformed=True, device="cpu")
+    for policy in ("dynamic", "static", "none"):
+        kw = dict(k_c=100, capacity=(4 + 2) * 100)
+        gpu, _ = converse(torch, gpu_index, small, policy, **kw)
+        cpu, _ = converse(torch, cpu_index, small, policy, **kw)
+        for c, (ga, ca) in enumerate(zip(gpu, cpu)):
+            for t, (a, b) in enumerate(zip(ga, ca)):
+                what = f"[paper] small {policy} conversation {c} turn {t}"
+                if a.hit != b.hit or not (a.r_hat == b.r_hat or abs(
+                        a.r_hat - b.r_hat) <= RHAT_TOL):
+                    raise AssertionError(f"{what}: hit / r_hat {a.hit} "
+                                         f"{a.r_hat} != {b.hit} {b.r_hat}")
+                agree_to_k(rec_scores([a]), a.ids[None], rec_scores([b]),
+                           b.ids[None], RHAT_TOL, what)
+    log("[paper] small input (8 conversations x 4 turns, 60000 docs, "
+        "k_c=100): card == CPU path under none / static / dynamic")
+    del gpu_index, cpu_index
+    torch.cuda.empty_cache()
+
+    n, dp = corpus.shape
+    index = MetricIndex(corpus, transformed=True, device=DEV)
+    if index.doc_emb.data_ptr() != corpus.data_ptr():
+        raise AssertionError("the MetricIndex copied the corpus")
+    log(f"[paper] MetricIndex over the ({n}, {dp}) corpus tensor itself: "
+        f"dim {index.dim} (the {dp - DIM_RAW - 1} zero columns after Eq. 1 "
+        f"change no score), no copy; queries padded to {dp}")
+    # exact top-201 of every turn, in batches of 64, by the plain search
+    # (the 201st shows a tie across the k = 200 boundary)
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    flat = np.concatenate(streams)
+    ex_v, ex_i = [], []
+    for lo in range(0, len(flat), 64):
+        v, i = knn_ref.search(corpus, ids, pad_to(torch, flat[lo:lo + 64],
+                                                  dp), PAPER_K + 1)
+        ex_v.append(v.cpu().numpy())
+        ex_i.append(i.cpu().numpy())
+        del v, i
+        torch.cuda.empty_cache()
+    ex_v, ex_i = np.concatenate(ex_v), np.concatenate(ex_i)
+    n_turns = flat.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    runs, totals = {}, {}
+    for policy in ("none", "static", "dynamic"):
+        t0 = time.perf_counter()
+        (recs, max_docs), launches = counted(torch, lambda: converse(
+            torch, index, streams, policy, k_c=KC, capacity=PAPER_CAP))
+        wall = time.perf_counter() - t0
+        flat_recs = [r for conv in recs for r in conv]
+        misses = sum(not r.hit for r in flat_recs)
+        want = {name: 0 for name in launches}
+        if policy == "none":
+            want.update(knn_score=n_turns, knn_select=n_turns)
+        else:
+            want.update(probe_rhat=n_turns, wave_query_topk=n_turns,
+                        knn_score=misses, knn_select=misses,
+                        wave_insert_scatter=misses)
+        if launches != want:
+            raise AssertionError(f"[paper] {policy}: launches {launches} "
+                                 f"!= {want}")
+        for name, v in launches.items():
+            totals[name] = totals.get(name, 0) + v
+        if policy == "none":
+            # each turn's 200 with the exact 201st appended: a 200th doc
+            # tied with the 201st may be either of them
+            assert_topk_agree(
+                np.concatenate([rec_scores(flat_recs), ex_v[:, -1:]], 1),
+                np.concatenate([np.stack([r.ids for r in flat_recs]),
+                                ex_i[:, -1:]], 1),
+                ex_v, ex_i, SCORE_TOL, "[paper] none vs exact")
+        per = {m: [] for m in ("map", "mrr", "ndcg", "p1", "p3", "cov10")}
+        hits = []
+        for c, conv in enumerate(recs):
+            for t, r in enumerate(conv):
+                ranked = r.ids.tolist()
+                qr = world.conversations[c].qrels[t]
+                per["map"].append(ir.average_precision(ranked, qr, 200))
+                per["mrr"].append(ir.mrr(ranked, qr, 200))
+                per["ndcg"].append(ir.ndcg_at_k(ranked, qr, 3))
+                per["p1"].append(ir.precision_at_k(ranked, qr, 1))
+                per["p3"].append(ir.precision_at_k(ranked, qr, 3))
+                row = c * len(conv) + t
+                per["cov10"].append(ir.coverage(
+                    ranked, ex_i[row, :10].tolist(), 10))
+                if t > 0:
+                    hits.append(r.hit)
+        lat = np.array([r.latency_s for r in flat_recs])
+        row = {"policy": policy, "turns": n_turns, "misses": misses,
+               "hit_rate_2_10": float(np.mean(hits)),
+               **{m: float(np.mean(v)) for m, v in per.items()},
+               "max_cache_docs": max_docs,
+               "turn_p50_s": float(np.percentile(lat, 50)),
+               "turn_p99_s": float(np.percentile(lat, 99)),
+               "wall_s": wall}
+        log("[paper] " + json.dumps(row))
+        runs[policy] = recs
+    log(f"[paper] launches over the three runs {totals}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (corpus "
+        f"{corpus.numel() * 4 / 1e9:.2f} GB)")
+    # device time of a hit turn's cache query: the wave kernel on one
+    # session scans every physical slot, whatever the occupancy
+    cfg = tc.CacheConfig(capacity=PAPER_CAP, dim=dp)
+    st = tc.init_batched_cache(cfg, 1, DEV)
+    psi = pad_to(torch, flat[:1], dp)
+    q_ms = timed(torch, lambda: wave_ops.wave_query_topk(
+        st.doc_emb, st.doc_ids, st.doc_scale, psi, PAPER_K), 20)
+    log(f"[paper] wave_query_topk S=1 Cp={cfg.phys_capacity} k={PAPER_K}: "
+        f"ms={q_ms:.4f}")
+    return runs["dynamic"], totals
+
+
+def engine_phase(torch, corpus, streams, dynamic):
+    """``ConversationalEngine`` behind the router, turn for turn against
+    the dynamic searcher's turns."""
+    import numpy as np
+
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.serve import ConversationalEngine, ShardedRouter
+
+    n, dp = corpus.shape
+    n_conv = 8
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+
+    def serve_all():
+        with ShardedRouter([DeviceShard(corpus, ids, device=DEV,
+                                        dtype="fp32")],
+                           deadline_s=300) as router:
+            eng = ConversationalEngine(router, corpus, dim=dp, k=K, k_c=KC,
+                                       epsilon=EPS, capacity=PAPER_CAP,
+                                       dtype="fp32", device=DEV)
+            out = []
+            for stream in streams[:n_conv]:
+                eng.start_session()
+                out.append([eng.answer(q) for q in pad_to(torch, stream, dp)])
+            return out
+
+    convs, launches = counted(torch, serve_all)
+    turns = sum(len(c) for c in convs)
+    misses = sum(not t.hit for c in convs for t in c)
+    want = {name: 0 for name in launches}
+    want.update(probe_rhat=turns, wave_query_topk=turns, knn_score=misses,
+                knn_select=misses, wave_insert_scatter=misses)
+    if launches != want:
+        raise AssertionError(f"[engine] launches {launches} != {want}")
+    compared = ties = 0
+    for c, (turns_e, turns_s) in enumerate(zip(convs, dynamic)):
+        for t, (e, s) in enumerate(zip(turns_e, turns_s)):
+            if abs(s.r_hat - EPS) <= RHAT_TOL:
+                ties += 1          # a tie at epsilon: the caches may part
+                break
+            if e.hit != s.hit or not np.array_equal(e.ids, s.ids[:K]):
+                raise AssertionError(f"[engine] conversation {c} turn {t}: "
+                                     f"hit {e.hit} ids {e.ids} != the "
+                                     f"searcher's {s.hit} {s.ids[:K]}")
+            compared += 1
+    log(f"[engine] {n_conv} conversations x {len(convs[0])} turns: "
+        f"{compared} turns equal the dynamic searcher's ({ties} ties at "
+        f"epsilon), {misses} misses; launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -582,12 +1046,19 @@ def main() -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     rep = Report()
+    t_start = time.perf_counter()
     probe_phase(torch, rep, gen)
+    probe_single_phase(torch, rep, gen)
     wave_phase(torch, rep, gen)
-    _world, corpus, streams = build_corpus(torch, args.seed)
+    world, corpus, streams = build_corpus(torch, args.seed)
     knn_phase(torch, rep, corpus, streams)
-    counters = main_phase(torch, corpus, streams)
-    print(rep.line(counters))
+    paths = [ab_phase(torch, rep, corpus, streams),
+             main_phase(torch, corpus, streams)]
+    dynamic, paper = paper_phase(torch, corpus, world, streams)
+    paths += [paper, engine_phase(torch, corpus, streams, dynamic)]
+    launches = {n: sum(p.get(n, 0) for p in paths) for n in KERNELS}
+    log(f"[done] phases in {time.perf_counter() - t_start:.1f} s")
+    print(rep.line(launches))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

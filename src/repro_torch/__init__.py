@@ -11,3 +11,11 @@ dispatch on the tensor's device alone — a CUDA tensor launches the hand
 written kernel (or raises), a CPU tensor takes the plain PyTorch version
 beside it.
 """
+
+from repro_torch.core.cache import MetricCache
+from repro_torch.core.conversation import ConversationalSearcher, TurnRecord
+from repro_torch.core.metric_index import MetricIndex
+from repro_torch.serve.engine import ConversationalEngine
+
+__all__ = ["MetricCache", "ConversationalSearcher", "TurnRecord",
+           "MetricIndex", "ConversationalEngine"]

@@ -1,11 +1,19 @@
-"""The L1 session tier: ``BatchedMetricCache`` over the stacked cache ops.
+"""The L1 session tier: host wrappers over the cache ops.
 
-The port of ``repro.core.cache.BatchedMetricCache``: one stacked
-``CacheState`` for S concurrent sessions on one device, with ``gather`` /
-``scatter`` of a wave's rows and per-session ``reset``.  ``gather`` copies
-the wave's rows (the cache ops then update that copy in place) and
-``scatter`` writes them back, in place.  The single-session ``MetricCache``
-is not part of this port yet.
+The port of ``repro.core.cache``'s wrappers:
+
+  * ``MetricCache`` — one conversation's cache (Algorithm 1 for one
+    session): ``probe`` is one launch of the single-session probe kernel
+    (``kernels.cache_probe.cache_probe``), ``query`` and ``insert`` one
+    launch each of the wave kernel in query and insert mode (the scalar
+    ``cache_ops`` ops).  The JAX ``use_kernel=`` argument is gone: the port
+    has no kernel tiers, and the state's device alone decides (a CUDA
+    state launches the kernels, a CPU state runs their plain versions).
+  * ``BatchedMetricCache`` — one stacked ``CacheState`` for S concurrent
+    sessions on one device, with ``gather`` / ``scatter`` of a wave's rows
+    and per-session ``reset``.  ``gather`` copies the wave's rows (the
+    cache ops then update that copy in place) and ``scatter`` writes them
+    back, in place.
 """
 
 from __future__ import annotations
@@ -14,9 +22,69 @@ import numpy as np
 import torch
 
 from repro_torch.core.cache_ops import (CacheConfig, CacheState,
-                                        init_batched_cache)
+                                        ProbeResult, init_batched_cache,
+                                        init_cache, insert, query)
+from repro_torch.kernels.cache_probe.ops import cache_probe
 
-__all__ = ["BatchedMetricCache"]
+__all__ = ["MetricCache", "BatchedMetricCache"]
+
+
+class MetricCache:
+    """One session's cache on one device (None means ``cuda``); the ops
+    update ``state`` in place."""
+
+    def __init__(self, cfg: CacheConfig, device=None):
+        self.cfg = cfg
+        self.state = init_cache(cfg, device)
+        self.device = self.state.doc_ids.device
+        self.total_dropped = 0
+
+    def reset(self):
+        self.state = init_cache(self.cfg, self.device)
+        self.total_dropped = 0
+
+    @property
+    def n_docs(self) -> int:
+        return int(self.state.n_docs)
+
+    @property
+    def n_queries(self) -> int:
+        """Number of *valid* query records (the ring holds the newest)."""
+        return min(int(self.state.n_queries), self.cfg.max_queries)
+
+    @property
+    def total_queries(self) -> int:
+        """Total queries ever recorded, including ring-overwritten ones."""
+        return int(self.state.n_queries)
+
+    def _psi(self, psi) -> torch.Tensor:
+        return torch.as_tensor(psi, device=self.device).to(torch.float32)
+
+    def probe(self, psi, epsilon=None) -> ProbeResult:
+        """The LowQuality test of ``psi`` (dim,): one probe launch."""
+        eps = self.cfg.epsilon if epsilon is None else epsilon
+        st = self.state
+        return ProbeResult(*cache_probe(
+            st.q_emb, self._psi(psi), st.q_radius, st.n_queries, eps,
+            q_scale=st.q_scale, max_queries=self.cfg.max_queries))
+
+    def query(self, psi, k: int):
+        """(scores, dists, ids, slots) of the top k, with the LRU touch."""
+        out, self.state = query(self.state, self._psi(psi), k)
+        return out
+
+    def insert(self, psi, radius, new_emb, new_ids, record=True):
+        """Insert k_c back-end rows (and the (psi, r_a) record)."""
+        self.state, dropped = insert(self.state, self.cfg, self._psi(psi),
+                                     radius, new_emb, new_ids, record)
+        self.total_dropped += int(dropped)
+
+    def memory_bytes(self) -> int:
+        """Worst-case occupancy (paper RQ1.C) at the physical extents."""
+        s = self.state
+        return sum(x.numel() * x.element_size() for x in
+                   (s.doc_emb, s.doc_ids, s.doc_stamp, s.q_emb, s.q_radius,
+                    s.doc_scale, s.q_scale))
 
 
 class BatchedMetricCache:

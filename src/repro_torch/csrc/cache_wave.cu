@@ -17,33 +17,32 @@
 //      one warp per row in 16-byte vectors;
 //   2. write the (psi, r_a, scale) record at ring slot qslot when rec is
 //      set;
-//   3. __syncthreads, then scan the post-insert capacity in tiles of 1024
-//      slots: one warp per slot takes the f32 dot with psi (times the slot
-//      scale; empty slots get key BIG_NEG), and k rounds of block argmax
-//      merge each tile into a running (key, slot) top-k carry in shared
-//      memory.  The order is (key descending, slot ascending), so finite
-//      scores come first with ties to the lower slot and empty slots follow
-//      in ascending order — the order of the stable top-k and of the TPU
-//      kernel's BIG_NEG / INIT / KNOCK bands.
+//   3. __syncthreads, then score every slot — one warp per slot takes the
+//      f32 dot with psi, times the slot scale; empty slots get the key
+//      BIG_NEG — into the session's row of a (S, Cp) f32 key scratch, and
+//      select the top k of it with select.cuh (radix select, compaction,
+//      bitonic sort) for any k <= Cp.  The order is (key descending, slot
+//      ascending), so finite scores come first with ties to the lower slot
+//      and empty slots follow in ascending order — the order of the stable
+//      top-k and of the TPU kernel's BIG_NEG / INIT / KNOCK bands.  The
+//      survivors sit in dynamic shared memory while they fit, else in a
+//      global scratch the wrapper passes.
 //
 // Bound: bytes.  S * Cp * Dp * itemsize read by the query scan and
 // S * k_c * Dp * itemsize written by the scatter (plus the small id, scale
 // and stamp columns); the dot is 2 operations per payload element.  The
 // design streams every cache row once with coalesced warp loads; one block
-// per session keeps the scan and its top-k carry on one SM without any
+// per session keeps the scan and its selection on one SM without any
 // cross-block merge.
 
-#include <climits>
-
 #include "common.cuh"
+#include "select.cuh"
 
 namespace {
 
 using repro::to_f;
 
 constexpr int THREADS = 512;
-constexpr int TILE = 1024;
-constexpr int MAXK = 128;
 constexpr float BIG_NEG = -1.0e38f;
 
 struct WaveArgs {
@@ -68,7 +67,10 @@ struct WaveArgs {
   float* out_vals;
   int* out_ids;
   int* out_slots;
-  int cp, dp, kc, qp, k;
+  float* keys;
+  uint32_t* pair_key;
+  int* pair_pos;
+  int cp, dp, kc, qp, k, kp;
 };
 
 // Copy one payload row; dp * sizeof(T) is a multiple of 32 bytes.
@@ -78,10 +80,6 @@ __device__ __forceinline__ void copy_row(T* dst, const T* src, int dp, int first
   const uint4* s = reinterpret_cast<const uint4*>(src);
   uint4* d = reinterpret_cast<uint4*>(dst);
   for (int v = first; v < nvec; v += step) d[v] = s[v];
-}
-
-__device__ __forceinline__ bool better(float ka, int sa, float kb, int sb) {
-  return ka > kb || (ka == kb && sa < sb);
 }
 
 template <typename T, bool INS, bool QRY>
@@ -124,107 +122,44 @@ __global__ void __launch_bounds__(THREADS) wave_kernel(WaveArgs a) {
   }
 
   if constexpr (QRY) {
-    extern __shared__ float psi_s[];
-    __shared__ float key_s[TILE];
-    __shared__ float ck[MAXK], nk[MAXK];
-    __shared__ int cs[MAXK], ns[MAXK];
-    __shared__ float red_k[32];
-    __shared__ int red_s[32], red_u[32];
+    extern __shared__ float dyn[];          // psi, then the pairs if local
+    __shared__ repro::SelectShared sel;
+    float* psi_s = dyn;
     const float* psi = a.psi + static_cast<size_t>(s) * a.dp;
     for (int i = tid; i < a.dp; i += blockDim.x) psi_s[i] = psi[i];
-    for (int r = tid; r < a.k; r += blockDim.x) {
-      ck[r] = -INFINITY;
-      cs[r] = INT_MAX;
+    __syncthreads();
+    // every slot's key into this session's row of the key scratch
+    float* keys = a.keys + static_cast<size_t>(s) * a.cp;
+    for (int slot = warp; slot < a.cp; slot += nwarps) {
+      const T* row = demb + static_cast<size_t>(slot) * a.dp;
+      float acc = 0.0f;
+      for (int i = lane; i < a.dp; i += 32) acc = fmaf(to_f(row[i]), psi_s[i], acc);
+      acc = repro::warp_sum(acc);
+      if (lane == 0) keys[slot] = dids[slot] < 0 ? BIG_NEG : __fmul_rn(acc, dscale[slot]);
     }
     __syncthreads();
-    for (int base = 0; base < a.cp; base += TILE) {
-      const int nt = min(TILE, a.cp - base);
-      for (int c = warp; c < nt; c += nwarps) {
-        const int slot = base + c;
-        const T* row = demb + static_cast<size_t>(slot) * a.dp;
-        float acc = 0.0f;
-        for (int i = lane; i < a.dp; i += 32) acc = fmaf(to_f(row[i]), psi_s[i], acc);
-        acc = repro::warp_sum(acc);
-        if (lane == 0) key_s[c] = dids[slot] < 0 ? BIG_NEG : __fmul_rn(acc, dscale[slot]);
-      }
-      __syncthreads();
-      const int nu = a.k + nt;
-      for (int r = 0; r < a.k; ++r) {
-        float bk = -INFINITY;
-        int bs = INT_MAX, bu = -1;
-        for (int u = tid; u < nu; u += blockDim.x) {
-          const float kk = u < a.k ? ck[u] : key_s[u - a.k];
-          const int ss = u < a.k ? cs[u] : base + u - a.k;
-          if (better(kk, ss, bk, bs)) {
-            bk = kk;
-            bs = ss;
-            bu = u;
-          }
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ok = __shfl_down_sync(0xffffffffu, bk, o);
-          const int os = __shfl_down_sync(0xffffffffu, bs, o);
-          const int ou = __shfl_down_sync(0xffffffffu, bu, o);
-          if (better(ok, os, bk, bs)) {
-            bk = ok;
-            bs = os;
-            bu = ou;
-          }
-        }
-        if (lane == 0) {
-          red_k[warp] = bk;
-          red_s[warp] = bs;
-          red_u[warp] = bu;
-        }
-        __syncthreads();
-        if (warp == 0) {
-          bk = lane < nwarps ? red_k[lane] : -INFINITY;
-          bs = lane < nwarps ? red_s[lane] : INT_MAX;
-          bu = lane < nwarps ? red_u[lane] : -1;
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            const float ok = __shfl_down_sync(0xffffffffu, bk, o);
-            const int os = __shfl_down_sync(0xffffffffu, bs, o);
-            const int ou = __shfl_down_sync(0xffffffffu, bu, o);
-            if (better(ok, os, bk, bs)) {
-              bk = ok;
-              bs = os;
-              bu = ou;
-            }
-          }
-          if (lane == 0) {
-            nk[r] = bk;
-            ns[r] = bs;
-            if (bu >= 0 && bu < a.k) {
-              ck[bu] = -INFINITY;
-              cs[bu] = INT_MAX;
-            } else if (bu >= a.k) {
-              key_s[bu - a.k] = -INFINITY;
-            }
-          }
-        }
-        __syncthreads();
-      }
-      for (int r = tid; r < a.k; r += blockDim.x) {
-        ck[r] = nk[r];
-        cs[r] = ns[r];
-      }
-      __syncthreads();
-    }
+    uint32_t* ck = a.pair_key ? a.pair_key + static_cast<size_t>(s) * a.kp
+                              : reinterpret_cast<uint32_t*>(dyn + a.dp);
+    int* cpos = a.pair_key ? a.pair_pos + static_cast<size_t>(s) * a.kp
+                           : reinterpret_cast<int*>(ck + a.kp);
+    repro::block_topk(repro::RowKeys{keys, a.cp}, a.cp, a.k, a.kp, ck, cpos, sel);
     const size_t oo = static_cast<size_t>(s) * a.k;
     for (int r = tid; r < a.k; r += blockDim.x) {
-      const bool live = ck[r] > BIG_NEG;
-      a.out_vals[oo + r] = live ? ck[r] : -INFINITY;
-      a.out_ids[oo + r] = live ? dids[cs[r]] : -1;
-      a.out_slots[oo + r] = cs[r];
+      const int slot = cpos[r];
+      const float key = keys[slot];
+      const bool live = key > BIG_NEG;
+      a.out_vals[oo + r] = live ? key : -INFINITY;
+      a.out_ids[oo + r] = live ? dids[slot] : -1;
+      a.out_slots[oo + r] = slot;
     }
   }
 }
 
 template <typename T, bool INS, bool QRY>
 cudaError_t launch(const WaveArgs& a, int s, cudaStream_t stream) {
-  const size_t smem = QRY ? static_cast<size_t>(a.dp) * sizeof(float) : 0;
+  const size_t smem =
+      QRY ? static_cast<size_t>(a.dp) * sizeof(float) + (a.pair_key ? 0 : static_cast<size_t>(a.kp) * 8)
+          : 0;
   cudaError_t err = repro::allow_smem(wave_kernel<T, INS, QRY>, smem);
   if (err != cudaSuccess) return err;
   wave_kernel<T, INS, QRY><<<s, THREADS, smem, stream>>>(a);
@@ -250,10 +185,11 @@ extern "C" int cache_wave(int mode, int store, void* doc_emb, void* doc_ids, voi
                           const void* pos, const void* psi_q, const void* psi_scale,
                           const void* radius, const void* rec, const void* qslot,
                           const void* step, const void* psi, void* out_vals, void* out_ids,
-                          void* out_slots, int s, int cp, int dp, int kc, int qp, int k,
-                          void* stream) {
+                          void* out_slots, void* keys, void* pair_key, void* pair_pos, int s,
+                          int cp, int dp, int kc, int qp, int k, int kp, void* stream) {
   if (s == 0) return 0;
-  if (mode != 2 && (k < 1 || k > MAXK || k > cp)) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != 2 && (k < 1 || k > cp || kp < k || (kp & (kp - 1)) || keys == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   WaveArgs a;
   a.doc_emb = doc_emb;
   a.doc_ids = static_cast<int*>(doc_ids);
@@ -276,11 +212,15 @@ extern "C" int cache_wave(int mode, int store, void* doc_emb, void* doc_ids, voi
   a.out_vals = static_cast<float*>(out_vals);
   a.out_ids = static_cast<int*>(out_ids);
   a.out_slots = static_cast<int*>(out_slots);
+  a.keys = static_cast<float*>(keys);
+  a.pair_key = static_cast<uint32_t*>(pair_key);
+  a.pair_pos = static_cast<int*>(pair_pos);
   a.cp = cp;
   a.dp = dp;
   a.kc = kc;
   a.qp = qp;
   a.k = k;
+  a.kp = kp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (store) {
     case repro::kF32: return launch_mode<float>(mode, a, s, st);

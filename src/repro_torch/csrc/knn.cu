@@ -2,45 +2,51 @@
 //
 // Replaces: src/repro/kernels/knn/knn.py:197 knn_fused_topk (the Pallas
 // double-buffered tile scan with a (B, k) carry merged by k rounds of
-// max-extract).  On a GPU at k = k_c = 1000 that merge is k serial block
-// reductions per tile; here the work is split in two launches instead:
+// max-extract) and src/repro/kernels/knn/knn.py:285 knn_tile_topk (the
+// per-tile k_eff rounds of max-extract of the two-stage scheme).  On a GPU
+// at k = k_c = 1000 those merges are k serial block reductions per tile;
+// here the work is split in two launches instead:
 //
 //   (a) knn_score  — masked f32 scores for the whole (B, N) matrix into a
 //       scratch buffer.  Dequantize-first rule: payload -> f32, f32 dot,
 //       times the per-document scale.  int8-dot rule: int8 x int8 summed
 //       exactly in int32, then (f32(acc) * q_scale) * scale — the
 //       association order of knn.py:89.  Rows with id < 0 score -inf.
-//   (b) knn_select — one block per query row: an exact radix select of the
-//       k-th largest order-preserving uint32 key (4 passes of 8 bits with
-//       warp-aggregated shared-memory histograms), compaction of every key
-//       above it plus the LOWEST positions among keys equal to it (the
-//       stable top-k order), and a bitonic sort of the <= 1024 survivors by
-//       (score descending, position ascending).  -inf results carry id -1.
+//   (b) knn_select — one block per query row: the stable top-k of the
+//       row (select.cuh: radix select of the k-th key, compaction, bitonic
+//       sort of the pow2(k) survivors by (score desc, position asc)) for
+//       any k <= N; -inf results carry id -1.
+//   (b') knn_tile_select — the two-stage scheme's per-tile stage: one block
+//       per (tile, query row), the same stable top-k of the tile's tile_n
+//       scores (positions past N read -inf), writing (tiles, B, k_eff)
+//       values and corpus positions.  The wrapper merges the candidates.
+//
+// The survivors sit in dynamic shared memory (8 B per pair) while they fit
+// and in a global scratch buffer the wrapper passes otherwise.
 //
 // Bound: the corpus pass, N * (Dp * itemsize + 8) bytes plus the queries
-// and the (B, k) answer, against 2 * B * N * Dp operations (f32 on the CUDA
+// and the answer, against 2 * B * N * Dp operations (f32 on the CUDA
 // cores, or int8).  At B = 64 and fp32 the operations dominate; bf16 and
 // int8 halve and quarter the bytes.  Design: (a) is a plain shared-memory
 // tiled product (64 queries x 128 documents x 32 features per block, 4 x 8
 // outputs per thread) so each corpus tile is read from device memory once
-// for all B <= 64 queries; (b) re-reads the (B, N) f32 scratch five times,
-// which a later single-pass kernel that keeps the scores on chip removes.
+// for all B <= 64 queries — a single query (B = 1) pays the same block
+// work; (b) re-reads the (B, N) f32 scratch five times, which a later
+// single-pass kernel that keeps the scores on chip removes.
 
 #include <climits>
 #include <type_traits>
 
 #include "common.cuh"
+#include "select.cuh"
 
 namespace {
 
-using repro::float_key;
-using repro::key_float;
 using repro::to_f;
 
 constexpr int BM = 64;
 constexpr int BN = 128;
 constexpr int BK = 32;
-constexpr int MAXK = 1024;
 
 template <typename T, bool I8DOT>
 __global__ void __launch_bounds__(256)
@@ -132,162 +138,48 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Exclusive block-wide prefix sum of one int per thread; *total gets the sum.
-__device__ int block_exclusive_scan(int v, int* warp_tot, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    const int t0 = lane < nwarps ? warp_tot[lane] : 0;
-    int t = t0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    warp_tot[lane] = t - t0;
-    if (lane == 31) warp_tot[32] = t;
-  }
-  __syncthreads();
-  const int res = warp_tot[warp] + x - v;
-  *total = warp_tot[32];
-  __syncthreads();
-  return res;
-}
-
-__device__ __forceinline__ bool before(uint32_t ka, int pa, uint32_t kb, int pb) {
-  return ka > kb || (ka == kb && pa < pb);
-}
-
+// One block per query row: the stable top-k of the row's n scores.  The
+// pairs live in dynamic shared memory, or in (B, kp) global scratch when
+// the wrapper passes one.
 __global__ void __launch_bounds__(1024)
     select_kernel(const float* __restrict__ scores, const int* __restrict__ ids,
-                  float* __restrict__ out_vals, int* __restrict__ out_ids, long long n,
-                  int k, int kp) {
-  __shared__ unsigned hist[256];
-  __shared__ uint32_t cand_key[MAXK];
-  __shared__ int cand_pos[MAXK];
-  __shared__ int warp_tot[33];
-  __shared__ uint32_t s_prefix;
-  __shared__ int s_kr, s_ngt, s_neq;
-  const float* row = scores + static_cast<size_t>(blockIdx.x) * n;
-  const int tid = threadIdx.x, lane = tid & 31;
-  if (tid == 0) {
-    s_prefix = 0u;
-    s_kr = k;
-    s_ngt = 0;
-    s_neq = 0;
+                  float* __restrict__ out_vals, int* __restrict__ out_ids,
+                  uint32_t* pair_key, int* pair_pos, long long n, int k, int kp) {
+  extern __shared__ uint32_t pairs[];
+  __shared__ repro::SelectShared sh;
+  const size_t r0 = blockIdx.x;
+  const float* row = scores + r0 * n;
+  uint32_t* ck = pair_key ? pair_key + r0 * kp : pairs;
+  int* cpos = pair_key ? pair_pos + r0 * kp : reinterpret_cast<int*>(pairs + kp);
+  repro::block_topk(repro::RowKeys{row, n}, n, k, kp, ck, cpos, sh);
+  for (int r = threadIdx.x; r < k; r += blockDim.x) {
+    const int p = cpos[r];
+    const float v = row[p];
+    out_vals[r0 * k + r] = v;
+    out_ids[r0 * k + r] = (v == -INFINITY) ? -1 : ids[p];
   }
-  // radix select of the k-th largest key, 8 bits per pass from the top
-  uint32_t mask = 0u;
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    for (int i = tid; i < 256; i += blockDim.x) hist[i] = 0u;
-    __syncthreads();
-    const uint32_t prefix = s_prefix;
-    for (long long base = 0; base < n; base += blockDim.x) {
-      const long long i = base + tid;
-      int bin = -1;
-      if (i < n) {
-        const uint32_t key = float_key(row[i]);
-        if ((key & mask) == prefix) bin = static_cast<int>((key >> shift) & 255u);
-      }
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
-    }
-    __syncthreads();
-    if (tid == 0) {
-      const unsigned kr = static_cast<unsigned>(s_kr);
-      unsigned cum = 0u;
-      for (int bb = 255; bb >= 0; --bb) {
-        if (cum + hist[bb] >= kr) {
-          s_prefix = prefix | (static_cast<uint32_t>(bb) << shift);
-          s_kr = static_cast<int>(kr - cum);
-          break;
-        }
-        cum += hist[bb];
-      }
-    }
-    mask |= 255u << shift;
-    __syncthreads();
-  }
-  const uint32_t thr = s_prefix;
-  const int need_eq = s_kr;       // keys equal to the threshold to keep
-  const int n_gt = k - need_eq;   // keys strictly above it (all kept)
+}
 
-  // compaction: every key above thr (any order; the sort orders them) and
-  // the need_eq lowest positions holding thr, in position order
-  for (long long base = 0; base < n; base += 4LL * blockDim.x) {
-    uint32_t key[4];
-    int eqc = 0;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const long long i = base + 4LL * tid + u;
-      key[u] = i < n ? float_key(row[i]) : 0u;
-      if (i < n && key[u] > thr) {
-        const int slot = atomicAdd(&s_ngt, 1);
-        cand_key[slot] = key[u];
-        cand_pos[slot] = static_cast<int>(i);
-      }
-      eqc += (i < n && key[u] == thr) ? 1 : 0;
-    }
-    if (__syncthreads_or(eqc > 0)) {
-      const int before_n = s_neq;
-      if (before_n < need_eq) {
-        int total;
-        int r = before_n + block_exclusive_scan(eqc, warp_tot, &total);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const long long i = base + 4LL * tid + u;
-          if (i < n && key[u] == thr) {
-            if (r < need_eq) {
-              cand_key[n_gt + r] = thr;
-              cand_pos[n_gt + r] = static_cast<int>(i);
-            }
-            ++r;
-          }
-        }
-        if (tid == 0) s_neq = before_n + total;
-      }
-    }
-  }
-  __syncthreads();
-  for (int r = k + tid; r < kp; r += blockDim.x) {
-    cand_key[r] = 0u;
-    cand_pos[r] = INT_MAX;
-  }
-  __syncthreads();
-
-  // bitonic sort of kp survivors by (key desc, position asc)
-  for (int size = 2; size <= kp; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < kp / 2; t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        if (before(cand_key[j], cand_pos[j], cand_key[i], cand_pos[i]) == up) {
-          const uint32_t tk = cand_key[i];
-          cand_key[i] = cand_key[j];
-          cand_key[j] = tk;
-          const int tp = cand_pos[i];
-          cand_pos[i] = cand_pos[j];
-          cand_pos[j] = tp;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int r = tid; r < k; r += blockDim.x) {
-    const float v = key_float(cand_key[r]);
-    const size_t o = static_cast<size_t>(blockIdx.x) * k + r;
-    out_vals[o] = v;
-    out_ids[o] = (v == -INFINITY) ? -1 : ids[cand_pos[r]];
+// One block per (tile, query row): the stable top-k of the tile's tile_n
+// scores, positions past the corpus reading -inf.  Writes (tiles, B, k)
+// values and corpus positions.
+__global__ void __launch_bounds__(256)
+    tile_select_kernel(const float* __restrict__ scores, float* __restrict__ out_vals,
+                       int* __restrict__ out_pos, uint32_t* pair_key, int* pair_pos,
+                       long long n, int tile_n, int k, int kp) {
+  extern __shared__ uint32_t pairs[];
+  __shared__ repro::SelectShared sh;
+  const long long base = static_cast<long long>(blockIdx.x) * tile_n;
+  const float* row = scores + static_cast<size_t>(blockIdx.y) * n + base;
+  const long long valid = n - base < tile_n ? n - base : tile_n;
+  const size_t o = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
+  uint32_t* ck = pair_key ? pair_key + o * kp : pairs;
+  int* cpos = pair_key ? pair_pos + o * kp : reinterpret_cast<int*>(pairs + kp);
+  repro::block_topk(repro::RowKeys{row, valid}, tile_n, k, kp, ck, cpos, sh);
+  for (int r = threadIdx.x; r < k; r += blockDim.x) {
+    const int p = cpos[r];
+    out_vals[o * k + r] = p < valid ? row[p] : -INFINITY;
+    out_pos[o * k + r] = static_cast<int>(base + p);
   }
 }
 
@@ -329,13 +221,35 @@ extern "C" int knn_score(const void* q, const void* q_scale, const void* docs,
 }
 
 extern "C" int knn_select(const void* scores, const void* ids, void* out_vals, void* out_ids,
-                          int b, long long n, int k, void* stream) {
+                          void* pair_key, void* pair_pos, int b, long long n, int k, int kp,
+                          void* stream) {
   if (b == 0) return 0;
-  if (k < 1 || k > MAXK || k > n) return static_cast<int>(cudaErrorInvalidValue);
-  int kp = 1;
-  while (kp < k) kp <<= 1;
-  select_kernel<<<b, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (k < 1 || k > n || kp < k || (kp & (kp - 1))) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = pair_key ? 0 : static_cast<size_t>(kp) * 8;
+  cudaError_t err = repro::allow_smem(select_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  select_kernel<<<b, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scores), static_cast<const int*>(ids),
-      static_cast<float*>(out_vals), static_cast<int*>(out_ids), n, k, kp);
+      static_cast<float*>(out_vals), static_cast<int*>(out_ids),
+      static_cast<uint32_t*>(pair_key), static_cast<int*>(pair_pos), n, k, kp);
+  return cudaGetLastError();
+}
+
+extern "C" int knn_tile_select(const void* scores, void* out_vals, void* out_pos,
+                               void* pair_key, void* pair_pos, int b, long long n, int tile_n,
+                               int k, int kp, void* stream) {
+  if (b == 0 || n == 0) return 0;
+  if (k < 1 || k > tile_n || kp < k || (kp & (kp - 1)) || b > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (n + tile_n - 1) / tile_n;
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = pair_key ? 0 : static_cast<size_t>(kp) * 8;
+  cudaError_t err = repro::allow_smem(tile_select_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(b));
+  tile_select_kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(scores), static_cast<float*>(out_vals),
+      static_cast<int*>(out_pos), static_cast<uint32_t*>(pair_key),
+      static_cast<int*>(pair_pos), n, tile_n, k, kp);
   return cudaGetLastError();
 }

@@ -1,0 +1,195 @@
+// Block-wide exact top-k in the stable order, shared by the kNN select
+// (knn.cu knn_select), the two-stage tile select (knn.cu knn_tile_select)
+// and the cache wave's query (cache_wave.cu).
+//
+// One block selects the k largest of n order-preserving uint32 keys
+// (repro::float_key) and writes them in the stable top-k order — key
+// descending, position ascending — as (key, position) pairs:
+//
+//   1. radix select of the k-th largest key: 4 passes of 8 bits from the
+//      top, each a warp-aggregated shared-memory histogram over the keys
+//      still matching the prefix;
+//   2. compaction of every key above it (in any order) plus the LOWEST
+//      positions holding it, in position order (a block-wide prefix sum);
+//   3. a bitonic sort of the kp = pow2(k) pairs by (key desc, position asc),
+//      with (0, INT_MAX) padding that sorts last.
+//
+// The pair arrays hold kp entries and belong to the calling block alone:
+// shared memory while kp * 8 bytes fit (the wrapper's choice), else a
+// global scratch buffer — __syncthreads orders global accesses within a
+// block as it does shared ones, so one code path serves both.
+
+#pragma once
+
+#include <climits>
+
+#include "common.cuh"
+
+namespace repro {
+
+struct SelectShared {
+  unsigned hist[256];
+  int warp_tot[33];
+  uint32_t prefix;
+  int kr, ngt, neq;
+};
+
+// Keys of one row of f32 scores; positions at or past n_valid read as -inf.
+struct RowKeys {
+  const float* row;
+  long long n_valid;
+  __device__ __forceinline__ uint32_t operator()(long long i) const {
+    return float_key(i < n_valid ? row[i] : -INFINITY);
+  }
+};
+
+// Exclusive block-wide prefix sum of one int per thread; *total gets the sum.
+__device__ inline int block_exclusive_scan(int v, int* warp_tot, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int t0 = lane < nwarps ? warp_tot[lane] : 0;
+    int t = t0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, t, o);
+      if (lane >= o) t += y;
+    }
+    warp_tot[lane] = t - t0;
+    if (lane == 31) warp_tot[32] = t;
+  }
+  __syncthreads();
+  const int res = warp_tot[warp] + x - v;
+  *total = warp_tot[32];
+  __syncthreads();
+  return res;
+}
+
+__device__ __forceinline__ bool key_before(uint32_t ka, int pa, uint32_t kb, int pb) {
+  return ka > kb || (ka == kb && pa < pb);
+}
+
+// The k largest of the n keys key_at(0 .. n-1) into cand_key / cand_pos
+// [0, k) in the stable top-k order, by the whole block.  Needs 1 <= k <= n,
+// kp the power of two >= k, n < 2^31, blockDim.x a multiple of 32 (<= 1024)
+// and every thread of the block.  Ends with the pairs visible to the block.
+template <typename KeyAt>
+__device__ void block_topk(const KeyAt& key_at, long long n, int k, int kp,
+                           uint32_t* cand_key, int* cand_pos, SelectShared& sh) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    sh.prefix = 0u;
+    sh.kr = k;
+    sh.ngt = 0;
+    sh.neq = 0;
+  }
+  // 1. radix select of the k-th largest key
+  uint32_t mask = 0u;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    for (int i = tid; i < 256; i += blockDim.x) sh.hist[i] = 0u;
+    __syncthreads();
+    const uint32_t prefix = sh.prefix;
+    for (long long base = 0; base < n; base += blockDim.x) {
+      const long long i = base + tid;
+      int bin = -1;
+      if (i < n) {
+        const uint32_t key = key_at(i);
+        if ((key & mask) == prefix) bin = static_cast<int>((key >> shift) & 255u);
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&sh.hist[bin], __popc(peers));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const unsigned kr = static_cast<unsigned>(sh.kr);
+      unsigned cum = 0u;
+      for (int bb = 255; bb >= 0; --bb) {
+        if (cum + sh.hist[bb] >= kr) {
+          sh.prefix = prefix | (static_cast<uint32_t>(bb) << shift);
+          sh.kr = static_cast<int>(kr - cum);
+          break;
+        }
+        cum += sh.hist[bb];
+      }
+    }
+    mask |= 255u << shift;
+    __syncthreads();
+  }
+  const uint32_t thr = sh.prefix;
+  const int need_eq = sh.kr;       // keys equal to the threshold to keep
+  const int n_gt = k - need_eq;    // keys strictly above it (all kept)
+
+  // 2. compaction: every key above thr, then the need_eq lowest positions
+  //    holding thr, in position order
+  for (long long base = 0; base < n; base += 4LL * blockDim.x) {
+    uint32_t key[4];
+    int eqc = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long i = base + 4LL * tid + u;
+      key[u] = i < n ? key_at(i) : 0u;
+      if (i < n && key[u] > thr) {
+        const int slot = atomicAdd(&sh.ngt, 1);
+        cand_key[slot] = key[u];
+        cand_pos[slot] = static_cast<int>(i);
+      }
+      eqc += (i < n && key[u] == thr) ? 1 : 0;
+    }
+    if (__syncthreads_or(eqc > 0)) {
+      const int before_n = sh.neq;
+      if (before_n < need_eq) {
+        int total;
+        int r = before_n + block_exclusive_scan(eqc, sh.warp_tot, &total);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long i = base + 4LL * tid + u;
+          if (i < n && key[u] == thr) {
+            if (r < need_eq) {
+              cand_key[n_gt + r] = thr;
+              cand_pos[n_gt + r] = static_cast<int>(i);
+            }
+            ++r;
+          }
+        }
+        if (tid == 0) sh.neq = before_n + total;
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = k + tid; r < kp; r += blockDim.x) {
+    cand_key[r] = 0u;
+    cand_pos[r] = INT_MAX;
+  }
+  __syncthreads();
+
+  // 3. bitonic sort of the kp pairs by (key desc, position asc)
+  for (int size = 2; size <= kp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < kp / 2; t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const bool up = (i & size) == 0;
+        if (key_before(cand_key[j], cand_pos[j], cand_key[i], cand_pos[i]) == up) {
+          const uint32_t tk = cand_key[i];
+          cand_key[i] = cand_key[j];
+          cand_key[j] = tk;
+          const int tp = cand_pos[i];
+          cand_pos[i] = cand_pos[j];
+          cand_pos[j] = tp;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace repro

@@ -15,6 +15,11 @@ Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` (so no 64-bit value is cut to an int), integers as ``c_int``
 or ``c_longlong``, floats as ``c_float``, launches on the given stream and
 returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
+
+The three selects of ``csrc/select.cuh`` (kNN, two-stage tile, cache wave
+query) keep their (key, position) survivors in shared memory up to
+``SMEM_PAIRS`` pairs and in a global scratch buffer beyond;
+``pair_scratch`` makes that choice for every wrapper.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "STORE",
-           "nvcc_path", "library_path", "build_all", "function", "check",
-           "stream_of"]
+           "SMEM_PAIRS", "nvcc_path", "library_path", "build_all",
+           "function", "check", "stream_of", "pair_scratch"]
 
 SOURCES = ("cache_probe", "knn", "cache_wave")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -41,6 +46,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # storage codes of the C entry points (csrc/common.cuh ``repro::Store``)
 STORE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# survivors of a block select held in shared memory (8 B each: 128 KB of
+# the 227 KB a Hopper block may opt into)
+SMEM_PAIRS = 16384
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -128,3 +137,16 @@ def check(code: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pair_scratch(rows: int, k: int, device):
+    """(kp, keys, positions) for ``rows`` block selects of the top ``k``:
+    kp is k rounded up to a power of two; the buffers are None when kp
+    pairs fit in shared memory, else (rows, kp) int32 scratch."""
+    if not 1 <= k <= 2 ** 30:
+        raise ValueError(f"k={k} outside [1, 2**30]")
+    kp = 1 << (k - 1).bit_length()
+    if kp <= SMEM_PAIRS:
+        return kp, None, None
+    return kp, *(torch.empty((rows, kp), dtype=torch.int32, device=device)
+                 for _ in range(2))

@@ -13,7 +13,10 @@ their physical extents and UPDATE THEM IN PLACE: the kept rows land at the
 positions ``core.cache_ops.insert_positions`` computed (a position >= the
 physical capacity is a drop), the record at ring slot ``qslot`` when
 ``rec``.  Per-wave inputs arrive already quantized and padded to the
-state's width.  The LRU touch and step bump stay with the caller.
+state's width.  The LRU touch and step bump stay with the caller.  The
+query takes any k up to the physical capacity (the logical capacity
+included): every slot's key goes to a (S, Cp) f32 scratch and the block
+select of ``csrc/select.cuh`` keeps the top k.
 """
 
 from __future__ import annotations
@@ -26,14 +29,13 @@ from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.cache_wave import ref
 
 __all__ = ["wave_insert_query", "wave_query_topk", "wave_insert_scatter",
-           "INSERT_QUERY", "QUERY_TOPK", "INSERT_SCATTER", "MAX_K"]
+           "INSERT_QUERY", "QUERY_TOPK", "INSERT_SCATTER"]
 
 INSERT_QUERY = dispatch.counter("wave_insert_query")
 QUERY_TOPK = dispatch.counter("wave_query_topk")
 INSERT_SCATTER = dispatch.counter("wave_insert_scatter")
-MAX_K = 128
 _MODE = {"insert_query": 0, "query_topk": 1, "insert_scatter": 2}
-_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6
+_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 24 + [ctypes.c_int] * 7
          + [ctypes.c_void_p])
 
 
@@ -88,16 +90,19 @@ def _launch(mode, counter, doc_emb, doc_ids, doc_scale, doc_stamp=None,
         rec = rec.to(torch.int32).contiguous()
         qslot = qslot.to(torch.int32).contiguous()
         step = step.to(torch.int32).contiguous()
-    vals = ids = slots = None
+    vals = ids = slots = keys = pair_key = pair_pos = None
+    kp = 0
     if psi is not None:
-        if not 1 <= k <= min(MAX_K, cp):
-            raise ValueError(f"k={k} outside [1, min({MAX_K}, capacity {cp})]")
+        if not 1 <= k <= cp:
+            raise ValueError(f"k={k} outside [1, capacity {cp}]")
         psi = psi.to(torch.float32).contiguous()
         if tuple(psi.shape) != (s, dp):
             raise ValueError(f"psi {tuple(psi.shape)} != {(s, dp)}")
         vals = torch.empty((s, k), dtype=torch.float32, device=dev)
         ids = torch.empty((s, k), dtype=torch.int32, device=dev)
         slots = torch.empty((s, k), dtype=torch.int32, device=dev)
+        keys = torch.empty((s, cp), dtype=torch.float32, device=dev)
+        kp, pair_key, pair_pos = _build.pair_scratch(s, k, dev)
     fn = _build.function("cache_wave", "cache_wave", _ARGS)
     counter.launch()
     code = fn(_MODE[mode], _build.STORE[doc_emb.dtype], _ptr(doc_emb),
@@ -105,7 +110,8 @@ def _launch(mode, counter, doc_emb, doc_ids, doc_scale, doc_stamp=None,
               _ptr(q_radius), _ptr(q_scale), _ptr(emb_q), _ptr(emb_scale),
               _ptr(new_ids), _ptr(pos), _ptr(psi_q), _ptr(psi_scale),
               _ptr(radius), _ptr(rec), _ptr(qslot), _ptr(step), _ptr(psi),
-              _ptr(vals), _ptr(ids), _ptr(slots), s, cp, dp, kc, qp, k,
+              _ptr(vals), _ptr(ids), _ptr(slots), _ptr(keys), _ptr(pair_key),
+              _ptr(pair_pos), s, cp, dp, kc, qp, k, kp,
               _build.stream_of(doc_emb))
     _build.check(code, f"cache_wave ({mode})")
     return vals, ids, slots

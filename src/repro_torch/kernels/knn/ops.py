@@ -1,13 +1,28 @@
-"""Exact top-k MIPS over the corpus: the miss search of every serving wave.
+"""Exact top-k MIPS over the corpus: the miss search of every serving wave,
+and the two-stage scan kept as its A/B baseline.
 
-The port of ``repro.kernels.knn.ops.knn_search`` (fused path).  The wrapper
-pads the queries to the corpus width, quantizes them per row to int8 under
-the int8-dot rule (so the kernel and the plain version score the same
-payload, as ``knn/ops.py:152-157`` does), and handles k > N by padding the
-answer with (-inf, -1).  On a CUDA tensor the search is two launches of
-``csrc/knn.cu`` — ``knn_score`` into a (B, N) f32 scratch, then
-``knn_select`` — and counts as one op; on a CPU tensor it runs
-``ref.search``.
+The port of ``repro.kernels.knn.ops.knn_search``.  The wrapper pads the
+queries to the corpus width, quantizes them per row to int8 under the
+int8-dot rule (so the kernel and the plain version score the same payload,
+as ``knn/ops.py:152-157`` does), and handles k > N by padding the answer
+with (-inf, -1).  Two paths, any k:
+
+  * fused (default) — ``knn_score`` into a (B, N) f32 scratch, then
+    ``knn_select`` (the stable top-k of each row): two launches of
+    ``csrc/knn.cu``, one op;
+  * ``two_stage=True`` — ``knn_tile_topk``: ``knn_score``, then the stable
+    top ``k_eff = min(k, tile_n)`` positions of every ``tile_n`` tile
+    (``knn_tile_select``), then the merge here in the wrapper: the stable
+    top-k of the tile-major candidates, -inf results taking id -1.  The
+    corpus counts as padded to a tile multiple with id -1 rows (the kernel
+    reads positions past N as -inf; nothing is copied).  When
+    ``k_eff < k`` the answer can differ from the exact top-k: it is the
+    JAX package's two-stage answer for the same ``tile_n``.
+    ``autotune_knn`` is the JAX tuner's arithmetic, so the default
+    ``tile_n`` and ``k_eff`` equal the JAX ones.
+
+On a CUDA tensor the kernels launch; on a CPU tensor the plain versions in
+``ref`` run.
 """
 
 from __future__ import annotations
@@ -20,22 +35,51 @@ from repro_torch.core import layout, quant
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.knn import ref
 
-__all__ = ["knn_score", "knn_select", "knn_search", "SCORE", "SELECT",
-           "MAX_K"]
+__all__ = ["knn_score", "knn_select", "knn_tile_topk", "knn_search",
+           "autotune_knn", "SCORE", "SELECT", "TILE"]
 
 SCORE = dispatch.counter("knn_score")
 SELECT = dispatch.counter("knn_select")
-MAX_K = 1024
+TILE = dispatch.counter("knn_tile_topk")
+# the JAX tuner's padding rules (TPU lane and sublane), kept so that
+# ``autotune_knn`` picks the JAX package's tile for the same call
+LANE, SUBLANE = 128, 8
 _SCORE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_SELECT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                         ctypes.c_int, ctypes.c_void_p])
+_SELECT_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_TILE_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check(t, name, dtype, shape, device):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def autotune_knn(n: int, d: int, b: int, k: int,
+                 itemsize: int = 4) -> tuple[int, int]:
+    """(tile_n, k_eff) of the JAX tuner (``knn/ops.py:43-76``): the largest
+    power-of-two tile <= 4096 whose double-buffered working set fits 6 MB,
+    and k_eff = min(k, tile_n)."""
+    dp = d + (-d) % LANE
+    bp = b + (-b) % SUBLANE
+    cap = max(SUBLANE, 1 << max(n - 1, 1).bit_length())
+    tile = min(4096, cap)
+    budget = 6 * 2 ** 20
+
+    def working_set(t: int) -> int:
+        return (2 * t * (itemsize * dp + 8)
+                + 4 * bp * dp + 8 * bp * k + 12 * bp * (k + t))
+
+    while tile > SUBLANE and working_set(tile) > budget:
+        tile //= 2
+    return tile, min(k, tile)
 
 
 def knn_score(docs, doc_ids, queries, scale=None, q_scale=None):
@@ -75,37 +119,71 @@ def knn_score(docs, doc_ids, queries, scale=None, q_scale=None):
 
 
 def knn_select(scores, doc_ids, k: int):
-    """Stable top-k of (B, N) scores: (vals (B, k) f32, ids (B, k) int32)."""
+    """Stable top-k of (B, N) scores, any 1 <= k <= N: (vals (B, k) f32,
+    ids (B, k) int32)."""
     if not dispatch.is_kernel(scores):
         return ref.select(scores, doc_ids, k)
     b, n = scores.shape
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"k={k} outside [1, min(N={n}, {MAX_K})]")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} outside [1, N={n}]")
     _check(doc_ids, "doc_ids", torch.int32, (n,), scores.device)
     scores = scores.contiguous()
     vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=scores.device)
+    kp, pair_key, pair_pos = _build.pair_scratch(b, k, scores.device)
     fn = _build.function("knn", "knn_select", _SELECT_ARGS)
     SELECT.launch()
     code = fn(scores.data_ptr(), doc_ids.contiguous().data_ptr(),
-              vals.data_ptr(), ids.data_ptr(), b, n, k,
-              _build.stream_of(scores))
+              vals.data_ptr(), ids.data_ptr(), _ptr(pair_key), _ptr(pair_pos),
+              b, n, k, kp, _build.stream_of(scores))
     _build.check(code, "knn_select")
     return vals, ids
+
+
+def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
+                  scale=None, q_scale=None):
+    """Per-tile stable top ``k_eff`` of the masked scores, the corpus read
+    as padded to a ``tile_n`` multiple: (vals (tiles, B, k_eff) f32,
+    positions (tiles, B, k_eff) int32).  Queries at the corpus width (int8
+    payload with ``q_scale`` under int8-dot).  A position whose value is
+    -inf may be any masked or padded one."""
+    if not dispatch.is_kernel(docs):
+        return ref.tile_topk(docs, doc_ids, queries, k_eff, tile_n, scale,
+                             q_scale)
+    n = docs.shape[0]
+    b = queries.shape[0]
+    if not 1 <= k_eff <= tile_n:
+        raise ValueError(f"k_eff={k_eff} outside [1, tile_n={tile_n}]")
+    if b > 65535:
+        raise ValueError(f"{b} queries exceed the tile grid's 65535 rows")
+    scores = knn_score(docs, doc_ids, queries, scale, q_scale)
+    tiles = -(-n // tile_n)
+    vals = torch.empty((tiles, b, k_eff), dtype=torch.float32,
+                       device=docs.device)
+    pos = torch.empty((tiles, b, k_eff), dtype=torch.int32, device=docs.device)
+    kp, pair_key, pair_pos = _build.pair_scratch(tiles * b, k_eff, docs.device)
+    fn = _build.function("knn", "knn_tile_select", _TILE_ARGS)
+    TILE.launch()
+    code = fn(scores.data_ptr(), vals.data_ptr(), pos.data_ptr(),
+              _ptr(pair_key), _ptr(pair_pos), b, n, tile_n, k_eff, kp,
+              _build.stream_of(docs))
+    _build.check(code, "knn_tile_select")
+    return vals, pos
 
 
 def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
                queries: torch.Tensor, k: int,
                scale: torch.Tensor | None = None,
-               int8_dot: bool | None = None):
+               int8_dot: bool | None = None,
+               tile_n: int | None = None, two_stage: bool = False):
     """Top-k MIPS.  docs (N, Dp) fp32 / bf16 / int8 payload with ``scale``
     its (N,) f32 per-document multiplier (None = unquantized); doc_ids (N,)
     int32, -1 on sentinel rows; queries (B, d <= Dp) f32.  ``int8_dot``
     (None = the ``REPRO_INT8_DOT`` policy, int8 corpora only) scores int8 x
-    int8 in int32.  Returns (scores (B, k) descending, ids (B, k), -1 where
-    the score is -inf)."""
-    SCORE.call()
-    SELECT.call()
+    int8 in int32.  ``two_stage`` takes the per-tile scan with ``tile_n``
+    (None = ``autotune_knn``), which raises when its tiles * k_eff
+    candidates cannot hold k.  Returns (scores (B, k) descending, ids
+    (B, k), -1 where the score is -inf)."""
     n, dp = docs.shape
     q = torch.nn.functional.pad(queries.to(torch.float32),
                                 (0, dp - queries.shape[1]))
@@ -113,11 +191,27 @@ def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
     if quant.resolve_int8_dot(int8_dot, docs.dtype):
         qq = quant.quantize(q, "int8")
         q, q_scale = qq.data, qq.scale
+    if two_stage:
+        SCORE.call()
+        TILE.call()
+        if tile_n is None:
+            tile_n, k_eff = autotune_knn(n, dp, q.shape[0], k,
+                                         docs.element_size())
+        else:
+            tile_n = min(tile_n, max(SUBLANE, 1 << max(n - 1, 1).bit_length()))
+            k_eff = min(k, tile_n)
+        tiles = -(-n // tile_n)
+        if tiles * k_eff < k:
+            raise ValueError(f"two-stage candidate pool {tiles}x{k_eff} < "
+                             f"k={k}; use the fused search")
+        vals, pos = knn_tile_topk(docs, doc_ids, q, k_eff, tile_n, scale,
+                                  q_scale)
+        return ref.merge_tiles(vals, pos, doc_ids, k)
+    SCORE.call()
+    SELECT.call()
     if not dispatch.is_kernel(docs):
         return ref.search(docs, doc_ids, q, k, scale, q_scale)
     k_eff = min(k, n)
-    if k_eff > MAX_K:
-        raise ValueError(f"k={k} exceeds the select kernel's limit {MAX_K}")
     vals, ids = knn_select(knn_score(docs, doc_ids, q, scale, q_scale),
                            doc_ids, k_eff)
     if k_eff < k:

@@ -1,9 +1,12 @@
-"""Plain PyTorch version of the fused kNN search (``csrc/knn.cu``).
+"""Plain PyTorch versions of the kNN kernels (``csrc/knn.cu``).
 
-One masked (B, N) score matrix and a stable descending sort, so equal
+One masked (B, N) score matrix and stable descending sorts, so equal
 scores keep the lower corpus position (``lax.top_k``'s order); -inf
 results carry id -1 and k > N pads with (-inf, -1).  ``score`` is the
-plain version of the score kernel alone, ``search`` of the whole op.
+plain version of the score kernel, ``select`` of the select kernel,
+``search`` of the fused op and ``tile_topk`` of the two-stage scan's
+per-tile stage.  ``merge_tiles`` is the two-stage merge itself, which
+runs in the wrapper on either device.
 """
 
 from __future__ import annotations
@@ -45,3 +48,38 @@ def select(scores: torch.Tensor, doc_ids: torch.Tensor, k: int):
 
 def search(docs, doc_ids, queries, k, scale=None, q_scale=None):
     return select(score(docs, doc_ids, queries, scale, q_scale), doc_ids, k)
+
+
+def tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int, scale=None,
+              q_scale=None):
+    """Per-tile stable top ``k_eff`` over the scores padded with -inf to a
+    ``tile_n`` multiple: (vals, positions), each (tiles, B, k_eff)."""
+    s = score(docs, doc_ids, queries, scale, q_scale)
+    b, n = s.shape
+    tiles = -(-n // tile_n)
+    s = torch.nn.functional.pad(s, (0, tiles * tile_n - n),
+                                value=float("-inf")).view(b, tiles, tile_n)
+    vals, pos = torch.sort(s, dim=2, descending=True, stable=True)
+    base = torch.arange(tiles, device=s.device)[None, :, None] * tile_n
+    pos = pos[..., :k_eff] + base
+    return (vals[..., :k_eff].permute(1, 0, 2).contiguous(),
+            pos.permute(1, 0, 2).to(torch.int32).contiguous())
+
+
+def merge_tiles(vals: torch.Tensor, pos: torch.Tensor, doc_ids: torch.Tensor,
+                k: int):
+    """The two-stage merge: the stable top-k of the (tiles, B, k_eff)
+    candidates in tile-major order (equal scores keep the lower corpus
+    position), -inf results taking id -1."""
+    tiles, b, ke = vals.shape
+    v = vals.permute(1, 0, 2).reshape(b, tiles * ke)
+    p = pos.permute(1, 0, 2).reshape(b, tiles * ke)
+    top_s, order = torch.sort(v, dim=1, descending=True, stable=True)
+    top_s, order = top_s[:, :k], order[:, :k]
+    top_p = torch.gather(p, 1, order).long()
+    n = doc_ids.shape[0]
+    found = doc_ids[top_p.clamp(0, n - 1)]
+    top_i = torch.where(torch.isneginf(top_s) | (top_p >= n),
+                        torch.tensor(-1, dtype=doc_ids.dtype,
+                                     device=doc_ids.device), found)
+    return top_s, top_i

@@ -1,6 +1,6 @@
-"""Serving layer of the port: batched engine, router, scheduler, telemetry."""
+"""Serving layer of the port: engines, router, scheduler, telemetry."""
 
-from repro_torch.serve.engine import EngineTurn
+from repro_torch.serve.engine import ConversationalEngine, EngineTurn
 from repro_torch.serve.router import (AnswerValidationError, CircuitBreaker,
                                       RouterStats, ShardAnswer, ShardedRouter,
                                       validate_answer)
@@ -8,7 +8,7 @@ from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.session import BatchedEngine, SessionManager
 from repro_torch.serve.telemetry import ServeTelemetry, TurnSpans
 
-__all__ = ["EngineTurn", "AnswerValidationError", "CircuitBreaker",
-           "RouterStats", "ShardAnswer", "ShardedRouter", "validate_answer",
+__all__ = ["ConversationalEngine", "EngineTurn", "AnswerValidationError",
+           "CircuitBreaker", "RouterStats", "ShardAnswer", "ShardedRouter", "validate_answer",
            "ContinuousScheduler", "BatchedEngine", "SessionManager",
            "ServeTelemetry", "TurnSpans"]

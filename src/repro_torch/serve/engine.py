@@ -1,18 +1,31 @@
-"""Per-turn result record and the back-end answer -> insert helper.
+"""End-to-end conversational search engine (Fig. 2 of the paper).
 
-The port of ``repro.serve.engine``'s ``EngineTurn`` and ``radius_and_docs``
-(the single-session ``ConversationalEngine`` is not part of this port yet).
+The port of ``repro.serve.engine`` without ``make_lm_query_encoder`` (it
+waits for the models slice).  Client side: an optional query encoder and
+one session's ``MetricCache``.  Server side: the sharded metric index
+behind the straggler-hedging ``ShardedRouter``.  ``answer()`` is
+Algorithm 1 with one resilience extension: a *degraded* back-end answer
+(some shards timed out) still completes the turn, inserting its documents
+without the (psi, r_a) record, and when the back end fails entirely a
+non-empty cache answers (cache as fault tolerance).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["EngineTurn", "radius_and_docs", "radius_from_scores"]
+from repro_torch.core import quant
+from repro_torch.core.cache import MetricCache
+from repro_torch.core.cache_ops import CacheConfig
+from repro_torch.kernels.dispatch import resolve_device
+
+__all__ = ["EngineTurn", "ConversationalEngine", "radius_and_docs",
+           "radius_from_scores"]
 
 
 @dataclasses.dataclass
@@ -53,3 +66,72 @@ def radius_and_docs(scores: np.ndarray, ids: np.ndarray,
     radius = float(radius_from_scores(scores[n_valid - 1]))
     idx = torch.as_tensor(np.maximum(ids, 0), device=doc_embeddings.device)
     return radius, doc_embeddings[idx], torch.as_tensor(ids)
+
+
+class ConversationalEngine:
+    """One engine serves one client session at a time (the paper's client
+    model); the router and its shards are shared across engines.
+
+    ``doc_embeddings`` (N, width >= dim) are the transformed corpus rows the
+    engine inserts, moved to ``device`` once (None means ``cuda``; a tensor
+    already there is used without a copy).  ``dtype`` is the cache storage
+    format (None follows ``REPRO_CORPUS_DTYPE``).
+    """
+
+    def __init__(self, router, doc_embeddings, *, dim: int, k: int = 10,
+                 k_c: int = 1000, epsilon: float = 0.04,
+                 capacity: Optional[int] = None,
+                 encoder: Optional[Callable] = None,
+                 dtype: Optional[str] = None, device=None):
+        self.device = resolve_device(device)
+        self.router = router
+        self.doc_embeddings = torch.as_tensor(doc_embeddings,
+                                              device=self.device)
+        self.k, self.k_c, self.epsilon = k, k_c, epsilon
+        self.encoder = encoder
+        self.cache = MetricCache(CacheConfig(
+            capacity=capacity or 16 * k_c, dim=dim, epsilon=epsilon,
+            store_dtype=quant.resolve_dtype(dtype)), self.device)
+        self.turns: list[EngineTurn] = []
+
+    def start_session(self):
+        self.cache.reset()
+        self.turns = []
+
+    def answer(self, query) -> EngineTurn:
+        t0 = time.perf_counter()
+        psi = self.encoder(query) if self.encoder else query
+        psi = torch.as_tensor(psi, device=self.device).to(torch.float32)
+        probe = self.cache.probe(psi)
+        need_backend = self.cache.n_queries == 0 or not bool(probe.hit)
+        degraded = False
+        if need_backend:
+            try:
+                ans, degraded = self.router.search(
+                    psi.cpu().numpy()[None], self.k_c)
+                radius, emb, ids = radius_and_docs(
+                    ans.scores[0], ans.ids[0], self.doc_embeddings)
+                # a degraded merge misses shards, so its k_c-th distance is
+                # inflated: keep the docs, skip the (psi, r_a) record
+                self.cache.insert(psi, radius, emb, ids, record=not degraded)
+            except TimeoutError:
+                # total back-end failure: answer from the cache if possible
+                degraded = True
+                if self.cache.n_docs == 0:
+                    raise
+        scores, _dists, ids, _ = self.cache.query(psi, self.k)
+        # a cache holding fewer than k docs pads with (id -1, score -inf)
+        # sentinel slots; drop them so they never reach rankings or metrics
+        ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+        real = ids >= 0
+        turn = EngineTurn(ids=ids[real], scores=scores[real],
+                          hit=not need_backend, degraded=degraded,
+                          latency_s=time.perf_counter() - t0,
+                          tier="l1" if not need_backend else "backend")
+        self.turns.append(turn)
+        return turn
+
+    def hit_rate(self) -> float:
+        if len(self.turns) <= 1:
+            return float("nan")
+        return float(np.mean([t.hit for t in self.turns[1:]]))

@@ -107,27 +107,27 @@ def test_knn_kernels_match_plain(card, dtype, i8, b, k):
     assert (i[:, :10] >= 0).all()
 
 
-@pytest.mark.parametrize("mode", ["insert_query", "query_topk",
-                                  "insert_scatter"])
-@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
-def test_wave_kernel_matches_plain(card, dtype, mode):
-    cfg = tc.CacheConfig(capacity=700, dim=DIM, max_queries=8,
+def _wave_check(gen, dtype, mode, *, capacity, n_live, k):
+    """One wave launch in ``mode`` on a state holding ``n_live`` docs per
+    session against the plain version: states equal bit for bit, answers
+    by ``assert_topk_agree``, empty slots in ascending order."""
+    cfg = tc.CacheConfig(capacity=capacity, dim=DIM, max_queries=8,
                          store_dtype=dtype)
-    s, kc, k = 5, 150, 128
+    s, kc = 5, 150
     state = tc.init_batched_cache(cfg, s, "cuda")
-    rows = _unit(s, 300, DIM, gen=card)
+    rows = _unit(s, n_live, DIM, gen=gen)
     data, scale = tc.store_rows(rows, dtype)
-    state.doc_emb[:, :300, :DIM] = data
-    state.doc_scale[:, :300] = scale
-    state.doc_ids[:, :300] = torch.arange(s * 300, dtype=torch.int32,
-                                          device="cuda").view(s, 300)
-    state.n_docs.fill_(300)
+    state.doc_emb[:, :n_live, :DIM] = data
+    state.doc_scale[:, :n_live] = scale
+    state.doc_ids[:, :n_live] = torch.arange(
+        s * n_live, dtype=torch.int32, device="cuda").view(s, n_live)
+    state.n_docs.fill_(n_live)
     state.n_queries.copy_(torch.tensor([0, 3, 8, 9, 20], dtype=torch.int32))
-    new_q, new_scale = tc.store_rows(_unit(s, kc, DIM, gen=card), dtype)
-    pos = (300 + torch.arange(kc, device="cuda")).repeat(s, 1)
+    new_q, new_scale = tc.store_rows(_unit(s, kc, DIM, gen=gen), dtype)
+    pos = (n_live + torch.arange(kc, device="cuda")).repeat(s, 1)
     pos[:, ::3] = cfg.phys_capacity                      # drops
     pos[1] = cfg.phys_capacity                           # a do=False row
-    psi = _unit(s, DIM, gen=card)
+    psi = _unit(s, DIM, gen=gen)
     psi_q, psi_scale = tc.store_rows(psi, dtype)
     ins = (tc.pad_features(new_q, 800), new_scale,
            torch.arange(kc, dtype=torch.int32, device="cuda").repeat(s, 1)
@@ -161,11 +161,40 @@ def test_wave_kernel_matches_plain(card, dtype, mode):
     for f, a, b in zip(tc.CacheState._fields, sk, sp):
         assert torch.equal(a, b), f
     if mode != "insert_scatter":
-        assert_topk_agree(v, i, rv, ri, TOL, f"wave {mode} {dtype}")
+        assert v.shape == (s, k)
+        assert_topk_agree(v, i, rv, ri, TOL, f"wave {mode} {dtype} k={k}")
         assert torch.equal(torch.gather(sk.doc_ids, 1, sl.long()), i)
         # empty slots follow in ascending slot order, as the plain sort
         empty = ri < 0
         assert torch.equal(sl[empty], rsl[empty])
+        return int(empty.sum())
+    return 0
+
+
+@pytest.mark.parametrize("mode", ["insert_query", "query_topk",
+                                  "insert_scatter"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_wave_kernel_matches_plain(card, dtype, mode):
+    _wave_check(card, dtype, mode, capacity=700, n_live=300, k=128)
+
+
+@pytest.mark.parametrize("k", [129, 200, 1024, 1500])
+@pytest.mark.parametrize("mode", ["insert_query", "query_topk"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_wave_query_any_k(card, dtype, mode, k):
+    """The repaired limit: the cache query at any k <= capacity (1500
+    logical, 1536 physical slots), once past the live documents."""
+    empty = _wave_check(card, dtype, mode, capacity=1500, n_live=1300, k=k)
+    assert (empty > 0) == (k == 1500)
+
+
+def test_wave_query_pairs_in_global_scratch(card, monkeypatch):
+    """Survivors too many for shared memory go to global scratch: forced
+    here at k = 200 by lowering the shared-memory pair budget."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "SMEM_PAIRS", 64)
+    _wave_check(card, "fp32", "insert_query", capacity=1500, n_live=1300,
+                k=200)
 
 
 def test_engine_on_card_matches_cpu(card):
@@ -206,13 +235,191 @@ def test_engine_on_card_matches_cpu(card):
                               b.ids[None], TOL, "engine turn")
 
 
+def _knn_corpus(gen, n, n_sentinels=0):
+    docs = tc.pad_features(_unit(n, DIM, gen=gen), 800)
+    docs[n // 3] = docs[17]                 # exact ties
+    ids = torch.arange(n, dtype=torch.int32, device="cuda") + 5
+    if n_sentinels:
+        ids[torch.randperm(n, generator=gen, device="cuda")[:n_sentinels]] = -1
+    return docs, ids
+
+
+@pytest.mark.parametrize("k", [1025, 2048, 5000, 20000])
+def test_knn_search_past_the_old_limit(card, k):
+    """The repaired limit: the fused search at any k <= N (k = 20000 keeps
+    its survivors in global scratch)."""
+    docs, ids = _knn_corpus(card, 100_003, n_sentinels=50)
+    q = _unit(5, DIM, gen=card)
+    q[0] = docs[17, :DIM]
+    dispatch.reset_counters()
+    v, i = knn_ops.knn_search(docs, ids, q, k)
+    c = dispatch.counters()
+    assert c["knn_score"].launches == c["knn_select"].launches == 1
+    rv, ri = knn_ref.search(docs, ids, tc.pad_features(q, 800), k)
+    assert_topk_agree(v, i, rv, ri, TOL, f"knn k={k}")
+    assert v.shape == (5, k) and (i >= 0).all()
+
+
+@pytest.mark.parametrize("global_pairs", [False, True])
+def test_knn_search_at_k_equal_n(card, monkeypatch, global_pairs):
+    """k = N on a few thousand rows with sentinels: every row ranked, the
+    sentinels last as (-inf, -1)."""
+    from repro_torch.kernels import _build
+    if global_pairs:
+        monkeypatch.setattr(_build, "SMEM_PAIRS", 256)
+    n = 3001
+    docs, ids = _knn_corpus(card, n, n_sentinels=40)
+    q = _unit(3, DIM, gen=card)
+    v, i = knn_ops.knn_search(docs, ids, q, n)
+    rv, ri = knn_ref.search(docs, ids, tc.pad_features(q, 800), n)
+    assert_topk_agree(v, i, rv, ri, TOL, "knn k=N")
+    assert (i[:, :n - 40] >= 0).all() and (i[:, n - 40:] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_single_probe_kernel_matches_plain(card, dtype):
+    """``probe_rhat`` (one session) against ``ref.probe_rhat``, and the
+    hit / nearest record of ``cache_probe`` against the CPU path, on a
+    padded ring and on unpadded shapes (ring 13, dim 45)."""
+    for qmax, dim in ((64, DIM), (13, 45)):
+        recs = _unit(qmax, dim, gen=card)
+        psi = torch.nn.functional.normalize(
+            recs[:4].mean(0) + 0.3 * _unit(dim, gen=card), dim=0)
+        q_emb, q_scale = tc.store_rows(recs, dtype)
+        radius = 0.3 + 0.8 * torch.rand(qmax, generator=card, device="cuda")
+        if qmax == 64:
+            dp = 800
+            rk = probe_ops.probe_rhat(tc.pad_features(q_emb, dp),
+                                      tc.pad_features(psi, dp), radius,
+                                      q_scale)
+            rp = probe_ref.probe_rhat(tc.pad_features(q_emb, dp),
+                                      tc.pad_features(psi, dp), radius,
+                                      q_scale)
+            assert_close(rk, rp, 1e-4, f"probe_rhat {dtype}")
+        for n_q in (0, 1, qmax, qmax + 9):
+            dispatch.reset_counters()
+            got = probe_ops.cache_probe(q_emb, psi, radius, n_q, 0.25,
+                                        q_scale=q_scale)
+            assert dispatch.counters()["probe_rhat"].launches == 1
+            want = probe_ops.cache_probe(q_emb.cpu(), psi.cpu(), radius.cpu(),
+                                         n_q, 0.25, q_scale=q_scale.cpu())
+            assert bool(got[0]) == bool(want[0])
+            assert int(got[2]) == int(want[2])
+            if n_q:
+                assert abs(float(got[1]) - float(want[1])) <= 1e-4
+
+
+def _tile_agree(vals, pos, rv, rp, what):
+    """Per (tile, row): values within TOL, positions by the rank rule, with
+    -inf entries (any masked or padded position) as -1."""
+    t, b, ke = vals.shape
+    neg = torch.isneginf(vals)
+    assert torch.equal(neg, torch.isneginf(rv)), what
+    p = torch.where(neg, -1, pos).reshape(t * b, ke)
+    q = torch.where(torch.isneginf(rv), -1, rp).reshape(t * b, ke)
+    assert_topk_agree(vals.reshape(t * b, ke), p, rv.reshape(t * b, ke), q,
+                      TOL, what)
+
+
+@pytest.mark.parametrize("dtype,i8", [("fp32", False), ("bf16", False),
+                                      ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("tile_n,k", [(None, 100), (256, 300), (64, 64)])
+def test_tile_topk_kernel_matches_plain(card, dtype, i8, tile_n, k):
+    n = 20011
+    docs, ids = _knn_corpus(card, n, n_sentinels=30)
+    qc = quant.quantize(docs, dtype)
+    q = _unit(9, DIM, gen=card)
+    dispatch.reset_counters()
+    v, i = knn_ops.knn_search(qc.data, ids, q, k, scale=qc.scale,
+                              int8_dot=i8, tile_n=tile_n, two_stage=True)
+    c = dispatch.counters()
+    assert (c["knn_score"].launches, c["knn_tile_topk"].launches,
+            c["knn_select"].launches) == (1, 1, 0)
+    qq, qs = tc.pad_features(q, 800), None
+    if i8:
+        qqc = quant.quantize(qq, "int8")
+        qq, qs = qqc.data, qqc.scale
+    t_n, k_eff = (knn_ops.autotune_knn(n, 800, 9, k, qc.data.element_size())
+                  if tile_n is None else (tile_n, min(k, tile_n)))
+    vk, pk = knn_ops.knn_tile_topk(qc.data, ids, qq, k_eff, t_n, qc.scale, qs)
+    vr, pr = knn_ref.tile_topk(qc.data, ids, qq, k_eff, t_n, qc.scale, qs)
+    _tile_agree(vk, pk, vr, pr, f"tiles {dtype} i8={i8} tile_n={t_n}")
+    rv, ri = knn_ref.merge_tiles(vr, pr, ids, k)
+    assert_topk_agree(v, i, rv, ri, TOL, f"two-stage {dtype} i8={i8}")
+    # and the exact answer: k_eff = min(k, tile_n) keeps whole small tiles
+    ev, ei = knn_ref.search(qc.data, ids, qq, k, qc.scale, qs)
+    assert_topk_agree(v, i, ev, ei, TOL, f"two-stage exact {dtype}")
+
+
+def test_tile_topk_pairs_in_global_scratch(card, monkeypatch):
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "SMEM_PAIRS", 32)
+    docs, ids = _knn_corpus(card, 5003, n_sentinels=7)
+    q = _unit(4, DIM, gen=card)
+    vk, pk = knn_ops.knn_tile_topk(docs, ids, tc.pad_features(q, 800), 100,
+                                   512)
+    vr, pr = knn_ref.tile_topk(docs, ids, tc.pad_features(q, 800), 100, 512)
+    _tile_agree(vk, pk, vr, pr, "tiles, global pairs")
+
+
+@pytest.mark.parametrize("policy", ["dynamic", "static", "none"])
+def test_searcher_on_card_matches_cpu(card, policy):
+    """Algorithm 1 for one session on the card answers as the CPU path:
+    hit, ids and r_hat per turn; the launch accounting per turn."""
+    from repro_torch.core.conversation import ConversationalSearcher
+    from repro_torch.core.embedding import transform_documents
+    from repro_torch.core.embedding import transform_queries
+    from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.data.conversations import WorldConfig, make_world
+
+    w = make_world(WorldConfig(n_topics=4, docs_per_topic=500,
+                               n_background=1000, dim=64, turns=5,
+                               n_conversations=4, seed=3))
+    docs = transform_documents(torch.as_tensor(w.doc_emb,
+                                               dtype=torch.float32))[0]
+    turns = {}
+    for dev in ("cuda", "cpu"):
+        s = ConversationalSearcher(
+            MetricIndex(docs, transformed=True, device=dev), k=20, k_c=200,
+            epsilon=0.04, policy=policy, cache_capacity=1400)
+        turns[dev] = []
+        for c in w.conversations:
+            s.start_conversation()
+            qs = transform_queries(torch.as_tensor(c.queries,
+                                                   dtype=torch.float32))
+            for q in qs:
+                dispatch.reset_counters()
+                rec = s.answer(q)
+                turns[dev].append(rec)
+                if dev == "cuda":
+                    n = dispatch.counters()
+                    miss = 0 if rec.hit else 1
+                    cached = int(policy != "none")
+                    assert n["probe_rhat"].launches == cached
+                    assert n["wave_query_topk"].launches == cached
+                    assert n["wave_insert_scatter"].launches == miss * cached
+                    assert n["knn_score"].launches == \
+                        n["knn_select"].launches == miss
+    for a, b in zip(turns["cuda"], turns["cpu"]):
+        assert a.hit == b.hit
+        assert a.cache_docs == b.cache_docs
+        assert a.r_hat == b.r_hat or abs(a.r_hat - b.r_hat) <= 1e-4
+        # both cut at k = 20 with rank 21 unseen: b's last entry appended
+        # to both, so a last rank tied with rank 21 may hold either doc
+        da = np.r_[-a.distances, -b.distances[-1]][None]
+        db = np.r_[-b.distances, -b.distances[-1]][None]
+        assert_topk_agree(da, np.r_[a.ids, b.ids[-1]][None], db,
+                          np.r_[b.ids, b.ids[-1]][None], 1e-4,
+                          "searcher turn")
+
+
 def test_kernels_refuse_bad_inputs(card):
     docs = torch.zeros(100, 800, device="cuda")
     ids = torch.arange(100, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
         knn_ops.knn_select(torch.zeros(2, 2000, device="cuda"),
                            torch.arange(2000, dtype=torch.int32,
-                                        device="cuda"), 1025)
+                                        device="cuda"), 2001)
     with pytest.raises(ValueError):
         knn_ops.knn_score(docs[:, :790], ids, torch.zeros(2, 790,
                                                           device="cuda"))
@@ -221,4 +428,7 @@ def test_kernels_refuse_bad_inputs(card):
                                  torch.zeros(1, 64, dtype=torch.int32,
                                              device="cuda"),
                                  torch.ones(1, 64, device="cuda"),
-                                 torch.zeros(1, 800, device="cuda"), 129)
+                                 torch.zeros(1, 800, device="cuda"), 65)
+    with pytest.raises(ValueError):
+        knn_ops.knn_tile_topk(docs, ids, torch.zeros(2, 800, device="cuda"),
+                              65, 64)

@@ -59,11 +59,12 @@ def no_card(monkeypatch):
 
 
 def test_default_device_raises_without_a_card(no_card):
-    from repro_torch.core.cache import BatchedMetricCache
+    from repro_torch.core.cache import BatchedMetricCache, MetricCache
     from repro_torch.core.cache_ops import CacheConfig, init_batched_cache
     from repro_torch.core.metric_index import MetricIndex
     from repro_torch.dist.retrieval import DeviceShard
     from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.serve.engine import ConversationalEngine
     from repro_torch.serve.session import BatchedEngine
 
     cfg = CacheConfig(capacity=8, dim=5)
@@ -73,7 +74,9 @@ def test_default_device_raises_without_a_card(no_card):
                  lambda: BatchedMetricCache(cfg, 2),
                  lambda: MetricIndex(docs),
                  lambda: DeviceShard(docs, np.arange(6)),
-                 lambda: BatchedEngine(None, docs, dim=5, n_sessions=2)):
+                 lambda: BatchedEngine(None, docs, dim=5, n_sessions=2),
+                 lambda: MetricCache(cfg),
+                 lambda: ConversationalEngine(None, docs, dim=5)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"
