@@ -21,14 +21,30 @@ Run from the repository root.  Phases, each fatal on failure:
      tile, fp32 with tile_n=256).  Each is timed with CUDA events beside its
      plain version, its bound and, where one PyTorch call computes the same
      function, that call.
-  4. corpus  — ``make_world`` (60,000 docs, 64 conversations of 10 turns,
+  4. recsys  — the recsys serving path at full published widths, before the
+     corpus so its 9 GB of tables never meet the 28 GB corpus: first the
+     smoke configs on the CPU path and, moved to the card, through the
+     kernel (logits within 1e-5); then ``DLRM(dlrm_rm2.full_config())`` (26
+     x 1,048,576 x 64 f32) with the embedding-bag kernel held against its
+     plain version (the flattened table at ``serve_bulk``; f16 / bf16
+     tables; sum / mean / max with weights, pads and an empty bag), serving
+     ``CTRStream`` batches at ``serve_p99`` (512 rows, 51 calls: latency
+     p50 / p99) and ``serve_bulk`` (262,144 rows: rows/s), 1 launch per
+     forward; then ``XDeepFM(xdeepfm.full_config())`` (39 x 1,048,576 x 10
+     plus the x 1 linear term; the D = 10 and D = 1 kernels against plain)
+     at ``serve_p99`` and at ``serve_bulk`` in 16 chunks of 16,384 rows
+     (CIN's (B, H*m, D) product is 81.8 GB at 262,144 rows), 2 launches per
+     forward.  Logits are finite and equal the interaction fed the plain
+     pooled rows (rtol 1e-4, atol 1e-5); the pool reads the (F*V, D) view of
+     the tables, and the peak memory shows no copy of them.
+  5. corpus  — ``make_world`` (60,000 docs, 64 conversations of 10 turns,
      dim 768) plus background distractors drawn on the card from a seeded
      generator fill the corpus to N = 8,841,823 (the MS MARCO passage
      collection of TREC CAsT 2019); one Eq. 1 M over the whole corpus.
-  5. ab      — the two-stage A/B baseline over that corpus:
+  6. ab      — the two-stage A/B baseline over that corpus:
      ``knn_search(two_stage=True)`` for the 64 first turns at k = k_c =
      1000, against the fused search and the plain two-stage version.
-  6. main    — the batched serving path: ``SessionManager`` ->
+  7. main    — the batched serving path: ``SessionManager`` ->
      ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity=
      16000)`` -> ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns
      of every conversation, then one round that re-asks each last turn.  3
@@ -36,7 +52,7 @@ Run from the repository root.  Phases, each fatal on failure:
      per wave without; every miss turn matches an exact plain search over
      the whole corpus, and the same engine on a small input answers as the
      CPU path does.
-  7. paper   — Algorithm 1 for one session: ``ConversationalSearcher(
+  8. paper   — Algorithm 1 for one session: ``ConversationalSearcher(
      MetricIndex(corpus), k=200, k_c=1000, epsilon=0.04, capacity=12000)``
      under the ``none``, ``static`` and ``dynamic`` policies over the 64
      conversations, with Table 1's columns (hit rate over turns 2-10,
@@ -45,17 +61,18 @@ Run from the repository root.  Phases, each fatal on failure:
      turn one probe and one cache query, per miss one kNN search and one
      insert.  First, on 8 conversations x 4 turns over the 60,000 world
      docs (k_c=100), the card answers as the CPU path does.
-  8. engine  — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
+  9. engine  — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
      (corpus)])`` serves 8 conversations x 10 turns (k=10, k_c=1000) and
      agrees turn for turn with the dynamic searcher.
 
-Every path (ab, main, the three paper runs, engine) runs with the kernel
+Every path (recsys, ab, main, the three paper runs, engine) runs with the kernel
 counters zeroed just before it and read just after; each checks its own
 launch accounting, and the ``launches`` of the kernels line are their sums.
 
 Tolerances (the kernels and the plain versions sum f32 dot products in
 different orders): scores and r_hat within 1e-5 and 1e-4 (r_hat takes a
-square root of 2 - 2s, which widens the score's error); ranks compared by
+square root of 2 - 2s, which widens the score's error); pooled rows within
+1e-5 for f32 tables and 1e-3 for f16 / bf16 ones; ranks compared by
 ``repro_torch.kernels.parity.assert_topk_agree`` (ids equal where the score
 gap to the neighbouring ranks exceeds the tolerance, as sets inside tied
 runs).  Wave states must be equal bit for bit: the scatter copies rows.
@@ -97,7 +114,12 @@ KERNELS = {
     "wave_insert_scatter": ("cache_wave.cu", "cache_wave/ops.py:234"),
     "probe_rhat": ("cache_probe.cu", "cache_probe/cache_probe.py:49"),
     "knn_tile_topk": ("knn.cu", "knn/knn.py:285"),
+    "embedding_bag": ("embedding_bag.cu", "embedding_bag/embedding_bag.py:50"),
 }
+BAG_TOL, HALF_TOL = 1e-5, 1e-3     # pooled rows: f32 tables, f16 / bf16
+LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
+P99_CALLS = 51                     # the first is a warm-up, not in the stats
+XDEEPFM_CHUNK = 16_384
 
 
 def log(msg: str) -> None:
@@ -403,6 +425,318 @@ def wave_phase(torch, rep: Report, gen):
                     nbytes=write, ops=0, rate=F32_OPS)
         del st, sk, ins
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- recsys
+def close_logits(torch, got, want, what) -> float:
+    """Finite logits of the same shape within LOGIT_RTOL / LOGIT_ATOL;
+    returns the largest |diff| / max(|want|, LOGIT_ATOL / LOGIT_RTOL)."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: logits {tuple(got.shape)} not finite "
+                             f"or not {tuple(want.shape)}")
+    diff = (got - want).abs()
+    if not bool((diff <= LOGIT_ATOL + LOGIT_RTOL * want.abs()).all()):
+        raise AssertionError(f"{what}: max |diff| {float(diff.max()):.3g}")
+    return float((diff / want.abs().clamp(min=LOGIT_ATOL / LOGIT_RTOL))
+                 .max())
+
+
+def plain_pool(torch, tables, idx):
+    """``field_pool`` through the plain version, on the same device."""
+    from repro_torch.kernels.embedding_bag import ref as bag_ref
+    from repro_torch.models import recsys as rs
+    return bag_ref.embedding_bag(*rs.flatten_fields(tables, idx)).view(
+        idx.shape[0], tables.shape[0], tables.shape[2])
+
+
+def serve_calls(torch, model, batches, per_call, what):
+    """Serve ``batches`` one call each, counted; returns (the last logits,
+    per-call seconds from the host clock around call + synchronize,
+    launches).  Every call must launch ``per_call`` embedding bags."""
+    def run():
+        lat, outs = [], []
+        for args in batches:
+            t0 = time.perf_counter()
+            outs.append(model(*args))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        return outs, lat
+
+    (outs, lat), launches = counted(torch, run)
+    want = {name: 0 for name in launches}
+    want["embedding_bag"] = per_call * len(batches)
+    if launches != want:
+        raise AssertionError(f"[recsys] {what}: launches {launches} != "
+                             f"{want}")
+    for out, args in zip(outs, batches):
+        if out.shape != (args[-1].shape[0],) or not torch.isfinite(out).all():
+            raise AssertionError(f"[recsys] {what}: logits of shape "
+                                 f"{tuple(out.shape)} or not finite")
+    return outs[-1], lat, launches["embedding_bag"]
+
+
+def bag_check(torch, table, idx, w, mode, tol, what) -> float:
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag import ref as bag_ref
+    from repro_torch.kernels.parity import assert_close
+    got = bag_ops.embedding_bag(table, idx, w, mode)
+    err = assert_close(got, bag_ref.embedding_bag(table, idx, w, mode), tol,
+                       what)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite pooled rows")
+    return err
+
+
+def recsys_cpu_check(torch, seed):
+    """The smoke configs on the CPU path, then moved to the card: logits
+    within 1e-5, 1 / 2 launches per forward."""
+    import numpy as np
+
+    from repro_torch.configs import dlrm_rm2, xdeepfm
+    from repro_torch.kernels.parity import assert_close
+    from repro_torch.models import recsys as rs
+
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    dc, xc = dlrm_rm2.smoke_config(), xdeepfm.smoke_config()
+    for model, args, per_call in (
+            (rs.DLRM(dc, device="cpu", generator=gen),
+             (rng.standard_normal((256, dc.n_dense)).astype(np.float32),
+              rng.integers(-1, dc.vocab, (256, dc.n_sparse, dc.multi_hot))
+              .astype(np.int32)), 1),
+            (rs.XDeepFM(xc, device="cpu", generator=gen),
+             (rng.integers(-1, xc.vocab, (256, xc.n_sparse, 1))
+              .astype(np.int32),), 2)):
+        want = model(*args)
+        model.to(DEV)
+        got, _, _ = serve_calls(torch, model, [args], per_call,
+                                f"{model.cfg.name} card")
+        err = assert_close(got, want, 1e-5, f"[recsys] {model.cfg.name}")
+        log(f"[recsys] {model.cfg.name}: card == CPU path on the same "
+            f"parameters (256 rows, max_abs_err {err:.3g}, {per_call} "
+            f"launch{'es' if per_call > 1 else ''} per forward)")
+
+
+def recsys_phase(torch, rep: Report, gen, seed):
+    """DLRM-RM2 and xDeepFM at full width: the embedding-bag kernel against
+    its plain version and ``F.embedding_bag``, then the served forwards.
+    Returns the launches of the served runs."""
+    import numpy as np
+
+    from repro_torch.configs import dlrm_rm2, registry, xdeepfm
+    from repro_torch.data.recsys import CTRSpec, CTRStream
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag import ref as bag_ref
+    from repro_torch.models import recsys as rs
+
+    recsys_cpu_check(torch, seed)
+    b_p99 = registry.RECSYS_SHAPES["serve_p99"]["batch"]
+    b_bulk = registry.RECSYS_SHAPES["serve_bulk"]["batch"]
+    launches = 0
+
+    def batches(cfg, steps, size, dense=True):
+        stream = CTRStream(CTRSpec(n_dense=13, n_sparse=cfg.n_sparse,
+                                   vocab=cfg.vocab, multi_hot=1, seed=seed))
+        out = []
+        for step in steps:
+            b = stream.batch(step, size)
+            sp = torch.as_tensor(b["sparse"], device=DEV)
+            out.append((torch.as_tensor(b["dense"], device=DEV), sp)
+                       if dense else (sp,))
+        return out
+
+    def p99_line(name, lat, err):
+        lat = np.array(lat[1:])
+        log(f"[recsys] {name} serve_p99 ({b_p99} rows): {len(lat)} calls "
+            f"after a warm-up, latency p50 {np.percentile(lat, 50) * 1e3:.4f}"
+            f" ms, p99 {np.percentile(lat, 99) * 1e3:.4f} ms; logits finite, "
+            f"equal the plain pool's (max rel err {err:.3g}); peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    # ------------------------------------------------------- DLRM-RM2
+    t0 = time.perf_counter()
+    cfg = dlrm_rm2.full_config()
+    model = rs.DLRM(cfg, device=DEV, generator=gen)
+    params, tables = model.params, model.tables
+    f, v, d = tables.shape
+    tab_bytes = tables.numel() * tables.element_size()
+    torch.cuda.synchronize()
+    log(f"[recsys] {cfg.name}: tables ({f}, {v}, {d}) f32 "
+        f"({tab_bytes / 1e9:.3f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    (dense_b, sparse_b), = batches(cfg, [0], b_bulk)
+    flat, flat_idx = rs.flatten_fields(tables, sparse_b)
+    if flat.data_ptr() != tables.data_ptr():
+        raise AssertionError("[recsys] the flat table is not a view")
+    # (a) the kernel at serve_bulk on the flattened table
+    n_bags = flat_idx.shape[0]
+    err = bag_check(torch, flat, flat_idx, None, "sum", BAG_TOL,
+                    "embedding_bag f32 serve_bulk")
+    ones = torch.ones(flat_idx.shape, device=DEV)
+    ids64 = flat_idx.long()
+    lib_out = torch.nn.functional.embedding_bag(
+        ids64, flat, per_sample_weights=ones, mode="sum")
+    lib_err = float((lib_out - bag_ops.embedding_bag(flat, flat_idx))
+                    .abs().max())
+    del lib_out
+    ms = timed(torch, lambda: bag_ops.embedding_bag(flat, flat_idx), 20)
+    plain = timed(torch, lambda: bag_ref.embedding_bag(flat, flat_idx), 5)
+    lib = timed(torch, lambda: torch.nn.functional.embedding_bag(
+        ids64, flat, per_sample_weights=ones, mode="sum"), 20)
+    del ones, ids64
+    unique = int(torch.unique(flat_idx).numel())
+    out_ids = n_bags * d * 4 + n_bags * 4
+    all_ms = bound(out_ids + n_bags * d * 4, 2 * n_bags * d, F32_OPS)[0]
+    rep.add("embedding_bag", err=err, ms=ms, plain_ms=plain,
+            nbytes=out_ids + unique * d * 4, ops=2 * n_bags * d,
+            rate=F32_OPS, library_ms=lib)
+    log(f"[kernels] embedding_bag f32 ({f * v}, {d}) table, {n_bags} bags "
+        f"of 1 at serve_bulk: {unique} unique rows "
+        f"({unique / n_bags:.4f} of the gathered); bound_ms unique rows "
+        f"{rep.rows['embedding_bag']['bound_ms']:.4f}, every gathered row "
+        f"from HBM {all_ms:.4f}; F.embedding_bag agrees within {lib_err:.3g}")
+    p99_idx = flat_idx[:b_p99 * f]
+    log(f"[kernels] embedding_bag f32 at serve_p99 ({b_p99 * f} bags): "
+        f"ms={timed(torch, lambda: bag_ops.embedding_bag(flat, p99_idx), 50):.4f}")
+    # (b) f16 and bf16 tables, widened to f32 as the plain version does
+    for dt in (torch.float16, torch.bfloat16):
+        half = flat.to(dt)
+        e = bag_check(torch, half, flat_idx, None, "sum", HALF_TOL,
+                      f"embedding_bag {dt} serve_bulk")
+        hms = timed(torch, lambda: bag_ops.embedding_bag(half, flat_idx), 20)
+        log(f"[kernels] embedding_bag {dt} serve_bulk: ok (max_abs_err "
+            f"{e:.3g}) ms={hms:.4f}")
+        del half
+        torch.cuda.empty_cache()
+    # (c) multi-hot bags: weights (some <= 0), 20% pads, an empty bag, a
+    # bag of zero weights, in the three modes
+    mh = torch.randint(0, f * v, (65_536, 8), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    mh = torch.where(torch.rand(mh.shape, generator=gen, device=DEV) < 0.2,
+                     -1, mh)
+    mh[0] = -1
+    w = torch.rand(mh.shape, generator=gen, device=DEV) * 2 - 0.5
+    w[1] = 0.0
+    for mode in ("sum", "mean", "max"):
+        e = bag_check(torch, flat, mh, w, mode, BAG_TOL,
+                      f"embedding_bag {mode} multi-hot")
+        log(f"[kernels] embedding_bag {mode} (65536 bags of 8, weights, "
+            f"pads, an empty bag): ok (max_abs_err {e:.3g})")
+    del mh, w, flat, flat_idx
+    torch.cuda.empty_cache()
+    # serve_p99: 51 calls, 1 launch each
+    torch.cuda.reset_peak_memory_stats()
+    p99 = batches(cfg, range(1, P99_CALLS + 1), b_p99)
+    out, lat, n = serve_calls(torch, model, p99, 1, "dlrm serve_p99")
+    launches += n
+    want = rs.dlrm_interact(params, p99[-1][0],
+                            plain_pool(torch, tables, p99[-1][1]), cfg)
+    err = close_logits(torch, out, want, "dlrm serve_p99")
+    peak = torch.cuda.max_memory_allocated()
+    if peak > tab_bytes + 3e9:
+        raise AssertionError(f"[recsys] dlrm serve_p99 peak {peak} B")
+    p99_line(cfg.name, lat, err)
+    # serve_bulk: 3 calls of 262,144 rows, 1 launch each
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, lat, n = serve_calls(torch, model, [(dense_b, sparse_b)] * 3, 1,
+                              "dlrm serve_bulk")
+    launches += n
+    peak = torch.cuda.max_memory_allocated()
+    emb = plain_pool(torch, tables, sparse_b)
+    err = close_logits(torch, out,
+                       rs.dlrm_interact(params, dense_b, emb, cfg),
+                       "dlrm serve_bulk")
+    pool_ms = timed(torch, lambda: rs.field_pool(tables, sparse_b), 10)
+    inter_ms = timed(torch, lambda: rs.dlrm_interact(params, dense_b, emb,
+                                                     cfg), 5)
+    log(f"[recsys] {cfg.name} serve_bulk device time (CUDA events): "
+        f"field_pool {pool_ms:.4f} ms (flat ids + 1 launch), dlrm_interact "
+        f"{inter_ms:.4f} ms")
+    del emb
+    # a copy of the tables, padded or not, would add >= tab_bytes
+    if peak - before >= tab_bytes:
+        raise AssertionError(f"[recsys] dlrm serve_bulk: the forward "
+                             f"allocated {peak - before} B")
+    log(f"[recsys] {cfg.name} serve_bulk ({b_bulk} rows): "
+        f"{b_bulk / np.median(lat):.1f} rows/s (median of {len(lat)} calls, "
+        f"{np.median(lat) * 1e3:.3f} ms each); logits finite, equal the "
+        f"plain pool's (max rel err {err:.3g}); peak device memory "
+        f"{peak / 1e9:.3f} GB = tables {tab_bytes / 1e9:.3f} GB + "
+        f"{(peak - tab_bytes) / 1e9:.3f} GB (forward "
+        f"{(peak - before) / 1e9:.3f} GB: no copy of the tables)")
+    del model, params, tables, dense_b, sparse_b, p99, out
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- xDeepFM
+    t0 = time.perf_counter()
+    cfg = xdeepfm.full_config()
+    model = rs.XDeepFM(cfg, device=DEV, generator=gen)
+    params = model.params
+    tab_bytes = sum(t.numel() * 4 for t in (model.tables, model.linear))
+    torch.cuda.synchronize()
+    log(f"[recsys] {cfg.name}: tables {tuple(model.tables.shape)} + linear "
+        f"{tuple(model.linear.shape)} f32 ({tab_bytes / 1e9:.3f} GB) drawn "
+        f"in {time.perf_counter() - t0:.2f} s")
+    (sparse_b,), = batches(cfg, [0], b_bulk, dense=False)
+    # (d) D = 10 and D = 1 at xDeepFM's widths, serve_bulk ids
+    for name in ("tables", "linear"):
+        tab, idx = rs.flatten_fields(params[name], sparse_b)
+        e = bag_check(torch, tab, idx, None, "sum", BAG_TOL,
+                      f"embedding_bag xdeepfm {name}")
+        kms = timed(torch, lambda: bag_ops.embedding_bag(tab, idx), 10)
+        dd = tab.shape[1]
+        nb = idx.shape[0]
+        uq = int(torch.unique(idx).numel())
+        bms, _ = bound(nb * dd * 4 + nb * 4 + uq * dd * 4, 2 * nb * dd,
+                       F32_OPS)
+        log(f"[kernels] embedding_bag xdeepfm {name} ({tab.shape[0]}, {dd}) "
+            f"table, {nb} bags: ok (max_abs_err {e:.3g}) ms={kms:.4f} "
+            f"bound_ms={bms:.4f} ({uq} unique rows)")
+        del tab, idx
+    # serve_p99: 51 calls, 2 launches each
+    torch.cuda.reset_peak_memory_stats()
+    p99 = batches(cfg, range(1, P99_CALLS + 1), b_p99, dense=False)
+    out, lat, n = serve_calls(torch, model, p99, 2, "xdeepfm serve_p99")
+    launches += n
+    sp = p99[-1][0]
+    want = rs.xdeepfm_interact(params, plain_pool(torch, model.tables, sp),
+                               plain_pool(torch, model.linear, sp), cfg)
+    err = close_logits(torch, out, want, "xdeepfm serve_p99")
+    peak = torch.cuda.max_memory_allocated()
+    if peak > tab_bytes + 3e9:
+        raise AssertionError(f"[recsys] xdeepfm serve_p99 peak {peak} B")
+    p99_line(cfg.name, lat, err)
+    # serve_bulk in chunks: CIN's (B, H*m, D) product is 81.8 GB at 262,144
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    chunks = [(sparse_b[lo:lo + XDEEPFM_CHUNK],)
+              for lo in range(0, b_bulk, XDEEPFM_CHUNK)]
+    out, lat, n = serve_calls(torch, model, chunks, 2, "xdeepfm serve_bulk")
+    launches += n
+    sp = chunks[-1][0]
+    x0, lin = (plain_pool(torch, t, sp) for t in (model.tables, model.linear))
+    err = close_logits(torch, out, rs.xdeepfm_interact(params, x0, lin, cfg),
+                       "xdeepfm serve_bulk")
+    pool_ms = timed(torch, lambda: (rs.field_pool(model.tables, sp),
+                                    rs.field_pool(model.linear, sp)), 10)
+    inter_ms = timed(torch, lambda: rs.xdeepfm_interact(params, x0, lin, cfg),
+                     3)
+    log(f"[recsys] {cfg.name} serve_bulk device time per {XDEEPFM_CHUNK}-row "
+        f"chunk (CUDA events): two field_pools {pool_ms:.4f} ms, "
+        f"xdeepfm_interact {inter_ms:.4f} ms")
+    del x0, lin
+    log(f"[recsys] {cfg.name} serve_bulk ({b_bulk} rows in {len(chunks)} "
+        f"chunks of {XDEEPFM_CHUNK}, a stated cut): "
+        f"{b_bulk / sum(lat):.1f} rows/s ({sum(lat) * 1e3:.3f} ms in all); "
+        f"logits finite, the last chunk equals the plain pool's (max rel err "
+        f"{err:.3g}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del model, params, sparse_b, p99, chunks, out
+    torch.cuda.empty_cache()
+    log(f"[recsys] served with {launches} embedding_bag launches")
+    return {"embedding_bag": launches}
 
 
 # ---------------------------------------------------------------- corpus
@@ -755,7 +1089,8 @@ def main_phase(torch, corpus, streams):
     got = {n: launches.get(n, 0) for n in KERNELS}
     want = {"cache_probe": len(waves), "knn_score": miss, "knn_select": miss,
             "wave_insert_query": miss, "wave_query_topk": clean,
-            "wave_insert_scatter": 0, "probe_rhat": 0, "knn_tile_topk": 0}
+            "wave_insert_scatter": 0, "probe_rhat": 0, "knn_tile_topk": 0,
+            "embedding_bag": 0}
     if got != want or miss == 0 or clean == 0:
         raise AssertionError(f"launches {got} != {want} for {miss} waves "
                              f"with misses and {clean} without")
@@ -1050,9 +1385,11 @@ def main() -> int:
     probe_phase(torch, rep, gen)
     probe_single_phase(torch, rep, gen)
     wave_phase(torch, rep, gen)
+    recsys = recsys_phase(torch, rep, gen, args.seed)
+    torch.cuda.empty_cache()
     world, corpus, streams = build_corpus(torch, args.seed)
     knn_phase(torch, rep, corpus, streams)
-    paths = [ab_phase(torch, rep, corpus, streams),
+    paths = [recsys, ab_phase(torch, rep, corpus, streams),
              main_phase(torch, corpus, streams)]
     dynamic, paper = paper_phase(torch, corpus, world, streams)
     paths += [paper, engine_phase(torch, corpus, streams, dynamic)]

@@ -12,6 +12,10 @@ Both packages exchange it as numpy arrays.
     form two states are compared in.
   * ``corpus_from_numpy`` — a (quantized) corpus payload with its scales and
     ids, padded to this port's feature width, on a device.
+  * ``recsys_params_from_numpy`` / ``recsys_params_to_numpy`` — a DLRM or
+    xDeepFM parameter tree (nested dicts and lists of arrays, the JAX
+    package's layout: MLP weights (in, out), tables (F, V, D)) carried to
+    this port's tensors and back, so both packages compute the same logits.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from repro_torch.core.cache_ops import (CacheConfig, CacheState,
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
-           "corpus_from_numpy"]
+           "corpus_from_numpy", "recsys_params_from_numpy",
+           "recsys_params_to_numpy"]
 
 
 def _fields(leaves) -> dict:
@@ -89,3 +94,24 @@ def corpus_from_numpy(data, scale, ids, device=None):
         np.asarray(scale, np.float32), device=dev)
     return docs, sc, torch.as_tensor(np.asarray(ids, np.int32), device=dev)
 
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def recsys_params_from_numpy(params, device=None) -> dict:
+    """The JAX package's DLRM / xDeepFM parameter tree (arrays of any kind
+    numpy can read) as this port's tensors on ``device``."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: torch.as_tensor(np.array(a), device=dev),
+                     params)
+
+
+def recsys_params_to_numpy(params) -> dict:
+    """A parameter tree of tensors (``DLRM(...).params`` or the functions'
+    dicts) as numpy arrays in the JAX package's layout."""
+    return _map_tree(to_numpy, params)

@@ -4,17 +4,19 @@
 #include <cmath>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro {
 
-// Storage codes passed from Python: 0 fp32, 1 bf16, 2 int8.
-enum Store { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// Storage codes passed from Python: 0 fp32, 1 bf16, 2 int8, 3 fp16.
+enum Store { kF32 = 0, kBF16 = 1, kI8 = 2, kF16 = 3 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -38,7 +38,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "STORE",
            "SMEM_PAIRS", "nvcc_path", "library_path", "build_all",
            "function", "check", "stream_of", "pair_scratch"]
 
-SOURCES = ("cache_probe", "knn", "cache_wave")
+SOURCES = ("cache_probe", "knn", "cache_wave", "embedding_bag")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -9,7 +9,9 @@ card::
 The kernels and the plain versions sum f32 dot products in different
 orders, so scores agree within 1e-5 and ranks by
 ``repro_torch.kernels.parity.assert_topk_agree``; states written by the
-wave kernel must equal the plain scatter bit for bit.
+wave kernel must equal the plain scatter bit for bit.  Embedding bags agree
+within 1e-5 for f32 tables and 1e-3 for f16 / bf16 ones (both widen the
+same rows to f32; only the order of the sums differs).
 """
 
 import numpy as np
@@ -17,15 +19,19 @@ import pytest
 import torch
 
 from repro_torch.core import cache_ops as tc
+from repro_torch.configs import dlrm_rm2, xdeepfm
 from repro_torch.core import quant
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cache_probe import ops as probe_ops
 from repro_torch.kernels.cache_probe import ref as probe_ref
 from repro_torch.kernels.cache_wave import ops as wave_ops
 from repro_torch.kernels.cache_wave import ref as wave_ref
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag import ref as bag_ref
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.knn import ref as knn_ref
 from repro_torch.kernels.parity import assert_close, assert_topk_agree
+from repro_torch.models import recsys as rs
 
 pytestmark = pytest.mark.gpu
 
@@ -432,3 +438,120 @@ def test_kernels_refuse_bad_inputs(card):
     with pytest.raises(ValueError):
         knn_ops.knn_tile_topk(docs, ids, torch.zeros(2, 800, device="cuda"),
                               65, 64)
+
+
+# ------------------------------------------------------------ embedding bag
+BAG_TOL = {torch.float32: 1e-5, torch.float16: 1e-3, torch.bfloat16: 1e-3}
+
+
+def _bag_inputs(gen, v, d, b, l, dtype):
+    """A table, ids with 20% pads and bag 1 all padding, and weights in
+    [-0.5, 1.5) with bag 2 all 0 (max mode counts only weights > 0)."""
+    table = torch.randn(v, d, generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, v, (b, l), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pad = torch.rand(b, l, generator=gen, device="cuda") < 0.2
+    idx = torch.where(pad, -1, idx)
+    idx[1] = -1
+    w = torch.rand(b, l, generator=gen, device="cuda") * 2 - 0.5
+    w[2] = 0.0
+    return table, idx, w
+
+
+@pytest.mark.parametrize("d", [1, 10, 64, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_kernel_matches_plain(card, mode, dtype, d):
+    table, idx, w = _bag_inputs(card, 5000, d, 300, 7, dtype)
+    for weights in (None, w):
+        dispatch.reset_counters()
+        got = bag_ops.embedding_bag(table, idx, weights, mode)
+        assert dispatch.counters()["embedding_bag"].launches == 1
+        want = bag_ref.embedding_bag(table, idx, weights, mode)
+        assert_close(got, want, BAG_TOL[dtype], f"bag {mode} {dtype} D={d}")
+        assert not got[1].any()                       # the empty bag
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_embedding_bag_unaligned_table_and_ids_past_it(card, mode):
+    """A table view 4 bytes off a 16-byte boundary takes the scalar loads;
+    ids >= V read row V - 1, never past the table."""
+    v, d = 3000, 64
+    buf = torch.randn(v * d + 1, generator=card, device="cuda")
+    table = buf[1:].view(v, d)
+    assert table.data_ptr() % 16 != 0
+    table_, idx, w = _bag_inputs(card, v, d, 200, 5, torch.float32)
+    idx[0, 0] = v
+    idx[3, 2] = 2 ** 31 - 1
+    got = bag_ops.embedding_bag(table, idx, w, mode)
+    assert_close(got, bag_ref.embedding_bag(table, idx, w, mode), 1e-5,
+                 "bag unaligned")
+    got = bag_ops.embedding_bag(table_, idx, w, mode)
+    assert_close(got, bag_ref.embedding_bag(table_, idx, w, mode), 1e-5,
+                 "bag ids past the table")
+
+
+def test_embedding_bag_table_past_int32_offsets(card):
+    """A (34M, 64) f16 table holds 2.18e9 elements (> 2**31 - 1) in 4.35 GB:
+    row offsets must be 64-bit."""
+    v, d = 34_000_000, 64
+    table = torch.empty(v, d, device="cuda", dtype=torch.float16)
+    table.normal_(generator=card)
+    idx = torch.randint(v - 100_000, v, (4096, 3), generator=card,
+                        device="cuda", dtype=torch.int32)
+    idx[:, 0] = torch.arange(4096, device="cuda", dtype=torch.int32)
+    for mode in ("sum", "max"):
+        got = bag_ops.embedding_bag(table, idx, None, mode)
+        assert_close(got, bag_ref.embedding_bag(table, idx, None, mode),
+                     1e-3, f"bag past int32 {mode}")
+    del table
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "xdeepfm"])
+def test_recsys_smoke_forward_on_card_matches_cpu(card, arch):
+    """The smoke config on the CPU path and, moved to the card, through the
+    kernel: logits within 1e-5; 1 launch per DLRM forward, 2 per xDeepFM
+    forward (field tables, linear term)."""
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    if arch == "dlrm-rm2":
+        cfg = dlrm_rm2.smoke_config()
+        m = rs.DLRM(cfg, device="cpu", generator=gen)
+        idx = rng.integers(-1, cfg.vocab, (64, cfg.n_sparse, cfg.multi_hot))
+        args = (rng.standard_normal((64, cfg.n_dense)).astype(np.float32),
+                idx.astype(np.int32))
+        launches = 1
+    else:
+        cfg = xdeepfm.smoke_config()
+        m = rs.XDeepFM(cfg, device="cpu", generator=gen)
+        args = (rng.integers(-1, cfg.vocab, (64, cfg.n_sparse, 1))
+                .astype(np.int32),)
+        launches = 2
+    want = m(*args)
+    want_tower = m.user_tower(*args)
+    m.to("cuda")
+    dispatch.reset_counters()
+    got = m(*args)
+    assert dispatch.counters()["embedding_bag"].launches == launches
+    assert_close(got, want, 1e-5, f"{arch} logits")
+    assert_close(m.user_tower(*args), want_tower, 1e-5, f"{arch} tower")
+
+
+def test_embedding_bag_refuses_bad_inputs(card):
+    table = torch.zeros(100, 8, device="cuda")
+    idx = torch.zeros(4, 2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):                   # strided: no copy
+        bag_ops.embedding_bag(torch.zeros(8, 100, device="cuda").t(), idx)
+    with pytest.raises(ValueError):                   # ids on another device
+        bag_ops.embedding_bag(table, idx.cpu())
+    with pytest.raises(ValueError):
+        bag_ops.embedding_bag(table, idx, torch.ones(4, 3, device="cuda"))
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag(table, idx.long())
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag(table.double(), idx)
+    with pytest.raises(ValueError):
+        bag_ops.embedding_bag(table, idx, mode="prod")
