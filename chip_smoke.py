@@ -16,11 +16,16 @@ Run from the repository root.  Phases, each fatal on failure:
      of 0, 1, 64 and 73 records), the wave in its three modes and three
      store dtypes (S=64, capacity 16000, k_c=1000, k=10; and the query at
      k=200), the kNN search (B=64, k=1000 and k=2048; fp32 at N=8,841,823,
-     bf16 / int8 / int8-dot at N=1,000,000; and B=1), and the two-stage
-     scan (B=64, k=1000 at N=1,000,000: fp32 and int8-dot with the tuned
-     tile, fp32 with tile_n=256).  Each is timed with CUDA events beside its
-     plain version, its bound and, where one PyTorch call computes the same
-     function, that call.
+     bf16 / int8 / int8-dot at N=1,000,000; and B=1 at k=1000 and 200, the
+     single-query score path), the score paths around their threshold
+     beside ``torch.mm`` (B = 1, 8, 9, 16, 32, 64: the crossover), the
+     radix select on synthetic (2, N) rows (all scores
+     equal, a tie run across rank k, -inf runs and a row with 10 finite
+     scores, k = 2048 and 20,000) against the plain stable top-k bit for
+     bit, and the two-stage scan (B=64, k=1000 at N=1,000,000: fp32 and
+     int8-dot with the tuned tile, fp32 with tile_n=256).  Each is timed
+     with CUDA events beside its plain version, its bound and, where one
+     PyTorch call computes the same function, that call.
   4. recsys  — the recsys serving path at full published widths, before the
      corpus so its 9 GB of tables never meet the 28 GB corpus: first the
      smoke configs on the CPU path and, moved to the card, through the
@@ -68,6 +73,9 @@ Run from the repository root.  Phases, each fatal on failure:
 Every path (recsys, ab, main, the three paper runs, engine) runs with the kernel
 counters zeroed just before it and read just after; each checks its own
 launch accounting, and the ``launches`` of the kernels line are their sums.
+The line also holds ``knn_score_b1`` and ``knn_select_b1``: the same two
+kernels timed at the single-query shape, with the launches of [paper] and
+[engine], where every kNN search is a single query.
 
 Tolerances (the kernels and the plain versions sum f32 dot products in
 different orders): scores and r_hat within 1e-5 and 1e-4 (r_hat takes a
@@ -116,6 +124,10 @@ KERNELS = {
     "knn_tile_topk": ("knn.cu", "knn/knn.py:285"),
     "embedding_bag": ("embedding_bag.cu", "embedding_bag/embedding_bag.py:50"),
 }
+# the score and select kernels again at the single-query shape (B = 1, the
+# miss of Algorithm 1 for one session); their launches are those of [paper]
+# and [engine], where every kNN search is a single query
+B1_ROWS = {"knn_score_b1": "knn_score", "knn_select_b1": "knn_select"}
 BAG_TOL, HALF_TOL = 1e-5, 1e-3     # pooled rows: f32 tables, f16 / bf16
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 P99_CALLS = 51                     # the first is a warm-up, not in the stats
@@ -164,11 +176,11 @@ class Report:
 
     def line(self, launches):
         out = []
-        for name, (src, tpu) in KERNELS.items():
-            row = self.rows[name]
+        for name in (*KERNELS, *B1_ROWS):
+            src, tpu = KERNELS[B1_ROWS.get(name, name)]
             out.append({"name": name, "route": "cuda", "source": SRC + src,
                         "replaces": TPU + tpu, "launches": launches[name],
-                        **row})
+                        **self.rows[name]})
         return json.dumps({"kernels": out})
 
 
@@ -868,6 +880,7 @@ def knn_phase(torch, rep: Report, corpus, streams):
     del ref_v, ref_i
     log(f"[kernels] knn fp32 N={N_CORPUS}: ok (max_abs_err {err:.3g})")
     b = q.shape[0]
+    del sel_v, sel_i
     score_ms = timed(torch, lambda: knn_ops.knn_score(corpus, ids, q), 3)
     score_plain = timed(torch, lambda: knn_ref.score(corpus, ids, q), 2)
     score_lib = timed(torch, lambda: torch.mm(q, corpus.T), 2)
@@ -901,19 +914,65 @@ def knn_phase(torch, rep: Report, corpus, streams):
     log(f"[kernels] knn_search fp32 k=2048 N={N_CORPUS}: ok (max_abs_err "
         f"{e2048:.3g}) ms={ms2048:.4f}")
     # a single query, every miss of Algorithm 1 for one session
+    q1 = q[:1].contiguous()
+    s1 = knn_ops.knn_score(corpus, ids, q1)
+    e1 = assert_close(s1, knn_ref.score(corpus, ids, q1), SCORE_TOL,
+                      "knn_score B=1")
+    ms = timed(torch, lambda: knn_ops.knn_score(corpus, ids, q1), 5)
+    rep.add("knn_score_b1", err=e1, ms=ms,
+            plain_ms=timed(torch, lambda: knn_ref.score(corpus, ids, q1), 3),
+            nbytes=N_CORPUS * (dp * 4 + 4) + dp * 4 + N_CORPUS * 4,
+            ops=2 * N_CORPUS * dp, rate=F32_OPS,
+            library_ms=timed(torch, lambda: torch.mm(q1, corpus.T), 5))
     for k in (KC, PAPER_K):
-        v1, i1 = knn_ops.knn_search(corpus, ids, q[:1], k)
-        vp, ip = knn_ref.search(corpus, ids, q[:1], k)
+        v1, i1 = knn_ops.knn_search(corpus, ids, q1, k)
+        vp, ip = knn_ref.search(corpus, ids, q1, k)
         assert_topk_agree(v1, i1, vp, ip, SCORE_TOL, f"knn B=1 k={k}")
-        s1 = knn_ops.knn_score(corpus, ids, q[:1])
-        score_ms = timed(torch, lambda: knn_ops.knn_score(corpus, ids, q[:1]),
-                         5)
+        sv, si = knn_ops.knn_select(s1, ids, k)
+        rv, ri = knn_ref.select(s1, ids, k)
+        if not (torch.equal(sv, rv) and torch.equal(si, ri)):
+            raise AssertionError(f"knn_select B=1 k={k} != plain")
         select_ms = timed(torch, lambda: knn_ops.knn_select(s1, ids, k), 5)
-        plain = timed(torch, lambda: knn_ref.search(corpus, ids, q[:1], k), 3)
-        log(f"[kernels] knn_search fp32 B=1 k={k} N={N_CORPUS}: ok; "
-            f"knn_score ms={score_ms:.4f} knn_select ms={select_ms:.4f} "
-            f"(op {score_ms + select_ms:.4f}) plain_ms={plain:.4f}")
+        sel_plain = timed(torch, lambda: knn_ref.select(s1, ids, k), 3)
+        sel_lib = timed(torch, lambda: torch.topk(s1, k, dim=1), 5)
+        plain = timed(torch, lambda: knn_ref.search(corpus, ids, q1, k), 3)
+        op_ms = timed(torch, lambda: knn_ops.knn_search(corpus, ids, q1, k),
+                      5)
+        if k == KC:
+            rep.add("knn_select_b1", err=0.0, ms=select_ms,
+                    plain_ms=sel_plain, nbytes=N_CORPUS * 4 + k * 8, ops=0,
+                    rate=F32_OPS, library_ms=sel_lib)
+        else:
+            bms, by = bound(N_CORPUS * 4 + k * 8, 0, F32_OPS)
+            log(f"[kernels] knn_select B=1 k={k}: ms={select_ms:.4f} "
+                f"plain_ms={sel_plain:.4f} bound_ms={bms:.4f} ({by}) "
+                f"library_ms={sel_lib:.4f}")
+        log(f"[kernels] knn_search fp32 B=1 k={k} N={N_CORPUS}: ok; op "
+            f"ms={op_ms:.4f} (knn_score {ms:.4f} + knn_select "
+            f"{select_ms:.4f}) plain_ms={plain:.4f}")
+    del s1
     torch.cuda.empty_cache()
+    # the score paths around the threshold beside one torch.mm and the
+    # bound: the crossover, and what a wave of 9..63 misses pays
+    thr = knn_ops.SCORE_GEMV_MAX_B
+    cross = {}
+    for bb in (1, thr, thr + 1, 16, 32, b):
+        qb = q[:bb].contiguous()
+        row = {}
+        for gemv in ((True, False) if bb <= thr else (False,)):
+            row["gemv" if gemv else "gemm"] = round(timed(
+                torch, lambda: knn_ops._score(corpus, ids, qb, None, None,
+                                              gemv=gemv), 3), 4)
+        row["mm"] = round(timed(torch, lambda: torch.mm(qb, corpus.T), 3), 4)
+        row["bound"] = round(bound(
+            N_CORPUS * (dp * 4 + 4) + bb * dp * 4 + bb * N_CORPUS * 4,
+            2 * bb * N_CORPUS * dp, F32_OPS)[0], 4)
+        cross[f"B={bb}"] = row
+        del qb
+    log(f"[kernels] knn_score crossover (ms; the wrapper takes the GEMV up "
+        f"to B={thr}): {json.dumps(cross)}")
+    torch.cuda.empty_cache()
+    select_cases(torch)
     # quantized corpora at N_SMALL
     sub = corpus[:N_SMALL]
     for dtype, i8 in (("bf16", False), ("int8", False), ("int8", True)):
@@ -952,6 +1011,42 @@ def knn_phase(torch, rep: Report, corpus, streams):
             f"{err:.3g}) ms={ms:.4f}")
         del qc
         torch.cuda.empty_cache()
+
+
+def select_cases(torch):
+    """The radix select against the plain stable top-k on synthetic (2, N)
+    rows at the corpus size: equal answers, bit for bit."""
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    ids = torch.arange(N_CORPUS, dtype=torch.int32, device=DEV)
+    base = torch.randn(2, N_CORPUS, generator=gen, device=DEV)
+    out = {}
+    for case, k in (("all_equal", KC), ("tie_across_k", KC),
+                    ("half_neginf", KC), ("k2048", 2048), ("k20000", 20000)):
+        s = base.clone()
+        if case == "all_equal":
+            s.fill_(0.25)
+        elif case == "tie_across_k":         # a run of 500 at ranks 900+
+            v = torch.sort(s, dim=1, descending=True).values[:, 900:901]
+            s[:, torch.randperm(N_CORPUS, generator=gen,
+                                device=DEV)[:500]] = v
+        elif case == "half_neginf":          # -inf on half the row, and
+            s[:, ::2] = float("-inf")        # a row with 10 finite scores
+            s[1, 20:] = float("-inf")
+        v, i = knn_ops.knn_select(s, ids, k)
+        rv, ri = knn_ref.select(s, ids, k)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise AssertionError(f"knn_select {case} k={k} != plain")
+        out[case] = round(timed(torch, lambda: knn_ops.knn_select(s, ids, k),
+                                2), 4)
+        del s, v, i, rv, ri
+    log(f"[kernels] knn_select synthetic (2, {N_CORPUS}) rows equal the "
+        f"plain stable top-k; ms {json.dumps(out)}")
+    del base
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ A/B
@@ -1026,8 +1121,8 @@ def serve(torch, corpus, streams, *, n_sessions, k_c, capacity, device,
         if waves_seen is not None:
             backend_wave = engine.backend_wave
 
-            def counted(ws):
-                waves_seen.append(bool(np.asarray(ws.need).any()))
+            def counted(ws):    # the wave's misses: the kNN search's B
+                waves_seen.append(int(np.asarray(ws.need).sum()))
                 return backend_wave(ws)
             engine.backend_wave = counted
         rounds = [[s[t] for s in streams[:n_sessions]]
@@ -1057,6 +1152,7 @@ def check_turns(engine, n_turns):
 def main_phase(torch, corpus, streams):
     import numpy as np
 
+    from repro_torch.kernels.knn import ops as knn_ops
     from repro_torch.kernels.knn import ref as knn_ref
     from repro_torch.kernels.parity import assert_topk_agree
 
@@ -1085,7 +1181,8 @@ def main_phase(torch, corpus, streams):
         torch, corpus, streams, n_sessions=S, k_c=KC, capacity=CAPACITY,
         device=DEV, waves_seen=waves))
     wall = time.perf_counter() - t0
-    miss, clean = sum(waves), len(waves) - sum(waves)
+    sizes = sorted(w for w in waves if w)
+    miss, clean = len(sizes), len(waves) - len(sizes)
     got = {n: launches.get(n, 0) for n in KERNELS}
     want = {"cache_probe": len(waves), "knn_score": miss, "knn_select": miss,
             "wave_insert_query": miss, "wave_query_topk": clean,
@@ -1100,6 +1197,12 @@ def main_phase(torch, corpus, streams):
         raise AssertionError(f"{ops} launches for {miss} + {clean} waves")
     log(f"[main] {len(waves)} waves: {miss} with misses (3 launches each), "
         f"{clean} without (2 each); launches {got}")
+    thr = knn_ops.SCORE_GEMV_MAX_B
+    log(f"[main] miss-wave sizes (the kNN search's B, sum {sum(sizes)}): "
+        f"{sizes}; GEMV (B <= {thr}): "
+        f"{sum(w <= thr for w in sizes)} waves, GEMM at B {thr + 1}..63: "
+        f"{sum(thr < w < 64 for w in sizes)}, at B >= 64: "
+        f"{sum(w >= 64 for w in sizes)}")
     check_turns(engine, n_turns)
     # every miss turn answers the exact top-k of the whole corpus
     miss_q, miss_t = [], []
@@ -1394,6 +1497,8 @@ def main() -> int:
     dynamic, paper = paper_phase(torch, corpus, world, streams)
     paths += [paper, engine_phase(torch, corpus, streams, dynamic)]
     launches = {n: sum(p.get(n, 0) for p in paths) for n in KERNELS}
+    launches.update({n: paper.get(k, 0) + paths[-1].get(k, 0)
+                     for n, k in B1_ROWS.items()})
     log(f"[done] phases in {time.perf_counter() - t_start:.1f} s")
     print(rep.line(launches))
     print(smi)

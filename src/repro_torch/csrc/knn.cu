@@ -5,34 +5,59 @@
 // max-extract) and src/repro/kernels/knn/knn.py:285 knn_tile_topk (the
 // per-tile k_eff rounds of max-extract of the two-stage scheme).  On a GPU
 // at k = k_c = 1000 those merges are k serial block reductions per tile;
-// here the work is split in two launches instead:
+// here the work is split in two ops instead:
 //
-//   (a) knn_score  — masked f32 scores for the whole (B, N) matrix into a
-//       scratch buffer.  Dequantize-first rule: payload -> f32, f32 dot,
-//       times the per-document scale.  int8-dot rule: int8 x int8 summed
-//       exactly in int32, then (f32(acc) * q_scale) * scale — the
-//       association order of knn.py:89.  Rows with id < 0 score -inf.
-//   (b) knn_select — one block per query row: the stable top-k of the
-//       row (select.cuh: radix select of the k-th key, compaction, bitonic
-//       sort of the pow2(k) survivors by (score desc, position asc)) for
-//       any k <= N; -inf results carry id -1.
+//   (a) knn_score — masked f32 scores for the whole (B, N) matrix into a
+//       scratch buffer.  Dequantize-first rule: payload -> f32, f32 dot (FMA
+//       on the CUDA cores: no TF32), times the per-document scale.
+//       int8-dot rule: int8 x int8 summed exactly in int32, then
+//       (f32(acc) * q_scale) * scale, the association order of knn.py:89.
+//       Rows with id < 0 score -inf.  Two paths behind one entry, the
+//       wrapper choosing from B:
+//       * batched (the wave's B = 64): bound by the f32 operations,
+//         2 * B * N * Dp at 67 TFLOP/s (13.5 ms at N = 8.8M, Dp = 800).  A
+//         persistent grid of two 128-thread blocks per SM walks 64-query x
+//         256-document tiles, so the corpus is read once for all <= 64
+//         queries.  Operands pass through a 2-stage ring of 32-feature
+//         slices in dynamic shared memory (92 KB a block), f32 filled by
+//         16-byte cp.async (bf16 / int8 loaded into registers one stage
+//         ahead and widened to f32 as they are stored), so the next slice
+//         loads while this one multiplies and the other block of the SM
+//         covers the wait.  The multiply issues FFMA at close to 90% of its
+//         instructions; shared-memory reads held it back, so each lane owns
+//         8 x 16 outputs (24 float4 reads per 512 FMA, each read one
+//         broadcast wavefront per warp).
+//       * single query (B <= 8; every miss of one session): bound by the
+//         bytes, N * Dp * itemsize (8.5 ms for the f32 corpus).  The queries
+//         sit in shared memory; a warp streams one document row at a time
+//         with 16-byte loads (8 in flight per lane), a shuffle reduction
+//         makes each score, and the grid fills every SM.
+//   (b) knn_select — the stable top-k of each (B, N) row, any k <= N: a
+//       radix select that spreads every row over all SMs (AIR top-k: Zhang
+//       et al., SC '23).  Bound: one read of the (B, N) scratch, 4 B * B *
+//       N.  Digits of 8, 12 and 12 bits from the top of the key.  A first
+//       pass counts the first digit (counted in the score kernels it cost
+//       them more than this pass takes).  Each filter pass runs on a
+//       (chunks, B) grid of >= 4 x SMs blocks, whatever B is, works out the
+//       k-th key's digit from the pass's histogram, appends keys above it
+//       to the row's candidates and keys at it to a buffer (building the
+//       next digit's histogram), and the later passes read only that
+//       buffer.  The candidates end as every key above the k-th key plus
+//       every position holding it, and one block per row sorts them by (key
+//       desc, position asc) and keeps k: the lowest positions of a tie win
+//       whatever order the atomics ran in.  A tie run at rank k too long for
+//       the candidates (all-equal rows, runs of -inf, k = N) is finished by
+//       a position-ordered compaction of the row; a digit too full for the
+//       buffer makes the next pass read the scores again.  A memset and 5
+//       device kernels at every B.
 //   (b') knn_tile_select — the two-stage scheme's per-tile stage: one block
-//       per (tile, query row), the same stable top-k of the tile's tile_n
-//       scores (positions past N read -inf), writing (tiles, B, k_eff)
-//       values and corpus positions.  The wrapper merges the candidates.
+//       per (tile, query row), the stable top-k of the tile's tile_n scores
+//       (select.cuh block_topk; positions past N read -inf), writing
+//       (tiles, B, k_eff) values and corpus positions.  The wrapper merges
+//       the candidates.
 //
-// The survivors sit in dynamic shared memory (8 B per pair) while they fit
-// and in a global scratch buffer the wrapper passes otherwise.
-//
-// Bound: the corpus pass, N * (Dp * itemsize + 8) bytes plus the queries
-// and the answer, against 2 * B * N * Dp operations (f32 on the CUDA
-// cores, or int8).  At B = 64 and fp32 the operations dominate; bf16 and
-// int8 halve and quarter the bytes.  Design: (a) is a plain shared-memory
-// tiled product (64 queries x 128 documents x 32 features per block, 4 x 8
-// outputs per thread) so each corpus tile is read from device memory once
-// for all B <= 64 queries — a single query (B = 1) pays the same block
-// work; (b) re-reads the (B, N) f32 scratch five times, which a later
-// single-pass kernel that keeps the scores on chip removes.
+// Every buffer (histograms, counters, candidates, filter buffers, pairs)
+// comes from the wrapper; the kernels allocate nothing.
 
 #include <climits>
 #include <type_traits>
@@ -42,121 +67,657 @@
 
 namespace {
 
-using repro::to_f;
+using repro::float_key;
 
-constexpr int BM = 64;
-constexpr int BN = 128;
-constexpr int BK = 32;
+constexpr int H0 = 256;  // bins of the first radix digit (the key's top byte)
 
-template <typename T, bool I8DOT>
-__global__ void __launch_bounds__(256)
-    score_kernel(const void* __restrict__ q_raw, const float* __restrict__ q_scale,
-                 const T* __restrict__ docs, const int* __restrict__ ids,
-                 const float* __restrict__ dscale, float* __restrict__ scores, int b,
-                 long long n, int dp) {
-  using Acc = typename std::conditional<I8DOT, int, float>::type;
-  __shared__ Acc qs[BK][BM + 1];
-  __shared__ Acc ds[BK][BN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const long long n0 = static_cast<long long>(blockIdx.x) * BN;
-  const int m0 = blockIdx.y * BM;
-  Acc acc[4][8];
+// ----------------------------------------------------------------- helpers
+__device__ __forceinline__ unsigned word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// Element j of a 16-byte chunk of T payloads, widened.
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& r, int j);
+template <>
+__device__ __forceinline__ float elem<float>(const uint4& r, int j) {
+  return __uint_as_float(word(r, j));
+}
+template <>
+__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& r, int j) {
+  const unsigned w = word(r, j >> 1);
+  return __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+__device__ __forceinline__ int ielem(const uint4& r, int j) {
+  return static_cast<int>(static_cast<int8_t>((word(r, j >> 2) >> (8 * (j & 3))) & 0xffu));
+}
+template <>
+__device__ __forceinline__ float elem<int8_t>(const uint4& r, int j) {
+  return static_cast<float>(ielem(r, j));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One count per lane into a shared histogram, the lanes of a warp that share
+// a bin added by one atomic.  Every lane of the warp must call it.
+__device__ __forceinline__ void count_bin(unsigned* h, bool ok, unsigned bin) {
+  const unsigned peers = __match_any_sync(0xffffffffu, ok ? bin : 0xffffffffu);
+  if (ok && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&h[bin], __popc(peers));
+}
+
+// The score of one (query, document) pair from its accumulator.
+template <bool I8DOT, typename Acc>
+__device__ __forceinline__ float finish_score(Acc a, const float* q_scale, const int* ids,
+                                              const float* dscale, int m, long long c) {
+  const float sc = dscale ? dscale[c] : 1.0f;
+  float s;
+  if constexpr (I8DOT) {
+    s = __fmul_rn(__fmul_rn(__int2float_rn(a), q_scale[m]), sc);
+  } else {
+    s = __fmul_rn(a, sc);
+  }
+  return ids[c] < 0 ? -INFINITY : s;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+// ------------------------------------------------ batched score: the GEMM
+constexpr int GM = 64;         // queries per tile
+constexpr int GN = 256;        // documents per tile
+constexpr int GK = 32;         // features per ring stage
+constexpr int GLD = GK + 4;    // shared row stride in words: float4 reads of
+                               // 8 consecutive rows hit 8 distinct bank quads
+constexpr int GSTAGES = 2;     // 92 KB of ring: two blocks per SM
+constexpr int GTHREADS = 128;  // 4 warps of 32 x 128 outputs, 8 x 16 a lane
+constexpr int TJ = 16;         // documents per lane
+constexpr int STAGE_WORDS = (GM + GN) * GLD;
+constexpr size_t GRING_BYTES = static_cast<size_t>(GSTAGES) * STAGE_WORDS * 4;
+
+// Moves a (ROWS, GK) slice of a row-major (rows, ld) payload into a ring
+// stage of Acc words at row stride GLD, rows past the end as zeros.  An f32
+// payload goes by cp.async in issue(); any other is loaded into registers in
+// issue() and widened and stored in store(), so its loads overlap the
+// multiply of the stage before.
+template <typename T, typename Acc, int ROWS>
+struct TileLoader {
+  static constexpr bool kAsync = std::is_same<T, float>::value;
+  static constexpr int E = 16 / static_cast<int>(sizeof(T));
+  static constexpr int CPR = GK / E;
+  static constexpr int CHUNKS = ROWS * CPR;
+  static constexpr int PER = (CHUNKS + GTHREADS - 1) / GTHREADS;
+  uint4 reg[PER];
+
+  __device__ __forceinline__ void issue(const T* src, long long row0, long long rows, int ld,
+                                        int k0, Acc* dst) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = Acc(0);
-
-  for (int k0 = 0; k0 < dp; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += 256) {
-      const int m = idx / BK, kk = idx % BK;
-      Acc v = Acc(0);
-      if (m0 + m < b) {
-        const size_t off = static_cast<size_t>(m0 + m) * dp + k0 + kk;
-        if constexpr (I8DOT) {
-          v = static_cast<int>(static_cast<const int8_t*>(q_raw)[off]);
+    for (int u = 0; u < PER; ++u) {
+      const int c = threadIdx.x + u * GTHREADS;
+      if (c < CHUNKS) {
+        const int r = c / CPR, kc = c % CPR;
+        const bool ok = row0 + r < rows;
+        const T* g = src + (ok ? (row0 + r) * static_cast<long long>(ld) + k0 + kc * E : 0);
+        if constexpr (kAsync) {
+          cp_async16(dst + r * GLD + kc * E, g, ok);
         } else {
-          v = static_cast<const float*>(q_raw)[off];
+          reg[u] = ok ? __ldg(reinterpret_cast<const uint4*>(g)) : make_uint4(0u, 0u, 0u, 0u);
         }
       }
-      qs[kk][m] = v;
     }
-    for (int idx = tid; idx < BN * BK; idx += 256) {
-      const int nn = idx / BK, kk = idx % BK;
-      Acc v = Acc(0);
-      if (n0 + nn < n) {
-        const T x = docs[static_cast<size_t>(n0 + nn) * dp + k0 + kk];
-        if constexpr (I8DOT) {
-          v = static_cast<int>(x);
-        } else {
-          v = to_f(x);
-        }
-      }
-      ds[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      Acc a[4], d[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) d[j] = ds[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if constexpr (I8DOT) {
-            acc[i][j] += a[i] * d[j];
-          } else {
-            acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
-          }
-        }
-    }
-    __syncthreads();
   }
 
+  __device__ __forceinline__ void store(Acc* dst) {
+    if constexpr (!kAsync) {
+      using V4 = typename std::conditional<std::is_same<Acc, float>::value, float4, int4>::type;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= b) continue;
+      for (int u = 0; u < PER; ++u) {
+        const int c = threadIdx.x + u * GTHREADS;
+        if (c < CHUNKS) {
+          const int r = c / CPR, kc = c % CPR;
+          V4* d = reinterpret_cast<V4*>(dst + r * GLD + kc * E);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long c = n0 + tx + 16 * j;
-      if (c >= n) continue;
-      const float sc = dscale ? dscale[c] : 1.0f;
-      float s;
-      if constexpr (I8DOT) {
-        s = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j]), q_scale[m]), sc);
-      } else {
-        s = __fmul_rn(acc[i][j], sc);
+          for (int j = 0; j < E; j += 4) {
+            if constexpr (std::is_same<Acc, int>::value) {
+              d[j / 4] = V4{ielem(reg[u], j), ielem(reg[u], j + 1), ielem(reg[u], j + 2),
+                            ielem(reg[u], j + 3)};
+            } else {
+              d[j / 4] = V4{elem<T>(reg[u], j), elem<T>(reg[u], j + 1), elem<T>(reg[u], j + 2),
+                            elem<T>(reg[u], j + 3)};
+            }
+          }
+        }
       }
-      if (ids[c] < 0) s = -INFINITY;
-      scores[static_cast<size_t>(m) * n + c] = s;
     }
+  }
+};
+
+template <typename V4>
+__device__ __forceinline__ auto lane_of(const V4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float mac(float a, float d, float c) { return fmaf(a, d, c); }
+__device__ __forceinline__ int mac(int a, int d, int c) { return c + a * d; }
+
+template <typename T, bool I8DOT>
+__global__ void __launch_bounds__(GTHREADS, 2)
+    gemm_score_kernel(const void* __restrict__ q_raw, const float* __restrict__ q_scale,
+                      const T* __restrict__ docs, const int* __restrict__ ids,
+                      const float* __restrict__ dscale, float* __restrict__ scores, int b,
+                      long long n, int dp) {
+  using Acc = typename std::conditional<I8DOT, int, float>::type;
+  using Q = typename std::conditional<I8DOT, int8_t, float>::type;
+  using V4 = typename std::conditional<I8DOT, int4, float4>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Acc* ring = reinterpret_cast<Acc*>(smem);
+  // warp (wr, wc) owns rows wr * 32 + lr + 4 i and documents wc * 128 + lc
+  // + 8 j (i < 8, j < 16) of the tile: the 8 lanes of a row group read 8
+  // consecutive document rows, the 4 row groups the same ones, so every
+  // float4 shared read of a warp is one broadcast wavefront
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qrow = (warp & 1) * 32 + (lane >> 3);
+  const int dcol = (warp >> 1) * 128 + (lane & 7);
+  const long long dtiles = (n + GN - 1) / GN;
+  const long long tiles = dtiles * ((b + GM - 1) / GM);
+  const int kt_n = dp / GK;
+  // the block's tiles: blockIdx.x, + gridDim.x, ...
+  const long long mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
+  const long long steps = mine * kt_n;
+  TileLoader<Q, Acc, GM> ql;
+  TileLoader<T, Acc, GN> dl;
+  // a position in the block's sequence of (tile, K slice) steps; the tile's
+  // origin is worked out once per tile, not per step
+  struct Cursor {
+    long long j;  // the block's tile ordinal: tile blockIdx.x + j * gridDim.x
+    int kt, slot, m0;
+    long long n0;
+  };
+  auto place = [&](Cursor& c) {
+    const long long t = blockIdx.x + c.j * gridDim.x;
+    c.m0 = static_cast<int>(t / dtiles) * GM;
+    c.n0 = (t % dtiles) * GN;
+  };
+  auto advance = [&](Cursor& c) {
+    if (++c.slot == GSTAGES) c.slot = 0;
+    if (++c.kt == kt_n) {
+      c.kt = 0;
+      if (++c.j < mine) place(c);
+    }
+  };
+  auto issue = [&](const Cursor& c) {
+    Acc* s = ring + c.slot * STAGE_WORDS;
+    ql.issue(static_cast<const Q*>(q_raw), c.m0, b, dp, c.kt * GK, s);
+    dl.issue(docs, c.n0, n, dp, c.kt * GK, s + GM * GLD);
+  };
+  auto store = [&](int slot) {
+    Acc* s = ring + slot * STAGE_WORDS;
+    ql.store(s);
+    dl.store(s + GM * GLD);
+  };
+  Cursor in{0, 0, 0, 0, 0}, out{0, 0, 0, 0, 0};
+  place(in);
+  place(out);
+
+#pragma unroll
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s < steps) {
+      issue(in);
+      store(in.slot);
+      advance(in);
+    }
+    cp_async_commit();
+  }
+  Acc acc[8][TJ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) acc[i][j] = Acc(0);
+
+  for (long long g = 0; g < steps; ++g) {
+    cp_async_wait<GSTAGES - 2>();
+    __syncthreads();  // stage g landed; every thread is done with stage g - 1
+    const bool more = g + GSTAGES - 1 < steps;
+    const int next_slot = in.slot;  // the slot of stage g - 1
+    if (more) {
+      issue(in);
+      advance(in);
+    }
+    cp_async_commit();
+    const Acc* qs = ring + out.slot * STAGE_WORDS;
+    const Acc* ds = qs + GM * GLD;
+#pragma unroll
+    for (int kk = 0; kk < GK; kk += 4) {
+      V4 d[TJ];
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) d[j] = *reinterpret_cast<const V4*>(ds + (dcol + 8 * j) * GLD + kk);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const V4 a = *reinterpret_cast<const V4*>(qs + (qrow + 4 * i) * GLD + kk);
+        // one k at a time over the 8 documents: 8 independent FMAs in a
+        // row, each output still summed in k order
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+          for (int j = 0; j < TJ; ++j)
+            acc[i][j] = mac(lane_of(a, kq), lane_of(d[j], kq), acc[i][j]);
+      }
+    }
+    if (more) store(next_slot);
+    if (out.kt == kt_n - 1) {  // epilogue of the tile
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = out.m0 + qrow + 4 * i;
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          const long long c = out.n0 + dcol + 8 * j;
+          if (m < b && c < n)
+            scores[static_cast<size_t>(m) * n + c] =
+                finish_score<I8DOT>(acc[i][j], q_scale, ids, dscale, m, c);
+          acc[i][j] = Acc(0);
+        }
+      }
+    }
+    advance(out);
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, bool I8DOT>
+cudaError_t launch_gemm(const void* q, const void* q_scale, const void* docs, const void* ids,
+                        const void* dscale, void* scores, int b, long long n, int dp,
+                        cudaStream_t stream) {
+  auto kern = gemm_score_kernel<T, I8DOT>;
+  const size_t smem = GRING_BYTES;
+  cudaError_t err = repro::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, GTHREADS, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = ((n + GN - 1) / GN) * ((b + GM - 1) / GM);
+  const long long slots = static_cast<long long>(sm_count()) * (occ > 0 ? occ : 1);
+  const unsigned grid = static_cast<unsigned>(tiles < slots ? tiles : slots);
+  kern<<<grid, GTHREADS, smem, stream>>>(
+      q, static_cast<const float*>(q_scale), static_cast<const T*>(docs),
+      static_cast<const int*>(ids), static_cast<const float*>(dscale),
+      static_cast<float*>(scores), b, n, dp);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- single-query score: the GEMV
+constexpr int GEMV_MAX_B = 8;   // the widest query block of the GEMV path
+constexpr int VTHREADS = 256;
+constexpr int VUNROLL = 8;      // 16-byte loads in flight per lane
+
+template <typename T, bool I8DOT, int BQ>
+__global__ void __launch_bounds__(VTHREADS)
+    gemv_score_kernel(const void* __restrict__ q_raw, const float* __restrict__ q_scale,
+                      const T* __restrict__ docs, const int* __restrict__ ids,
+                      const float* __restrict__ dscale, float* __restrict__ scores, int b,
+                      long long n, int dp) {
+  using Acc = typename std::conditional<I8DOT, int, float>::type;
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qrow16 = dp * (I8DOT ? 1 : 4) / 16;  // 16-byte words per query row
+  uint4* qs = reinterpret_cast<uint4*>(smem);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint4* qg = static_cast<const uint4*>(q_raw);
+  for (int i = tid; i < BQ * qrow16; i += VTHREADS)
+    qs[i] = i / qrow16 < b ? qg[i] : make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const int nchunk = dp / E;
+  const long long warps = static_cast<long long>(gridDim.x) * (VTHREADS / 32);
+  for (long long d = static_cast<long long>(blockIdx.x) * (VTHREADS / 32) + (tid >> 5); d < n;
+       d += warps) {
+    const uint4* row = reinterpret_cast<const uint4*>(docs + d * dp);
+    Acc acc[BQ];
+#pragma unroll
+    for (int q = 0; q < BQ; ++q) acc[q] = Acc(0);
+    for (int base = 0; base < nchunk; base += 32 * VUNROLL) {
+      uint4 v[VUNROLL];
+#pragma unroll
+      for (int u = 0; u < VUNROLL; ++u) {
+        const int c = base + lane + 32 * u;
+        v[u] = c < nchunk ? __ldg(row + c) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < VUNROLL; ++u) {
+        const int c = base + lane + 32 * u;
+        if (c >= nchunk) continue;
+#pragma unroll
+        for (int q = 0; q < BQ; ++q) {
+          if constexpr (I8DOT) {
+            const int4 a = reinterpret_cast<const int4*>(smem)[q * qrow16 + c];
+            acc[q] = __dp4a(static_cast<int>(v[u].x), a.x, acc[q]);
+            acc[q] = __dp4a(static_cast<int>(v[u].y), a.y, acc[q]);
+            acc[q] = __dp4a(static_cast<int>(v[u].z), a.z, acc[q]);
+            acc[q] = __dp4a(static_cast<int>(v[u].w), a.w, acc[q]);
+          } else {
+            const float4* a = reinterpret_cast<const float4*>(smem) + (q * dp + c * E) / 4;
+#pragma unroll
+            for (int j = 0; j < E; j += 4) {
+              const float4 x = a[j / 4];
+              acc[q] = fmaf(elem<T>(v[u], j), x.x, acc[q]);
+              acc[q] = fmaf(elem<T>(v[u], j + 1), x.y, acc[q]);
+              acc[q] = fmaf(elem<T>(v[u], j + 2), x.z, acc[q]);
+              acc[q] = fmaf(elem<T>(v[u], j + 3), x.w, acc[q]);
+            }
+          }
+        }
+      }
+    }
+    Acc mine = Acc(0);
+#pragma unroll
+    for (int q = 0; q < BQ; ++q) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+      if (lane == q) mine = acc[q];
+    }
+    if (lane < b && lane < BQ)
+      scores[static_cast<size_t>(lane) * n + d] =
+          finish_score<I8DOT>(mine, q_scale, ids, dscale, lane, d);
   }
 }
 
-// One block per query row: the stable top-k of the row's n scores.  The
-// pairs live in dynamic shared memory, or in (B, kp) global scratch when
-// the wrapper passes one.
+template <typename T, bool I8DOT, int BQ>
+cudaError_t launch_gemv(const void* q, const void* q_scale, const void* docs, const void* ids,
+                        const void* dscale, void* scores, int b, long long n, int dp,
+                        cudaStream_t stream) {
+  auto kern = gemv_score_kernel<T, I8DOT, BQ>;
+  const size_t smem = static_cast<size_t>(BQ) * dp * (I8DOT ? 1 : 4);
+  cudaError_t err = repro::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, VTHREADS, smem);
+  if (err != cudaSuccess) return err;
+  const long long need = (n + VTHREADS / 32 - 1) / (VTHREADS / 32);
+  const long long slots = static_cast<long long>(sm_count()) * (occ > 0 ? occ : 1);
+  const unsigned grid = static_cast<unsigned>(need < slots ? need : slots);
+  kern<<<grid, VTHREADS, smem, stream>>>(
+      q, static_cast<const float*>(q_scale), static_cast<const T*>(docs),
+      static_cast<const int*>(ids), static_cast<const float*>(dscale),
+      static_cast<float*>(scores), b, n, dp);
+  return cudaGetLastError();
+}
+
+template <typename T, bool I8DOT>
+cudaError_t launch_score(const void* q, const void* q_scale, const void* docs, const void* ids,
+                         const void* dscale, void* scores, int b, long long n, int dp, int gemv,
+                         cudaStream_t st) {
+  if (!gemv) return launch_gemm<T, I8DOT>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+  if (b <= 1) return launch_gemv<T, I8DOT, 1>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+  if (b <= 2) return launch_gemv<T, I8DOT, 2>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+  if (b <= 4) return launch_gemv<T, I8DOT, 4>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+  return launch_gemv<T, I8DOT, GEMV_MAX_B>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+}
+
+// --------------------------------------------------- the all-SM radix select
+constexpr int STHREADS = 512;
+constexpr int SUNROLL = 8;   // loads in flight per thread in a filter pass
+constexpr int H12 = 4096;    // bins of the second and third digits
+// workspace row (uint32): histograms of digits 2 and 3, the counters
+// (candidates, buffer 0, buffer 1), each pass's state (prefix, k-th rank
+// left, keys in the chosen bin) and the histogram of digit 1; zeroed by
+// knn_select
+constexpr int WS_HIST1 = 0, WS_HIST2 = H12, WS_CNT = 2 * H12, WS_STATE = 2 * H12 + 4;
+constexpr int WS_HIST0 = 2 * H12 + 16;
+constexpr int WS_ROW = WS_HIST0 + H0;
+
+// The bin holding the kr-th largest key of histogram h (nb bins): *bin, and
+// *above the keys in the bins over it.  Every thread of the block.
+__device__ void find_bin(const unsigned* h, int nb, int kr, int* warp_tot, int* bin, int* above) {
+  const int per = (nb + blockDim.x - 1) / blockDim.x;
+  const int top = nb - 1 - static_cast<int>(threadIdx.x) * per;  // descending group
+  int sum = 0;
+  for (int j = 0; j < per; ++j)
+    if (top - j >= 0) sum += static_cast<int>(h[top - j]);
+  int total;
+  const int before = repro::block_exclusive_scan(sum, warp_tot, &total);
+  if (before < kr && kr <= before + sum) {
+    int cum = before;
+    for (int j = 0; j < per && top - j >= 0; ++j) {
+      const int c = static_cast<int>(h[top - j]);
+      if (cum + c >= kr) {
+        *bin = top - j;
+        *above = cum;
+        break;
+      }
+      cum += c;
+    }
+  }
+  __syncthreads();
+}
+
+// Append (key, pos) for the lanes that want it, one atomic per warp.  Every
+// lane of the warp must call it.
+__device__ __forceinline__ void warp_append(bool want, uint32_t key, int pos, uint32_t* ok,
+                                            int* op, unsigned* ctr) {
+  const unsigned m = __ballot_sync(0xffffffffu, want);
+  if (!m) return;
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  unsigned base = 0u;
+  if (lane == leader) base = atomicAdd(ctr, static_cast<unsigned>(__popc(m)));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (want) {
+    const unsigned slot = base + __popc(m & ((1u << lane) - 1u));
+    ok[slot] = key;
+    op[slot] = pos;
+  }
+}
+
+// The first digit's histogram of each row.  Grid (chunks, rows).  Each lane
+// counts into a column of its own (bank = lane), so the few bins that hold
+// most scores cost no conflicts.
+__global__ void __launch_bounds__(STHREADS)
+    hist_kernel(const float* __restrict__ scores, unsigned* __restrict__ ws, long long n) {
+  __shared__ unsigned h[H0 * 32];
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < H0 * 32; i += STHREADS) h[i] = 0u;
+  __syncthreads();
+  const float* row = scores + static_cast<size_t>(blockIdx.y) * n;
+  const long long per = (n + gridDim.x - 1) / gridDim.x;
+  const long long lo = blockIdx.x * per, hi = lo + per < n ? lo + per : n;
+  for (long long base = lo; base < hi; base += static_cast<long long>(STHREADS) * SUNROLL) {
+    float v[SUNROLL];
+#pragma unroll
+    for (int u = 0; u < SUNROLL; ++u) {
+      const long long i = base + threadIdx.x + static_cast<long long>(u) * STHREADS;
+      v[u] = i < hi ? row[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < SUNROLL; ++u)
+      atomicAdd(&h[(float_key(v[u]) >> 24) * 32 + lane],
+                base + threadIdx.x + static_cast<long long>(u) * STHREADS < hi ? 1u : 0u);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < H0; i += STHREADS) {
+    unsigned c = 0u;
+    for (int l = 0; l < 32; ++l) c += h[i * 32 + (l + i) % 32];
+    if (c) atomicAdd(&ws[static_cast<size_t>(blockIdx.y) * WS_ROW + WS_HIST0 + i], c);
+  }
+}
+
+// One radix pass over a row's keys, grid (chunks, rows).  Pass 0 reads the
+// scores; passes 1 and 2 read the previous pass's buffer, or the scores again
+// (keys matching the prefix) when that bin outgrew the buffer.
+template <int PASS>
+__global__ void __launch_bounds__(STHREADS)
+    filter_kernel(const float* __restrict__ scores, unsigned* __restrict__ ws,
+                  uint32_t* __restrict__ cand_key, int* __restrict__ cand_pos,
+                  uint32_t* __restrict__ buf_key, int* __restrict__ buf_pos, long long n, int k,
+                  int cap, long long bufcap) {
+  constexpr int SHIFT = PASS == 0 ? 24 : PASS == 1 ? 12 : 0;
+  constexpr int NB = PASS == 0 ? H0 : H12;
+  constexpr unsigned FIXED = PASS == 0 ? 0u : PASS == 1 ? 0xff000000u : 0xfffff000u;
+  __shared__ unsigned nhist[PASS < 2 ? H12 : 1];
+  __shared__ int warp_tot[33];
+  __shared__ int sh_bin, sh_above;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.y, rows = gridDim.y;
+  unsigned* w = ws + row * WS_ROW;
+  const unsigned* h = w + (PASS == 0 ? WS_HIST0 : PASS == 1 ? WS_HIST1 : WS_HIST2);
+  unsigned prefix = 0u;
+  int kr = k;
+  long long in_count = n;
+  if (PASS > 0) {
+    prefix = w[WS_STATE + 3 * (PASS - 1)];
+    kr = static_cast<int>(w[WS_STATE + 3 * (PASS - 1) + 1]);
+    in_count = w[WS_STATE + 3 * (PASS - 1) + 2];
+  }
+  const bool from_buf = PASS > 0 && in_count <= bufcap;
+  if (PASS < 2)
+    for (int i = tid; i < H12; i += STHREADS) nhist[i] = 0u;
+  find_bin(h, NB, kr, warp_tot, &sh_bin, &sh_above);
+  const unsigned bin = static_cast<unsigned>(sh_bin);
+  const int kr_next = kr - sh_above;
+  const unsigned in_bin = h[bin];
+  if (blockIdx.x == 0 && tid == 0) {
+    w[WS_STATE + 3 * PASS] = prefix | (bin << SHIFT);
+    w[WS_STATE + 3 * PASS + 1] = static_cast<unsigned>(kr_next);
+    w[WS_STATE + 3 * PASS + 2] = in_bin;
+  }
+  // keys at the k-th digit: into the buffer (passes 0, 1) or, at the last
+  // digit, among the candidates — each only when all of them fit
+  const bool keep_eq = PASS < 2 ? in_bin <= bufcap
+                                : static_cast<long long>(k - kr_next) + in_bin <= cap;
+  uint32_t* ck = cand_key + row * cap;
+  int* cpos = cand_pos + row * cap;
+  const size_t bout = ((PASS & 1) * rows + row) * bufcap;
+  const size_t bin_off = (((PASS - 1) & 1) * rows + row) * bufcap;
+  const float* srow = scores + row * n;
+  const long long total = from_buf ? in_count : n;
+  const long long per = (total + gridDim.x - 1) / gridDim.x;
+  const long long lo = blockIdx.x * per, hi = lo + per < total ? lo + per : total;
+  for (long long base = lo; base < hi; base += static_cast<long long>(STHREADS) * SUNROLL) {
+    uint32_t key[SUNROLL];
+    int pos[SUNROLL];
+#pragma unroll
+    for (int u = 0; u < SUNROLL; ++u) {
+      const long long i = base + tid + static_cast<long long>(u) * STHREADS;
+      key[u] = 0u;
+      pos[u] = 0;
+      if (i < hi) {
+        if (from_buf) {
+          key[u] = buf_key[bin_off + i];
+          pos[u] = buf_pos[bin_off + i];
+        } else {
+          key[u] = float_key(srow[i]);
+          pos[u] = static_cast<int>(i);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SUNROLL; ++u) {
+      const long long i = base + tid + static_cast<long long>(u) * STHREADS;
+      const bool match = i < hi && (key[u] & FIXED) == prefix;
+      const unsigned dig = (key[u] >> SHIFT) & (NB - 1);
+      const bool eq = match && dig == bin;
+      warp_append((match && dig > bin) || (PASS == 2 && eq && keep_eq), key[u], pos[u], ck, cpos,
+                  &w[WS_CNT]);
+      if constexpr (PASS < 2) {
+        warp_append(eq && keep_eq, key[u], pos[u], buf_key + bout, buf_pos + bout,
+                    &w[WS_CNT + 1 + PASS]);
+        if (__any_sync(0xffffffffu, eq))
+          count_bin(nhist, eq, (key[u] >> (SHIFT - 12)) & (H12 - 1));
+      }
+    }
+  }
+  if constexpr (PASS < 2) {
+    __syncthreads();
+    unsigned* hn = w + (PASS == 0 ? WS_HIST1 : WS_HIST2);
+    for (int i = tid; i < H12; i += STHREADS)
+      if (nhist[i]) atomicAdd(&hn[i], nhist[i]);
+  }
+}
+
+// One block per row: the candidates sorted by (key desc, position asc), the
+// first k written out.  When the tie run at the k-th key did not fit among
+// the candidates, its lowest positions are first compacted from the row in
+// position order.
 __global__ void __launch_bounds__(1024)
-    select_kernel(const float* __restrict__ scores, const int* __restrict__ ids,
-                  float* __restrict__ out_vals, int* __restrict__ out_ids,
-                  uint32_t* pair_key, int* pair_pos, long long n, int k, int kp) {
+    finish_kernel(const float* __restrict__ scores, const int* __restrict__ ids,
+                  const unsigned* __restrict__ ws, uint32_t* cand_key, int* cand_pos,
+                  float* __restrict__ out_vals, int* __restrict__ out_ids, long long n, int k,
+                  int cap, int sort_global) {
   extern __shared__ uint32_t pairs[];
   __shared__ repro::SelectShared sh;
-  const size_t r0 = blockIdx.x;
-  const float* row = scores + r0 * n;
-  uint32_t* ck = pair_key ? pair_key + r0 * kp : pairs;
-  int* cpos = pair_key ? pair_pos + r0 * kp : reinterpret_cast<int*>(pairs + kp);
-  repro::block_topk(repro::RowKeys{row, n}, n, k, kp, ck, cpos, sh);
-  for (int r = threadIdx.x; r < k; r += blockDim.x) {
-    const int p = cpos[r];
-    const float v = row[p];
-    out_vals[r0 * k + r] = v;
-    out_ids[r0 * k + r] = (v == -INFINITY) ? -1 : ids[p];
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const unsigned* w = ws + row * WS_ROW;
+  const uint32_t thr = w[WS_STATE + 6];
+  const int need_eq = static_cast<int>(w[WS_STATE + 7]);
+  const long long in_bin = w[WS_STATE + 8];
+  const int n_gt = k - need_eq;
+  const float* srow = scores + row * n;
+  uint32_t* ck = cand_key + row * cap;
+  int* cpos = cand_pos + row * cap;
+  const bool all = n_gt + in_bin <= cap;
+  const int c = all ? static_cast<int>(n_gt + in_bin) : k;
+  if (!all) {
+    if (tid == 0) sh.neq = 0;
+    __syncthreads();
+    for (long long base = 0; base < n; base += 4LL * blockDim.x) {
+      int eqc = 0;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long i = base + 4LL * tid + u;
+        eqc += (i < n && float_key(srow[i]) == thr) ? 1 : 0;
+      }
+      if (__syncthreads_or(eqc > 0)) {
+        const int before_n = sh.neq;
+        if (before_n >= need_eq) break;
+        int tot;
+        int r = before_n + repro::block_exclusive_scan(eqc, sh.warp_tot, &tot);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long i = base + 4LL * tid + u;
+          if (i < n && float_key(srow[i]) == thr) {
+            if (r < need_eq) {
+              ck[n_gt + r] = thr;
+              cpos[n_gt + r] = static_cast<int>(i);
+            }
+            ++r;
+          }
+        }
+        if (tid == 0) sh.neq = before_n + tot;
+      }
+    }
+    __syncthreads();
+  }
+  int p2 = 1;
+  while (p2 < c) p2 <<= 1;
+  uint32_t* sk = sort_global ? ck : pairs;
+  int* sp = sort_global ? cpos : reinterpret_cast<int*>(pairs + cap);
+  for (int r = tid; r < p2; r += blockDim.x) {
+    if (r < c) {
+      if (!sort_global) {
+        sk[r] = ck[r];
+        sp[r] = cpos[r];
+      }
+    } else {
+      sk[r] = 0u;
+      sp[r] = INT_MAX;
+    }
+  }
+  __syncthreads();
+  repro::sort_pairs(sk, sp, p2);
+  for (int r = tid; r < k; r += blockDim.x) {
+    const int p = sp[r];
+    const float v = srow[p];
+    out_vals[row * k + r] = v;
+    out_ids[row * k + r] = (v == -INFINITY) ? -1 : ids[p];
   }
 }
 
@@ -183,55 +744,75 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T, bool I8DOT>
-cudaError_t launch_score(const void* q, const void* q_scale, const void* docs,
-                         const void* ids, const void* dscale, void* scores, int b,
-                         long long n, int dp, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN),
-                  static_cast<unsigned>((b + BM - 1) / BM));
-  score_kernel<T, I8DOT><<<grid, 256, 0, stream>>>(
-      q, static_cast<const float*>(q_scale), static_cast<const T*>(docs),
-      static_cast<const int*>(ids), static_cast<const float*>(dscale),
-      static_cast<float*>(scores), b, n, dp);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
+// gemv != 0 takes the single-query path (b <= GEMV_MAX_B).
 extern "C" int knn_score(const void* q, const void* q_scale, const void* docs,
-                         const void* ids, const void* dscale, void* scores, int b,
-                         long long n, int dp, int store, int int8_dot, void* stream) {
+                         const void* ids, const void* dscale, void* scores, int b, long long n,
+                         int dp, int store, int int8_dot, int gemv, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (dp % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dp % 32 != 0 || (gemv && b > GEMV_MAX_B)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int8_dot) {
     if (store != repro::kI8) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_score<int8_t, true>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+    return launch_score<int8_t, true>(q, q_scale, docs, ids, dscale, scores, b, n, dp, gemv, st);
   }
   switch (store) {
     case repro::kF32:
-      return launch_score<float, false>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+      return launch_score<float, false>(q, q_scale, docs, ids, dscale, scores, b, n, dp, gemv,
+                                        st);
     case repro::kBF16:
-      return launch_score<__nv_bfloat16, false>(q, q_scale, docs, ids, dscale, scores, b, n,
-                                                dp, st);
+      return launch_score<__nv_bfloat16, false>(q, q_scale, docs, ids, dscale, scores, b, n, dp,
+                                                gemv, st);
     case repro::kI8:
-      return launch_score<int8_t, false>(q, q_scale, docs, ids, dscale, scores, b, n, dp, st);
+      return launch_score<int8_t, false>(q, q_scale, docs, ids, dscale, scores, b, n, dp, gemv,
+                                         st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-extern "C" int knn_select(const void* scores, const void* ids, void* out_vals, void* out_ids,
-                          void* pair_key, void* pair_pos, int b, long long n, int k, int kp,
-                          void* stream) {
+// Stable top-k of (b, n) scores.  scratch (uint32): the workspace (b,
+// WS_ROW), zeroed here, then the candidates (2, b, cap: keys, positions),
+// cap a power of two >= 2k, and the filter buffers (4, b, bufcap: keys of
+// buffers 0 and 1, then their positions).  Issues 5 device kernels after
+// one memset.
+extern "C" int knn_select(const void* scores, const void* ids, void* scratch,
+                          void* out_vals, void* out_ids, int b, long long n, int k, int cap,
+                          long long bufcap, int sort_global, void* stream) {
   if (b == 0) return 0;
-  if (k < 1 || k > n || kp < k || (kp & (kp - 1))) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = pair_key ? 0 : static_cast<size_t>(kp) * 8;
-  cudaError_t err = repro::allow_smem(select_kernel, smem);
+  if (k < 1 || k > n || n >= INT_MAX || cap < 2 * static_cast<long long>(k) ||
+      (cap & (cap - 1)) || b > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scores);
+  const size_t rows = static_cast<size_t>(b);
+  unsigned* w = static_cast<unsigned*>(scratch);
+  uint32_t* ck = w + rows * WS_ROW;
+  int* cp = reinterpret_cast<int*>(ck + rows * cap);
+  uint32_t* bk = reinterpret_cast<uint32_t*>(cp + rows * cap);
+  int* bp = reinterpret_cast<int*>(bk + 2 * rows * bufcap);
+  cudaError_t err = cudaMemsetAsync(w, 0, rows * WS_ROW * 4, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  select_kernel<<<b, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<const int*>(ids),
-      static_cast<float*>(out_vals), static_cast<int*>(out_ids),
-      static_cast<uint32_t*>(pair_key), static_cast<int*>(pair_pos), n, k, kp);
+  // one wave of blocks over all rows: chunks per row from the residency
+  int occ_h = 0, occ_f = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_h, hist_kernel, STHREADS, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_f, filter_kernel<0>, STHREADS, 0);
+  const int occ = occ_h < occ_f ? occ_h : occ_f;
+  long long chunks = static_cast<long long>(sm_count()) * (occ > 0 ? occ : 1) / b;
+  const long long most = (n + 2047) / 2048;
+  if (chunks > most) chunks = most;
+  if (chunks < 1) chunks = 1;
+  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(b));
+  hist_kernel<<<grid, STHREADS, 0, st>>>(s, w, n);
+  filter_kernel<0><<<grid, STHREADS, 0, st>>>(s, w, ck, cp, bk, bp, n, k, cap, bufcap);
+  filter_kernel<1><<<grid, STHREADS, 0, st>>>(s, w, ck, cp, bk, bp, n, k, cap, bufcap);
+  filter_kernel<2><<<grid, STHREADS, 0, st>>>(s, w, ck, cp, bk, bp, n, k, cap, bufcap);
+  const size_t smem = sort_global ? 0 : static_cast<size_t>(cap) * 8;
+  err = repro::allow_smem(finish_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_kernel<<<b, 1024, smem, st>>>(s, static_cast<const int*>(ids), w, ck, cp,
+                                       static_cast<float*>(out_vals), static_cast<int*>(out_ids),
+                                       n, k, cap, sort_global);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// Block-wide exact top-k in the stable order, shared by the kNN select
-// (knn.cu knn_select), the two-stage tile select (knn.cu knn_tile_select)
-// and the cache wave's query (cache_wave.cu).
+// Block-wide exact top-k in the stable order, shared by the two-stage tile
+// select (knn.cu knn_tile_select) and the cache wave's query
+// (cache_wave.cu); the kNN select (knn.cu knn_select) sorts its candidates
+// with the same bitonic sort (sort_pairs).
 //
 // One block selects the k largest of n order-preserving uint32 keys
 // (repro::float_key) and writes them in the stable top-k order — key
@@ -75,6 +76,29 @@ __device__ inline int block_exclusive_scan(int v, int* warp_tot, int* total) {
 
 __device__ __forceinline__ bool key_before(uint32_t ka, int pa, uint32_t kb, int pb) {
   return ka > kb || (ka == kb && pa < pb);
+}
+
+// Bitonic sort of kp (a power of two) pairs by (key desc, position asc),
+// by the whole block; the pairs are visible to the block before and after.
+__device__ inline void sort_pairs(uint32_t* key, int* pos, int kp) {
+  for (int size = 2; size <= kp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < kp / 2; t += blockDim.x) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const bool up = (i & size) == 0;
+        if (key_before(key[j], pos[j], key[i], pos[i]) == up) {
+          const uint32_t tk = key[i];
+          key[i] = key[j];
+          key[j] = tk;
+          const int tp = pos[i];
+          pos[i] = pos[j];
+          pos[j] = tp;
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 // The k largest of the n keys key_at(0 .. n-1) into cand_key / cand_pos
@@ -172,24 +196,7 @@ __device__ void block_topk(const KeyAt& key_at, long long n, int k, int kp,
   __syncthreads();
 
   // 3. bitonic sort of the kp pairs by (key desc, position asc)
-  for (int size = 2; size <= kp; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < kp / 2; t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        if (key_before(cand_key[j], cand_pos[j], cand_key[i], cand_pos[i]) == up) {
-          const uint32_t tk = cand_key[i];
-          cand_key[i] = cand_key[j];
-          cand_key[j] = tk;
-          const int tp = cand_pos[i];
-          cand_pos[i] = cand_pos[j];
-          cand_pos[j] = tp;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  sort_pairs(cand_key, cand_pos, kp);
 }
 
 }  // namespace repro

@@ -16,10 +16,12 @@ Every C entry point takes device pointers and the CUDA stream as
 or ``c_longlong``, floats as ``c_float``, launches on the given stream and
 returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 
-The three selects of ``csrc/select.cuh`` (kNN, two-stage tile, cache wave
+The two block selects of ``csrc/select.cuh`` (two-stage tile, cache wave
 query) keep their (key, position) survivors in shared memory up to
 ``SMEM_PAIRS`` pairs and in a global scratch buffer beyond;
-``pair_scratch`` makes that choice for every wrapper.
+``pair_scratch`` makes that choice for both wrappers.  The kNN select sorts
+its candidates in shared memory up to ``SMEM_PAIRS`` pairs too, and in its
+own scratch beyond.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ as ``knn/ops.py:152-157`` does), and handles k > N by padding the answer
 with (-inf, -1).  Two paths, any k:
 
   * fused (default) — ``knn_score`` into a (B, N) f32 scratch, then
-    ``knn_select`` (the stable top-k of each row): two launches of
-    ``csrc/knn.cu``, one op;
+    ``knn_select`` (the stable top-k of each row, a radix select over all
+    SMs): one op, two counted launches of ``csrc/knn.cu``.  ``knn_score``
+    takes the single-query path (a GEMV) for B <= ``SCORE_GEMV_MAX_B`` and
+    the batched GEMM above it;
   * ``two_stage=True`` — ``knn_tile_topk``: ``knn_score``, then the stable
     top ``k_eff = min(k, tile_n)`` positions of every ``tile_n`` tile
     (``knn_tile_select``), then the merge here in the wrapper: the stable
@@ -22,7 +24,8 @@ with (-inf, -1).  Two paths, any k:
     ``tile_n`` and ``k_eff`` equal the JAX ones.
 
 On a CUDA tensor the kernels launch; on a CPU tensor the plain versions in
-``ref`` run.
+``ref`` run.  Every scratch buffer of the kernels (the select's
+histograms, counters, candidates and filter buffers) is allocated here.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.knn import ref
 
 __all__ = ["knn_score", "knn_select", "knn_tile_topk", "knn_search",
-           "autotune_knn", "SCORE", "SELECT", "TILE"]
+           "autotune_knn", "SCORE", "SELECT", "TILE", "SCORE_GEMV_MAX_B"]
 
 SCORE = dispatch.counter("knn_score")
 SELECT = dispatch.counter("knn_select")
@@ -44,10 +47,16 @@ TILE = dispatch.counter("knn_tile_topk")
 # the JAX tuner's padding rules (TPU lane and sublane), kept so that
 # ``autotune_knn`` picks the JAX package's tile for the same call
 LANE, SUBLANE = 128, 8
+# the largest B that takes the single-query score path, and the widest
+# query block of the kernel's GEMV (measured crossover: PERF.md)
+SCORE_GEMV_MAX_B = 8
+SELECT_WS = 2 * 4096 + 16 + 256  # csrc/knn.cu WS_ROW
+SELECT_BUF = 1 << 16      # filter buffer per row (keys at the k-th digit)
 _SCORE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
-               + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_SELECT_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
-                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+               + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_SELECT_ARGS = ([ctypes.c_void_p] * 5
+                + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 _TILE_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
               + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -82,8 +91,22 @@ def autotune_knn(n: int, d: int, b: int, k: int,
     return tile, min(k, tile)
 
 
+def _check_aligned(t, name):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernels load 16-byte vectors; the "
+                         f"tensor starts at a {t.data_ptr() % 16}-byte offset")
+
+
 def knn_score(docs, doc_ids, queries, scale=None, q_scale=None):
     """Masked (B, N) f32 scores; ``q_scale`` given means int8-dot queries."""
+    b = queries.shape[0]
+    return _score(docs, doc_ids, queries, scale, q_scale,
+                  gemv=b <= SCORE_GEMV_MAX_B)
+
+
+def _score(docs, doc_ids, queries, scale, q_scale, *, gemv: bool):
+    """``knn_score`` on the path asked for: the single-query GEMV
+    (B <= ``SCORE_GEMV_MAX_B``) or the batched GEMM (any B)."""
     if not dispatch.is_kernel(docs):
         return ref.score(docs, doc_ids, queries, scale, q_scale)
     n, dp = docs.shape
@@ -91,11 +114,14 @@ def knn_score(docs, doc_ids, queries, scale=None, q_scale=None):
     dev = docs.device
     if docs.dtype not in _build.STORE:
         raise TypeError(f"unsupported corpus dtype {docs.dtype}")
-    if dp % layout.FEAT:       # the score kernel's feature tile (BK)
+    if dp % layout.FEAT:       # the score kernel's feature tile (GK)
         raise ValueError(f"corpus width {dp} is not a multiple of "
                          f"{layout.FEAT}")
     if n >= 2 ** 31:
         raise ValueError(f"corpus of {n} rows exceeds int32 positions")
+    if gemv and b > SCORE_GEMV_MAX_B:
+        raise ValueError(f"the single-query path takes at most "
+                         f"{SCORE_GEMV_MAX_B} queries, got {b}")
     i8 = q_scale is not None
     _check(queries, "queries", torch.int8 if i8 else torch.float32, (b, dp), dev)
     _check(doc_ids, "doc_ids", torch.int32, (n,), dev)
@@ -106,14 +132,16 @@ def knn_score(docs, doc_ids, queries, scale=None, q_scale=None):
         if docs.dtype != torch.int8:
             raise TypeError("int8-dot scoring needs an int8 corpus")
     docs, doc_ids, queries = (t.contiguous() for t in (docs, doc_ids, queries))
+    _check_aligned(docs, "docs")
+    _check_aligned(queries, "queries")
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     fn = _build.function("knn", "knn_score", _SCORE_ARGS)
     SCORE.launch()
     code = fn(queries.data_ptr(), q_scale.data_ptr() if i8 else None,
               docs.data_ptr(), doc_ids.data_ptr(),
               None if scale is None else scale.contiguous().data_ptr(),
-              out.data_ptr(), b, n, dp, _build.STORE[docs.dtype], int(i8),
-              _build.stream_of(docs))
+              out.data_ptr(), b, n, dp, _build.STORE[docs.dtype],
+              int(i8), int(gemv), _build.stream_of(docs))
     _build.check(code, "knn_score")
     return out
 
@@ -124,18 +152,30 @@ def knn_select(scores, doc_ids, k: int):
     if not dispatch.is_kernel(scores):
         return ref.select(scores, doc_ids, k)
     b, n = scores.shape
+    dev = scores.device
     if not 1 <= k <= n:
         raise ValueError(f"k={k} outside [1, N={n}]")
-    _check(doc_ids, "doc_ids", torch.int32, (n,), scores.device)
+    if n >= 2 ** 31 - 1:
+        raise ValueError(f"row of {n} scores exceeds int32 positions")
+    if b > 65535:
+        raise ValueError(f"{b} rows exceed the select grid's 65535")
+    _check(doc_ids, "doc_ids", torch.int32, (n,), dev)
     scores = scores.contiguous()
-    vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
-    ids = torch.empty((b, k), dtype=torch.int32, device=scores.device)
-    kp, pair_key, pair_pos = _build.pair_scratch(b, k, scores.device)
+    # candidates: every key above the k-th plus its tie run, up to cap; one
+    # scratch for the workspace (histograms, counters), candidates and
+    # buffers
+    cap = 2 << (k - 1).bit_length()
+    bufcap = min(n, SELECT_BUF)
+    scratch = torch.empty(b * (SELECT_WS + 2 * cap + 4 * bufcap),
+                          dtype=torch.int32, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = _build.function("knn", "knn_select", _SELECT_ARGS)
     SELECT.launch()
     code = fn(scores.data_ptr(), doc_ids.contiguous().data_ptr(),
-              vals.data_ptr(), ids.data_ptr(), _ptr(pair_key), _ptr(pair_pos),
-              b, n, k, kp, _build.stream_of(scores))
+              scratch.data_ptr(), vals.data_ptr(), ids.data_ptr(), b, n, k,
+              cap, bufcap, int(cap > _build.SMEM_PAIRS),
+              _build.stream_of(scores))
     _build.check(code, "knn_select")
     return vals, ids
 

@@ -282,6 +282,98 @@ def test_knn_search_at_k_equal_n(card, monkeypatch, global_pairs):
     assert (i[:, :n - 40] >= 0).all() and (i[:, n - 40:] == -1).all()
 
 
+THR = knn_ops.SCORE_GEMV_MAX_B
+
+
+@pytest.mark.parametrize("dtype,i8", [("fp32", False), ("bf16", False),
+                                      ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("dp", [32, 800])
+@pytest.mark.parametrize("b", [1, 2, THR, THR + 1, 64, 65, 130])
+def test_knn_score_paths_match_plain(card, dtype, i8, dp, b):
+    """Both score paths (the single-query GEMV up to the threshold, the
+    batched GEMM at any B) against the plain product on a corpus whose N is
+    no tile multiple, with sentinel rows."""
+    n = 5003
+    docs = _unit(n, dp - 3, gen=card)
+    docs = tc.pad_features(docs, dp)
+    qc = quant.quantize(docs, dtype)
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    ids[[0, 777, n - 1]] = -1
+    q = tc.pad_features(_unit(b, dp - 3, gen=card), dp)
+    qs = None
+    if i8:
+        qqc = quant.quantize(q, "int8")
+        q, qs = qqc.data, qqc.scale
+    want = knn_ref.score(qc.data, ids, q, qc.scale, qs)
+    for gemv in ([True, False] if b <= THR else [False]):
+        got = knn_ops._score(qc.data, ids, q, qc.scale, qs, gemv=gemv)
+        assert_close(got, want, TOL, f"score {dtype} i8={i8} gemv={gemv}")
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    dispatch.reset_counters()
+    knn_ops.knn_score(qc.data, ids, q, qc.scale, qs)
+    assert dispatch.counters()["knn_score"].launches == 1
+
+
+def _select_rows(gen, case, b=3, n=40_009):
+    """(scores, k) of one hard case for the select, on the card."""
+    s = torch.randn(b, n, generator=gen, device="cuda")
+    k = 1000
+    if case == "all_equal":
+        s.fill_(0.5)
+    elif case == "tie_across_k":               # a run of 60 at ranks 980+
+        v = torch.sort(s, dim=1, descending=True).values[:, 980:981]
+        pos = torch.randperm(n, generator=gen, device="cuda")[:60]
+        s[:, pos] = v
+    elif case == "half_neginf":                # rank k falls in the -inf run
+        s[:, ::2] = float("-inf")
+        k = n // 2 + 500
+    elif case == "few_finite":                 # fewer than k finite
+        s[:, 100:] = float("-inf")
+    elif case == "k_equal_n":
+        s = torch.round(s * 4) / 4             # many ties everywhere
+        k = n
+    elif case == "zeros_signed":               # -0.0 and +0.0 are one key
+        s = torch.round(s) * 0.0
+    return s, k
+
+
+@pytest.mark.parametrize("case", ["random", "all_equal", "tie_across_k",
+                                  "half_neginf", "few_finite", "k_equal_n",
+                                  "zeros_signed"])
+@pytest.mark.parametrize("small_buf", [False, True])
+def test_knn_select_hard_rows(card, monkeypatch, case, small_buf):
+    """The all-SM radix select equals the plain stable top-k exactly: the
+    lowest positions of a tie run at rank k win, -inf results carry id -1.
+    ``small_buf`` makes the k-th digit's keys outgrow the filter buffer, so
+    later passes read the scores again."""
+    if small_buf:
+        monkeypatch.setattr(knn_ops, "SELECT_BUF", 64)
+    s, k = _select_rows(card, case)
+    n = s.shape[1]
+    ids = torch.arange(n, dtype=torch.int32, device="cuda") + 3
+    dispatch.reset_counters()
+    v, i = knn_ops.knn_select(s, ids, k)
+    assert dispatch.counters()["knn_select"].launches == 1
+    rv, ri = knn_ref.select(s, ids, k)
+    assert torch.equal(v, rv), case
+    assert torch.equal(i, ri), case
+
+
+@pytest.mark.parametrize("k", [2048, 20000])
+@pytest.mark.parametrize("global_sort", [False, True])
+def test_knn_select_large_k(card, monkeypatch, k, global_sort):
+    """Candidates beyond the shared-memory sort (k = 20000 always; k = 2048
+    when the limit is forced down) are sorted in global scratch."""
+    from repro_torch.kernels import _build
+    if global_sort:
+        monkeypatch.setattr(_build, "SMEM_PAIRS", 256)
+    s, _ = _select_rows(card, "tie_across_k", b=2, n=100_003)
+    ids = torch.arange(s.shape[1], dtype=torch.int32, device="cuda")
+    v, i = knn_ops.knn_select(s, ids, k)
+    rv, ri = knn_ref.select(s, ids, k)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
 def test_single_probe_kernel_matches_plain(card, dtype):
     """``probe_rhat`` (one session) against ``ref.probe_rhat``, and the
