@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases kernels,recsys,...]
 
 Run from the repository root.  Phases, each fatal on failure:
 
@@ -15,7 +15,8 @@ Run from the repository root.  Phases, each fatal on failure:
      Qmax=64, dim 769) and the single-session probe (Qmax=64, dim 769, rings
      of 0, 1, 64 and 73 records), the wave in its three modes and three
      store dtypes (S=64, capacity 16000, k_c=1000, k=10; and the query at
-     k=200), the kNN search (B=64, k=1000 and k=2048; fp32 at N=8,841,823,
+     k=200) and at one session on Table 1's cache with every slot live
+     (capacity 12000, the query at k=200, a k_c=1000 insert), the kNN search (B=64, k=1000 and k=2048; fp32 at N=8,841,823,
      bf16 / int8 / int8-dot at N=1,000,000; and B=1 at k=1000 and 200, the
      single-query score path), the score paths around their threshold
      beside ``torch.mm`` (B = 1, 8, 9, 16, 32, 64: the crossover), the
@@ -48,7 +49,8 @@ Run from the repository root.  Phases, each fatal on failure:
      collection of TREC CAsT 2019); one Eq. 1 M over the whole corpus.
   6. ab      — the two-stage A/B baseline over that corpus:
      ``knn_search(two_stage=True)`` for the 64 first turns at k = k_c =
-     1000, against the fused search and the plain two-stage version.
+     1000, against the fused search and the plain two-stage version; the
+     op's parts (score, tile select, merge) timed apart.
   7. main    — the batched serving path: ``SessionManager`` ->
      ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity=
      16000)`` -> ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns
@@ -56,7 +58,8 @@ Run from the repository root.  Phases, each fatal on failure:
      launches per wave with a miss (the kNN search counted as one) and 2
      per wave without; every miss turn matches an exact plain search over
      the whole corpus, and the same engine on a small input answers as the
-     CPU path does.
+     CPU path does.  Prints each wave's bucket, the p50 of the probe and
+     fill spans, and the serve's own peak device memory.
   8. paper   — Algorithm 1 for one session: ``ConversationalSearcher(
      MetricIndex(corpus), k=200, k_c=1000, epsilon=0.04, capacity=12000)``
      under the ``none``, ``static`` and ``dynamic`` policies over the 64
@@ -75,7 +78,12 @@ counters zeroed just before it and read just after; each checks its own
 launch accounting, and the ``launches`` of the kernels line are their sums.
 The line also holds ``knn_score_b1`` and ``knn_select_b1``: the same two
 kernels timed at the single-query shape, with the launches of [paper] and
-[engine], where every kNN search is a single query.
+[engine], where every kNN search is a single query; and
+``wave_query_topk_s1`` and ``wave_insert_scatter_s1``: the wave kernel at
+one session (every cache query and insert of [paper] and [engine]), timed
+with the stream's queue filled ahead so that the wrapper's host time
+between launches is not counted (the back-to-back time is printed
+beside it).
 
 Tolerances (the kernels and the plain versions sum f32 dot products in
 different orders): scores and r_hat within 1e-5 and 1e-4 (r_hat takes a
@@ -128,9 +136,17 @@ KERNELS = {
 # miss of Algorithm 1 for one session); their launches are those of [paper]
 # and [engine], where every kNN search is a single query
 B1_ROWS = {"knn_score_b1": "knn_score", "knn_select_b1": "knn_select"}
+# the wave kernel again at one session (Algorithm 1's cache, capacity 12000,
+# every slot live): the query of every [paper] / [engine] turn and the
+# insert of every miss; their launches are those of [paper] and [engine]
+S1_ROWS = {"wave_query_topk_s1": "wave_query_topk",
+           "wave_insert_scatter_s1": "wave_insert_scatter"}
 BAG_TOL, HALF_TOL = 1e-5, 1e-3     # pooled rows: f32 tables, f16 / bf16
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 P99_CALLS = 51                     # the first is a warm-up, not in the stats
+# what --phases may select; the default runs them all (the kernels phase is
+# every kernel against its plain version, the knn checks included)
+PHASES = ("kernels", "recsys", "ab", "main", "paper", "engine")
 XDEEPFM_CHUNK = 16_384
 
 
@@ -160,6 +176,23 @@ def timed(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def timed_device(torch, fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls enqueued while the
+    stream sleeps, so the host's enqueue time between calls is not in the
+    interval (a short kernel otherwise waits on its wrapper)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)         # about 10 ms at the H100's clock
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 class Report:
     def __init__(self):
         self.rows = {}
@@ -176,8 +209,9 @@ class Report:
 
     def line(self, launches):
         out = []
-        for name in (*KERNELS, *B1_ROWS):
-            src, tpu = KERNELS[B1_ROWS.get(name, name)]
+        again = {**B1_ROWS, **S1_ROWS}
+        for name in (*KERNELS, *again):
+            src, tpu = KERNELS[again.get(name, name)]
             out.append({"name": name, "route": "cuda", "source": SRC + src,
                         "replaces": TPU + tpu, "launches": launches[name],
                         **self.rows[name]})
@@ -437,6 +471,86 @@ def wave_phase(torch, rep: Report, gen):
                     nbytes=write, ops=0, rate=F32_OPS)
         del st, sk, ins
         torch.cuda.empty_cache()
+
+
+def wave_single_phase(torch, rep: Report, gen):
+    """The wave kernel at one session on Table 1's cache (capacity 12000,
+    12288 physical slots) with every slot live: the query at k = 200, and a
+    k_c = 1000 insert over live slots with its record, each against its
+    plain version (states bit for bit).  Timed on the device alone (the
+    queue filled ahead) and back to back (what a caller's loop sees)."""
+    from repro_torch.core import cache_ops as tc
+    from repro_torch.kernels.cache_wave import ops as wave_ops
+    from repro_torch.kernels.cache_wave import ref as wave_ref
+    from repro_torch.kernels.parity import assert_topk_agree
+
+    cfg = tc.CacheConfig(capacity=PAPER_CAP, dim=DIM_RAW + 1,
+                         max_queries=QMAX)
+    cp, dp, dim = cfg.phys_capacity, cfg.phys_dim, cfg.dim
+    st = tc.init_batched_cache(cfg, 1, DEV)
+    st.doc_emb[0, :PAPER_CAP, :dim] = torch.nn.functional.normalize(
+        torch.randn(PAPER_CAP, dim, generator=gen, device=DEV), dim=1)
+    st.doc_ids[0, :PAPER_CAP] = torch.arange(PAPER_CAP, dtype=torch.int32,
+                                             device=DEV)
+    st.doc_stamp[0, :PAPER_CAP] = 1
+    st.n_docs.fill_(PAPER_CAP)
+    st.n_queries.fill_(7)
+    st.step.fill_(2)
+    psi = tc.pad_features(torch.nn.functional.normalize(torch.randn(
+        1, dim, generator=gen, device=DEV), dim=1), dp)
+    lv = (st.doc_emb, st.doc_ids, st.doc_stamp, st.doc_scale, st.q_emb,
+          st.q_radius, st.q_scale)
+    vk, ik, _ = wave_ops.wave_query_topk(lv[0], lv[1], lv[3], psi, PAPER_K)
+    vr, ir, _ = wave_ref.query_topk(lv[0], lv[1], lv[3], psi, PAPER_K)
+    err_q = assert_topk_agree(vk, ik, vr, ir, SCORE_TOL,
+                              "wave_query_topk S=1")
+    new = tc.pad_features(torch.nn.functional.normalize(torch.randn(
+        1, KC, dim, generator=gen, device=DEV), dim=2), dp)
+    pos = torch.randperm(PAPER_CAP, generator=gen, device=DEV)[:KC] \
+        .to(torch.int32)[None]
+    ins = (new, torch.ones(1, KC, device=DEV),
+           (10 ** 7 + torch.arange(KC, device=DEV, dtype=torch.int32))[None],
+           pos, psi, torch.ones(1, device=DEV), torch.full((1,), 0.3,
+                                                           device=DEV),
+           torch.ones(1, dtype=torch.bool, device=DEV),
+           torch.remainder(st.n_queries, QMAX), st.step.clone())
+    sk = tc.CacheState(*(x.clone() for x in st))
+    sp = tc.CacheState(*(x.clone() for x in st))
+
+    def leaves(x):
+        return (x.doc_emb, x.doc_ids, x.doc_stamp, x.doc_scale, x.q_emb,
+                x.q_radius, x.q_scale)
+    wave_ops.wave_insert_scatter(*leaves(sk), *ins)
+    wave_ref.insert_scatter(*leaves(sp), *ins)
+    for f, x, y in zip(tc.CacheState._fields, sk, sp):
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            raise AssertionError(f"wave_insert_scatter S=1: leaf {f} differs")
+    del sk, sp
+
+    q_dev = timed_device(torch, lambda: wave_ops.wave_query_topk(
+        lv[0], lv[1], lv[3], psi, PAPER_K), 50)
+    q_b2b = timed(torch, lambda: wave_ops.wave_query_topk(
+        lv[0], lv[1], lv[3], psi, PAPER_K), 50)
+    q_plain = timed(torch, lambda: wave_ref.query_topk(
+        lv[0], lv[1], lv[3], psi, PAPER_K), 10)
+    i_dev = timed_device(torch, lambda: wave_ops.wave_insert_scatter(
+        *lv, *ins), 50)
+    i_b2b = timed(torch, lambda: wave_ops.wave_insert_scatter(*lv, *ins), 50)
+    i_plain = timed(torch, lambda: wave_ref.insert_scatter(*lv, *ins), 10)
+    rep.add("wave_query_topk_s1", err=err_q, ms=q_dev, plain_ms=q_plain,
+            nbytes=cp * (dp * 4 + 8) + dp * 4 + PAPER_K * 12,
+            ops=2 * cp * dp, rate=F32_OPS)
+    rep.add("wave_insert_scatter_s1", err=0.0, ms=i_dev, plain_ms=i_plain,
+            nbytes=KC * (2 * dp * 4 + 12) + KC * 4 + 2 * dp * 4 + 8,
+            ops=0, rate=F32_OPS)
+    chunk, chunks = wave_ops.wave_grid(
+        1, cp, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"[kernels] cache_wave S=1 Cp={cp} (every slot live, grid of "
+        f"{chunks} blocks of {chunk} slots): query k={PAPER_K} device "
+        f"{q_dev:.4f} ms, back to back {q_b2b:.4f} ms; insert of {KC} rows "
+        f"device {i_dev:.4f} ms, back to back {i_b2b:.4f} ms")
+    del st, lv, ins
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- recsys
@@ -1091,6 +1205,24 @@ def ab_phase(torch, rep: Report, corpus, streams):
 
     lib = timed(torch, library, 2)
     torch.cuda.empty_cache()
+    # the op's parts apart: the score, the tile select on those scores, the
+    # wrapper's merge; and torch.topk over the same view of those scores
+    scores = knn_ops.knn_score(corpus, ids, qq)
+    score_ms = timed(torch, lambda: knn_ops.knn_score(corpus, ids, qq), 3)
+    select_ms = timed(torch, lambda: knn_ops.knn_tile_select(
+        scores, k_eff, tile_n), 3)
+    tv, tp = knn_ops.knn_tile_select(scores, k_eff, tile_n)
+    merge_ms = timed(torch, lambda: knn_ref.merge_tiles(tv, tp, ids, KC), 3)
+    view = torch.nn.functional.pad(scores, (0, tiles * tile_n - n),
+                                   value=float("-inf")).view(b, tiles, tile_n)
+    del scores
+    topk_ms = timed(torch, lambda: torch.topk(view, k_eff, dim=2), 3)
+    del view, tv, tp
+    torch.cuda.empty_cache()
+    log(f"[ab] knn_tile_topk apart: knn_score {score_ms:.3f} ms, "
+        f"knn_tile_select {select_ms:.3f} ms, merge {merge_ms:.3f} ms; "
+        f"torch.topk over the (B, tiles, {tile_n}) view of the same scores "
+        f"{topk_ms:.3f} ms")
     rep.add("knn_tile_topk", err=err, ms=ms, plain_ms=plain,
             nbytes=n * (dp * 4 + 8) + b * dp * 4 + tiles * b * k_eff * 8,
             ops=2 * b * n * dp, rate=F32_OPS, library_ms=lib)
@@ -1104,7 +1236,9 @@ def ab_phase(torch, rep: Report, corpus, streams):
 def serve(torch, corpus, streams, *, n_sessions, k_c, capacity, device,
           waves_seen=None):
     """Serve every session's turns through SessionManager, round by round,
-    then one round re-asking each last turn.  Returns the engine."""
+    then one round re-asking each last turn.  Returns the engine.  Each
+    wave appends (misses, bucket, probe span s, fill span s) to
+    ``waves_seen`` when given."""
     import numpy as np
 
     from repro_torch.dist.retrieval import DeviceShard
@@ -1119,12 +1253,16 @@ def serve(torch, corpus, streams, *, n_sessions, k_c, capacity, device,
                                epsilon=EPS, capacity=capacity, dtype="fp32",
                                device=device)
         if waves_seen is not None:
-            backend_wave = engine.backend_wave
+            fill_wave = engine.fill_wave
 
-            def counted(ws):    # the wave's misses: the kNN search's B
-                waves_seen.append(int(np.asarray(ws.need).sum()))
-                return backend_wave(ws)
-            engine.backend_wave = counted
+            def logged(ws):     # the wave's misses are the kNN search's B
+                out = fill_wave(ws)
+                spans = [t.spans for t in out if hasattr(t, "spans")]
+                waves_seen.append((int(np.asarray(ws.need).sum()), ws.bucket,
+                                   ws.probe_s, spans[0].insert_s if spans
+                                   else float("nan")))
+                return out
+            engine.fill_wave = logged
         rounds = [[s[t] for s in streams[:n_sessions]]
                   for t in range(streams[0].shape[0])]
         rounds.append([s[-1] for s in streams[:n_sessions]])
@@ -1176,12 +1314,15 @@ def main_phase(torch, corpus, streams):
     torch.cuda.empty_cache()
 
     waves: list = []
+    before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, launches = counted(torch, lambda: serve(
         torch, corpus, streams, n_sessions=S, k_c=KC, capacity=CAPACITY,
         device=DEV, waves_seen=waves))
     wall = time.perf_counter() - t0
-    sizes = sorted(w for w in waves if w)
+    serve_peak = torch.cuda.max_memory_allocated()
+    sizes = sorted(w[0] for w in waves if w[0])
     miss, clean = len(sizes), len(waves) - len(sizes)
     got = {n: launches.get(n, 0) for n in KERNELS}
     want = {"cache_probe": len(waves), "knn_score": miss, "knn_select": miss,
@@ -1203,6 +1344,15 @@ def main_phase(torch, corpus, streams):
         f"{sum(w <= thr for w in sizes)} waves, GEMM at B {thr + 1}..63: "
         f"{sum(thr < w < 64 for w in sizes)}, at B >= 64: "
         f"{sum(w >= 64 for w in sizes)}")
+    probe = np.array([w[2] for w in waves]) * 1e3
+    fill = np.array([w[3] for w in waves]) * 1e3
+    missed = np.array([w[0] > 0 for w in waves])
+    log(f"[main] wave buckets (sessions after padding, in order): "
+        f"{[w[1] for w in waves]}; probe span p50 "
+        f"{np.percentile(probe, 50):.3f} ms; fill span p50 "
+        f"{np.percentile(fill, 50):.3f} ms (waves with misses "
+        f"{np.percentile(fill[missed], 50):.3f}, without "
+        f"{np.percentile(fill[~missed], 50):.3f})")
     check_turns(engine, n_turns)
     # every miss turn answers the exact top-k of the whole corpus
     miss_q, miss_t = [], []
@@ -1232,8 +1382,10 @@ def main_phase(torch, corpus, streams):
         {"turn": summ["spans"]["total_s"], "tiers": summ["tiers"],
          "wave_size": summ["wave_size"],
          "wave_service": summ["wave_service_s"]}))
-    log(f"[main] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[main] peak device memory over the serve {serve_peak / 1e9:.2f} "
+        f"GB (the run's peak before it: {before / 1e9:.2f} GB; after it, "
+        f"with the exact check of the miss turns: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     return launches
 
 
@@ -1279,9 +1431,7 @@ def agree_to_k(vals, ids, ref_vals, ref_ids, tol, what):
 def paper_phase(torch, corpus, world, streams):
     import numpy as np
 
-    from repro_torch.core import cache_ops as tc
     from repro_torch.core.metric_index import MetricIndex
-    from repro_torch.kernels.cache_wave import ops as wave_ops
     from repro_torch.kernels.knn import ref as knn_ref
     from repro_torch.kernels.parity import assert_topk_agree
     from repro_torch.metrics import ir
@@ -1387,16 +1537,8 @@ def paper_phase(torch, corpus, world, streams):
         runs[policy] = recs
     log(f"[paper] launches over the three runs {totals}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (corpus "
-        f"{corpus.numel() * 4 / 1e9:.2f} GB)")
-    # device time of a hit turn's cache query: the wave kernel on one
-    # session scans every physical slot, whatever the occupancy
-    cfg = tc.CacheConfig(capacity=PAPER_CAP, dim=dp)
-    st = tc.init_batched_cache(cfg, 1, DEV)
-    psi = pad_to(torch, flat[:1], dp)
-    q_ms = timed(torch, lambda: wave_ops.wave_query_topk(
-        st.doc_emb, st.doc_ids, st.doc_scale, psi, PAPER_K), 20)
-    log(f"[paper] wave_query_topk S=1 Cp={cfg.phys_capacity} k={PAPER_K}: "
-        f"ms={q_ms:.4f}")
+        f"{corpus.numel() * 4 / 1e9:.2f} GB); a turn's cache query and a "
+        f"miss's insert are the kernels line's wave_*_s1 rows")
     return runs["dynamic"], totals
 
 
@@ -1453,7 +1595,15 @@ def engine_phase(torch, corpus, streams, dynamic):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (engine needs paper); a subset prints no kernels "
+                    "line and no ok line")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES) or ("engine" in phases
+                                     and "paper" not in phases):
+        ap.error(f"--phases {args.phases}: choose from {PHASES}")
     try:
         import torch
     except ImportError:
@@ -1485,21 +1635,35 @@ def main() -> int:
     gen.manual_seed(args.seed)
     rep = Report()
     t_start = time.perf_counter()
-    probe_phase(torch, rep, gen)
-    probe_single_phase(torch, rep, gen)
-    wave_phase(torch, rep, gen)
-    recsys = recsys_phase(torch, rep, gen, args.seed)
-    torch.cuda.empty_cache()
-    world, corpus, streams = build_corpus(torch, args.seed)
-    knn_phase(torch, rep, corpus, streams)
-    paths = [recsys, ab_phase(torch, rep, corpus, streams),
-             main_phase(torch, corpus, streams)]
-    dynamic, paper = paper_phase(torch, corpus, world, streams)
-    paths += [paper, engine_phase(torch, corpus, streams, dynamic)]
-    launches = {n: sum(p.get(n, 0) for p in paths) for n in KERNELS}
-    launches.update({n: paper.get(k, 0) + paths[-1].get(k, 0)
-                     for n, k in B1_ROWS.items()})
+    paths = {}
+    if "kernels" in phases:
+        probe_phase(torch, rep, gen)
+        probe_single_phase(torch, rep, gen)
+        wave_phase(torch, rep, gen)
+        wave_single_phase(torch, rep, gen)
+    if "recsys" in phases:
+        paths["recsys"] = recsys_phase(torch, rep, gen, args.seed)
+        torch.cuda.empty_cache()
+    if phases & {"kernels", "ab", "main", "paper"}:
+        world, corpus, streams = build_corpus(torch, args.seed)
+        if "kernels" in phases:
+            knn_phase(torch, rep, corpus, streams)
+        if "ab" in phases:
+            paths["ab"] = ab_phase(torch, rep, corpus, streams)
+        if "main" in phases:
+            paths["main"] = main_phase(torch, corpus, streams)
+        if "paper" in phases:
+            dynamic, paths["paper"] = paper_phase(torch, corpus, world,
+                                                  streams)
+        if "engine" in phases:
+            paths["engine"] = engine_phase(torch, corpus, streams, dynamic)
     log(f"[done] phases in {time.perf_counter() - t_start:.1f} s")
+    if phases != set(PHASES):
+        print(smi)
+        return 0
+    launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in KERNELS}
+    launches.update({n: paths["paper"].get(k, 0) + paths["engine"].get(k, 0)
+                     for n, k in {**B1_ROWS, **S1_ROWS}.items()})
     print(rep.line(launches))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,10 @@ The port of ``repro.core.cache``'s wrappers:
     sessions on one device, with ``gather`` / ``scatter`` of a wave's rows
     and per-session ``reset``.  ``gather`` copies the wave's rows (the
     cache ops then update that copy in place) and ``scatter`` writes them
-    back, in place.
+    back, in place.  A wave leaves the payload where it is:
+    ``gather(..., payload=False)`` copies every leaf but ``doc_emb``, the
+    ops read and write the stacked payload through ``rows`` (``wave_rows``)
+    and ``scatter`` writes back the rest.
 """
 
 from __future__ import annotations
@@ -98,9 +101,15 @@ class BatchedMetricCache:
         self.device = self.state.doc_ids.device
         self.total_dropped = 0
 
-    def _idx(self, sessions) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(sessions, np.int64),
-                               device=self.device)
+    def _idx(self, sessions, dtype=np.int64) -> torch.Tensor:
+        idx = np.asarray(sessions, dtype)
+        if idx.size and (idx.min() < 0 or idx.max() >= self.n_sessions):
+            raise IndexError(f"sessions {idx} outside [0, {self.n_sessions})")
+        return torch.as_tensor(idx, device=self.device)
+
+    def wave_rows(self, sessions) -> torch.Tensor:
+        """The sessions' int32 payload rows: the cache ops' ``rows``."""
+        return self._idx(sessions, np.int32)
 
     def reset(self, sessions=None):
         """Reset all sessions, or just the given session indices (in place)."""
@@ -123,13 +132,19 @@ class BatchedMetricCache:
         return torch.clamp(self.state.n_queries,
                            max=self.cfg.max_queries).cpu().numpy()
 
-    def gather(self, sessions) -> CacheState:
-        """A copy of the given sessions' rows (a wave's sub-state)."""
+    def gather(self, sessions, payload: bool = True) -> CacheState:
+        """A copy of the given sessions' rows (a wave's sub-state).  With
+        ``payload=False`` its ``doc_emb`` is the stacked payload itself, not
+        a copy, for the ops' ``rows=``."""
         idx = self._idx(sessions)
-        return CacheState(*(x[idx] for x in self.state))
+        return CacheState(*(x if not payload and x is self.state.doc_emb
+                            else x[idx] for x in self.state))
 
-    def scatter(self, sessions, sub: CacheState):
-        """Write a wave's updated sub-state back, in place."""
+    def scatter(self, sessions, sub: CacheState, rows=None):
+        """Write a wave's updated sub-state back, in place: its rows
+        ``rows`` (all by default) to the given sessions.  A payload that
+        ``sub`` shares with the stacked state was written in place."""
         idx = self._idx(sessions)
         for full, part in zip(self.state, sub):
-            full[idx] = part
+            if part is not full:
+                full[idx] = part if rows is None else part[rows]

@@ -20,8 +20,14 @@ logical extents, and a dropped insert position is ``phys_capacity``.
 **In place.**  Unlike the JAX package, the ops UPDATE THE STATE TENSORS IN
 PLACE and return the same state object: the cache payload is the largest
 allocation of the serving path, and the wave kernel writes it directly.
-Callers that need the old state keep a copy (``BatchedMetricCache.gather``
-already hands the wave a copy of its rows).
+Callers that need the old state keep a copy.
+
+**A wave's rows.**  The batched ops take ``rows`` (W,) int32: the state's
+``doc_emb`` is then the whole stacked payload and wave row w's payload is
+row ``rows[w]``, while every other leaf holds the wave's own W rows (what
+``BatchedMetricCache.gather(..., payload=False)`` hands a wave).  The wave
+kernel reads and writes the payload through that index, so no wave copies
+it.
 
 Every op is batched: psi (S, dim), and ``do`` / ``record`` masks gate which
 rows insert and which record a claim.  The scalar ops run the batched ones
@@ -184,7 +190,7 @@ def evicting_positions(state: CacheState, capacity: int, keep: torch.Tensor,
 
 
 def insert_positions(state: CacheState, cfg: CacheConfig, psi: torch.Tensor,
-                     new_ids: torch.Tensor):
+                     new_ids: torch.Tensor, rows=None):
     """(keep, pos, dropped, new_n) of one batched insert; ``pos`` equals
     ``cfg.phys_capacity`` for a dropped or unkept document."""
     drop = cfg.phys_capacity
@@ -199,7 +205,9 @@ def insert_positions(state: CacheState, cfg: CacheConfig, psi: torch.Tensor,
             key = state.doc_stamp.to(torch.float32)
         else:
             psi_p = pad_features(psi.to(torch.float32), state.doc_emb.shape[-1])
-            scores = torch.bmm(state.doc_emb.to(torch.float32),
+            payload = state.doc_emb if rows is None \
+                else state.doc_emb.index_select(0, rows)
+            scores = torch.bmm(payload.to(torch.float32),
                                psi_p[:, :, None])[..., 0]
             key = -emb.distance_from_scores(
                 quant.scale_scores(scores, state.doc_scale))
@@ -239,13 +247,13 @@ def _apply_query_touch(state: CacheState, ids: torch.Tensor,
     state.step.add_(1)
 
 
-def query_batched(state: CacheState, psi: torch.Tensor, k: int):
+def query_batched(state: CacheState, psi: torch.Tensor, k: int, rows=None):
     """Per-row top-k (one wave-kernel launch in query mode), then the LRU
     touch and step bump in place.  Returns ((scores, dists, ids, slots),
     state)."""
     psi_p = pad_features(psi.to(torch.float32), state.doc_emb.shape[-1])
     vals, ids, slots = wave_ops.wave_query_topk(
-        state.doc_emb, state.doc_ids, state.doc_scale, psi_p, k)
+        state.doc_emb, state.doc_ids, state.doc_scale, psi_p, k, rows)
     _apply_query_touch(state, ids, slots)
     return (vals, emb.distance_from_scores(vals), ids, slots), state
 
@@ -258,12 +266,14 @@ def _gated(n: int, do, record, device):
     return do, record
 
 
-def _insert(state, cfg, psi, radius, new_emb, new_ids, do, record, k=None):
+def _insert(state, cfg, psi, radius, new_emb, new_ids, do, record, k=None,
+            rows=None):
     dev = state.doc_ids.device
     new_ids = torch.as_tensor(new_ids, device=dev).to(torch.int32)
     psi = torch.as_tensor(psi, device=dev).to(torch.float32)
     do, record = _gated(new_ids.shape[0], do, record, dev)
-    _keep, pos, dropped, new_n = insert_positions(state, cfg, psi, new_ids)
+    _keep, pos, dropped, new_n = insert_positions(state, cfg, psi, new_ids,
+                                                  rows)
     cp, dp = cfg.phys_capacity, state.doc_emb.shape[-1]
     pos = torch.where(do[:, None], pos, torch.full_like(pos, cp))
     dropped = torch.where(do, dropped, torch.zeros_like(dropped))
@@ -281,9 +291,10 @@ def _insert(state, cfg, psi, radius, new_emb, new_ids, do, record, k=None):
             state.step)
     out = None
     if k is None:
-        wave_ops.wave_insert_scatter(*args)
+        wave_ops.wave_insert_scatter(*args, rows=rows)
     else:
-        out = wave_ops.wave_insert_query(*args, psi=pad_features(psi, dp), k=k)
+        out = wave_ops.wave_insert_query(*args, psi=pad_features(psi, dp), k=k,
+                                         rows=rows)
     state.n_docs.copy_(torch.where(do, new_n, state.n_docs))
     state.n_queries.add_(rec_g.to(torch.int32))
     state.step.add_(do.to(torch.int32))
@@ -291,23 +302,25 @@ def _insert(state, cfg, psi, radius, new_emb, new_ids, do, record, k=None):
 
 
 def insert_batched(state: CacheState, cfg: CacheConfig, psi, radius,
-                   new_emb, new_ids, do=None, record=None):
+                   new_emb, new_ids, do=None, record=None, rows=None):
     """Row-gated batched insert (one wave-kernel launch in insert mode).
     psi (S, dim), radius (S,), new_emb (S, kc, dim <= Dp), new_ids (S, kc).
     ``do`` masks the rows that insert at all, ``record`` the rows that
     record their (psi, r_a) claim.  Updates ``state`` in place; returns
     (state, dropped (S,))."""
-    _, dropped = _insert(state, cfg, psi, radius, new_emb, new_ids, do, record)
+    _, dropped = _insert(state, cfg, psi, radius, new_emb, new_ids, do, record,
+                         rows=rows)
     return state, dropped
 
 
 def insert_query_batched(state: CacheState, cfg: CacheConfig, psi, radius,
-                         new_emb, new_ids, k: int, do=None, record=None):
+                         new_emb, new_ids, k: int, do=None, record=None,
+                         rows=None):
     """The wave's tail: ``insert_batched`` then ``query_batched`` on the
     post-insert state, ONE wave-kernel launch.  Updates ``state`` in place;
     returns ((scores, dists, ids, slots), state, dropped)."""
     (vals, ids, slots), dropped = _insert(state, cfg, psi, radius, new_emb,
-                                          new_ids, do, record, k=k)
+                                          new_ids, do, record, k=k, rows=rows)
     _apply_query_touch(state, ids, slots)
     return (vals, emb.distance_from_scores(vals), ids, slots), state, dropped
 

@@ -9,7 +9,8 @@
 //
 //   1. radix select of the k-th largest key: 4 passes of 8 bits from the
 //      top, each a warp-aggregated shared-memory histogram over the keys
-//      still matching the prefix;
+//      still matching the prefix and a suffix sum of its 256 bins by one
+//      warp;
 //   2. compaction of every key above it (in any order) plus the LOWEST
 //      positions holding it, in position order (a block-wide prefix sum);
 //   3. a bitonic sort of the kp = pow2(k) pairs by (key desc, position asc),
@@ -133,16 +134,31 @@ __device__ void block_topk(const KeyAt& key_at, long long n, int k, int kp,
       if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&sh.hist[bin], __popc(peers));
     }
     __syncthreads();
-    if (tid == 0) {
+    if (tid < 32) {
+      // the bin holding the kr-th largest key, by warp 0: lane l owns bins
+      // 8l .. 8l+7 and a suffix sum over the lanes gives the count above
+      // them; exactly one bin has cum < kr <= cum + its count
       const unsigned kr = static_cast<unsigned>(sh.kr);
-      unsigned cum = 0u;
-      for (int bb = 255; bb >= 0; --bb) {
-        if (cum + sh.hist[bb] >= kr) {
-          sh.prefix = prefix | (static_cast<uint32_t>(bb) << shift);
+      unsigned c[8], tot = 0u;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        c[u] = sh.hist[8 * tid + u];
+        tot += c[u];
+      }
+      unsigned above = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_down_sync(0xffffffffu, above, o);
+        if (tid + o < 32) above += y;
+      }
+      unsigned cum = above - tot;
+#pragma unroll
+      for (int u = 7; u >= 0; --u) {
+        if (cum < kr && cum + c[u] >= kr) {
+          sh.prefix = prefix | (static_cast<uint32_t>(8 * tid + u) << shift);
           sh.kr = static_cast<int>(kr - cum);
-          break;
         }
-        cum += sh.hist[bb];
+        cum += c[u];
       }
     }
     mask |= 255u << shift;

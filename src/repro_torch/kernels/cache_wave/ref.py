@@ -5,7 +5,9 @@
 the ring slot when ``rec`` is set — in place, like the kernel.
 ``query_topk`` scores every slot (f32 dot times the slot scale, -inf for
 empty slots) and keeps the first k of a stable descending sort, so empty
-slots come last in ascending order.
+slots come last in ascending order.  With ``rows``, ``doc_emb`` is the
+stacked payload and wave row w's payload is row ``rows[w]``: the insert
+writes it through the index, the query reads an ``index_select`` of it.
 """
 
 from __future__ import annotations
@@ -15,14 +17,14 @@ import torch
 
 def insert_scatter(doc_emb, doc_ids, doc_stamp, doc_scale, q_emb, q_radius,
                    q_scale, emb_q, emb_scale, new_ids, pos, psi_q, psi_scale,
-                   radius, rec, qslot, step) -> None:
+                   radius, rec, qslot, step, rows=None) -> None:
     cp = doc_ids.shape[1]
-    rows, cols = torch.nonzero((pos >= 0) & (pos < cp), as_tuple=True)
-    p = pos[rows, cols].long()
-    doc_emb[rows, p] = emb_q[rows, cols]
-    doc_ids[rows, p] = new_ids[rows, cols]
-    doc_scale[rows, p] = emb_scale[rows, cols]
-    doc_stamp[rows, p] = step[rows]
+    w, cols = torch.nonzero((pos >= 0) & (pos < cp), as_tuple=True)
+    p = pos[w, cols].long()
+    doc_emb[w if rows is None else rows.long()[w], p] = emb_q[w, cols]
+    doc_ids[w, p] = new_ids[w, cols]
+    doc_scale[w, p] = emb_scale[w, cols]
+    doc_stamp[w, p] = step[w]
     r = torch.nonzero(rec, as_tuple=True)[0]
     slot = qslot[r].long()
     q_emb[r, slot] = psi_q[r]
@@ -30,8 +32,10 @@ def insert_scatter(doc_emb, doc_ids, doc_stamp, doc_scale, q_emb, q_radius,
     q_scale[r, slot] = psi_scale[r]
 
 
-def query_topk(doc_emb, doc_ids, doc_scale, psi, k: int):
-    """(vals (S, k) f32, ids (S, k) int32, slots (S, k) int32)."""
+def query_topk(doc_emb, doc_ids, doc_scale, psi, k: int, rows=None):
+    """(vals (W, k) f32, ids (W, k) int32, slots (W, k) int32)."""
+    if rows is not None:
+        doc_emb = doc_emb.index_select(0, rows)
     scores = torch.bmm(doc_emb.to(torch.float32), psi[:, :, None])[..., 0]
     scores = torch.where(doc_ids >= 0, scores * doc_scale,
                          torch.tensor(float("-inf"), device=scores.device))

@@ -38,7 +38,8 @@ from repro_torch.core import layout, quant
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.knn import ref
 
-__all__ = ["knn_score", "knn_select", "knn_tile_topk", "knn_search",
+__all__ = ["knn_score", "knn_select", "knn_tile_topk", "knn_tile_select",
+           "knn_search",
            "autotune_knn", "SCORE", "SELECT", "TILE", "SCORE_GEMV_MAX_B"]
 
 SCORE = dispatch.counter("knn_score")
@@ -196,17 +197,25 @@ def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
         raise ValueError(f"k_eff={k_eff} outside [1, tile_n={tile_n}]")
     if b > 65535:
         raise ValueError(f"{b} queries exceed the tile grid's 65535 rows")
-    scores = knn_score(docs, doc_ids, queries, scale, q_scale)
+    return knn_tile_select(knn_score(docs, doc_ids, queries, scale, q_scale),
+                           k_eff, tile_n)
+
+
+def knn_tile_select(scores, k_eff: int, tile_n: int):
+    """The select stage of ``knn_tile_topk`` on (B, N) f32 scores already
+    computed (the launch it counts): (vals, positions), each (tiles, B,
+    k_eff).  CUDA only."""
+    b, n = scores.shape
+    dev = scores.device
     tiles = -(-n // tile_n)
-    vals = torch.empty((tiles, b, k_eff), dtype=torch.float32,
-                       device=docs.device)
-    pos = torch.empty((tiles, b, k_eff), dtype=torch.int32, device=docs.device)
-    kp, pair_key, pair_pos = _build.pair_scratch(tiles * b, k_eff, docs.device)
+    vals = torch.empty((tiles, b, k_eff), dtype=torch.float32, device=dev)
+    pos = torch.empty((tiles, b, k_eff), dtype=torch.int32, device=dev)
+    kp, pair_key, pair_pos = _build.pair_scratch(tiles * b, k_eff, dev)
     fn = _build.function("knn", "knn_tile_select", _TILE_ARGS)
     TILE.launch()
-    code = fn(scores.data_ptr(), vals.data_ptr(), pos.data_ptr(),
+    code = fn(scores.contiguous().data_ptr(), vals.data_ptr(), pos.data_ptr(),
               _ptr(pair_key), _ptr(pair_pos), b, n, tile_n, k_eff, kp,
-              _build.stream_of(docs))
+              _build.stream_of(scores))
     _build.check(code, "knn_tile_select")
     return vals, pos
 

@@ -15,6 +15,10 @@ runs in three phases so ``ContinuousScheduler`` can overlap wave t+1's
 probe with wave t's back-end search: ``probe_wave`` (touches cache state,
 never writes it), ``backend_wave`` (router and shards only) and
 ``fill_wave`` (the fused insert+query, the scatter back, the turns).
+A wave gathers and scatters back its sessions' small leaves (ids, stamps,
+scales, the record ring, counters); the cache payload stays in the
+stacked state, which the wave kernel reads and writes through the wave's
+row index.
 
 The corpus embeddings the engine inserts stay on the engine's device: a
 wave gathers its k_c rows there, never through host memory.  The shared L2
@@ -54,7 +58,8 @@ class WaveState:
 
     Buffers are bucket-sized (the wave padded to its power-of-two bucket
     with copies of row 0); ``need`` marks the rows that still need the back
-    end and ``tier`` the tier that answered each row.
+    end and ``tier`` the tier that answered each row.  A padded row never
+    inserts or records, so it writes nothing.
     """
 
     sids: np.ndarray                 # (wave,) real session slots
@@ -63,7 +68,9 @@ class WaveState:
     bucket: int
     psi: torch.Tensor                # (bucket, dim) transformed queries
     psi_np: np.ndarray
-    sub: CacheState                  # the wave's gathered cache rows
+    sub: CacheState                  # the wave's gathered rows; doc_emb
+                                     # is the stacked payload
+    rows: torch.Tensor               # (bucket,) int32 payload row per row
     need: np.ndarray                 # (bucket,) rows still needing backend
     tier: np.ndarray                 # (bucket,) serving tier per row
     new_ids: np.ndarray              # (bucket, k_c) insert ids
@@ -130,8 +137,8 @@ class BatchedEngine:
     def probe_wave(self, sessions, queries,
                    admitted_at: Optional[Sequence[float]] = None
                    ) -> WaveState:
-        """Phase 1: encoder + L1 probe over the wave's gathered cache rows.
-        Never writes the stacked state."""
+        """Phase 1: encoder + L1 probe over the wave's gathered cache rows
+        (every leaf but the payload).  Never writes the stacked state."""
         t_start = time.perf_counter()
         sids = np.asarray(sessions, np.int32)
         if np.unique(sids).size != sids.size:
@@ -147,7 +154,7 @@ class BatchedEngine:
         q = torch.cat([q, q[:1].expand((bucket - wave,) + q.shape[1:])])
         psi = (self.encoder(q) if self.encoder else q).to(torch.float32)
 
-        sub = self.cache.gather(pad_sids)
+        sub = self.cache.gather(pad_sids, payload=False)
         # launch 1: the L1 LowQuality probe over the wave's session rows
         pr = probe_batched(sub, psi, self.epsilon,
                            max_queries=self.cache.cfg.max_queries)
@@ -157,7 +164,8 @@ class BatchedEngine:
         tier = np.where(need, "backend", "l1").astype(object)
         ws = WaveState(
             sids=sids, pad_sids=pad_sids, wave=wave, bucket=bucket,
-            psi=psi, psi_np=psi.cpu().numpy(), sub=sub, need=need, tier=tier,
+            psi=psi, psi_np=psi.cpu().numpy(), sub=sub,
+            rows=self.cache.wave_rows(pad_sids), need=need, tier=tier,
             new_ids=np.full((bucket, self.k_c), -1, np.int64),
             new_emb=torch.zeros((bucket, self.k_c,
                                  self.doc_embeddings.shape[1]),
@@ -231,8 +239,9 @@ class BatchedEngine:
     # -------------------------------------------------------- fill phase
     def fill_wave(self, ws: WaveState) -> list:
         """Phase 3: the fused insert+query launch (or the query launch of a
-        missless wave), the scatter back, and one ``EngineTurn`` per real
-        session in input order (a ``TimeoutError`` for a failed one)."""
+        missless wave) on the stacked payload, the scatter back of the small
+        leaves, and one ``EngineTurn`` per real session in input order (a
+        ``TimeoutError`` for a failed one)."""
         t0 = time.perf_counter()
         fill = ws.backend_ok
         if fill.any():
@@ -241,15 +250,16 @@ class BatchedEngine:
                 insert_query_batched(
                     ws.sub, self.cache.cfg, ws.psi, torch.as_tensor(ws.rad),
                     ws.new_emb, torch.as_tensor(ws.new_ids), self.k,
-                    do=torch.as_tensor(fill), record=torch.as_tensor(ws.rec_np))
+                    do=torch.as_tensor(fill), record=torch.as_tensor(ws.rec_np),
+                    rows=ws.rows)
             self.cache.total_dropped += int(dropped.sum())
         else:   # missless (or outage) wave: probe -> query
             (scores, _dists, ids, _slots), sub = query_batched(
-                ws.sub, ws.psi, self.k)
+                ws.sub, ws.psi, self.k, rows=ws.rows)
         able = np.nonzero(~ws.failed[:ws.wave])[0]
         # write back only real, answerable rows (padded rows shadow row 0)
-        rows = torch.as_tensor(able, device=self.device)
-        self.cache.scatter(ws.sids[able], CacheState(*(x[rows] for x in sub)))
+        self.cache.scatter(ws.sids[able], sub,
+                           rows=torch.as_tensor(able, device=self.device))
         ids_np, scores_np = ids.cpu().numpy(), scores.cpu().numpy()
 
         resolved = time.perf_counter()

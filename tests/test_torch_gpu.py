@@ -113,13 +113,15 @@ def test_knn_kernels_match_plain(card, dtype, i8, b, k):
     assert (i[:, :10] >= 0).all()
 
 
-def _wave_check(gen, dtype, mode, *, capacity, n_live, k):
+def _wave_check(gen, dtype, mode, *, capacity, n_live, k, s=5, kc=150,
+                pos=None):
     """One wave launch in ``mode`` on a state holding ``n_live`` docs per
     session against the plain version: states equal bit for bit, answers
-    by ``assert_topk_agree``, empty slots in ascending order."""
+    by ``assert_topk_agree``, empty slots in ascending order.  ``pos``
+    (s, kc) replaces the default insert positions (appends, every third a
+    drop, row 1 all drops)."""
     cfg = tc.CacheConfig(capacity=capacity, dim=DIM, max_queries=8,
                          store_dtype=dtype)
-    s, kc = 5, 150
     state = tc.init_batched_cache(cfg, s, "cuda")
     rows = _unit(s, n_live, DIM, gen=gen)
     data, scale = tc.store_rows(rows, dtype)
@@ -128,18 +130,21 @@ def _wave_check(gen, dtype, mode, *, capacity, n_live, k):
     state.doc_ids[:, :n_live] = torch.arange(
         s * n_live, dtype=torch.int32, device="cuda").view(s, n_live)
     state.n_docs.fill_(n_live)
-    state.n_queries.copy_(torch.tensor([0, 3, 8, 9, 20], dtype=torch.int32))
+    state.n_queries.copy_(torch.tensor([0, 3, 8, 9, 20], dtype=torch.int32)
+                          .repeat(s // 5 + 1)[:s])
     new_q, new_scale = tc.store_rows(_unit(s, kc, DIM, gen=gen), dtype)
-    pos = (n_live + torch.arange(kc, device="cuda")).repeat(s, 1)
-    pos[:, ::3] = cfg.phys_capacity                      # drops
-    pos[1] = cfg.phys_capacity                           # a do=False row
+    if pos is None:
+        pos = (n_live + torch.arange(kc, device="cuda")).repeat(s, 1)
+        pos[:, ::3] = cfg.phys_capacity                  # drops
+        pos[1:2] = cfg.phys_capacity                     # a do=False row
     psi = _unit(s, DIM, gen=gen)
     psi_q, psi_scale = tc.store_rows(psi, dtype)
     ins = (tc.pad_features(new_q, 800), new_scale,
            torch.arange(kc, dtype=torch.int32, device="cuda").repeat(s, 1)
            + 10 ** 6, pos.to(torch.int32), tc.pad_features(psi_q, 800),
            psi_scale, torch.rand(s, device="cuda"),
-           torch.tensor([True, False, True, True, False], device="cuda"),
+           torch.tensor([True, False, True, True, False], device="cuda")
+           .repeat(s // 5 + 1)[:s],
            torch.remainder(state.n_queries, 8),
            torch.full((s,), 4, dtype=torch.int32, device="cuda"))
     psi_p = tc.pad_features(psi, 800)
@@ -201,6 +206,161 @@ def test_wave_query_pairs_in_global_scratch(card, monkeypatch):
     monkeypatch.setattr(_build, "SMEM_PAIRS", 64)
     _wave_check(card, "fp32", "insert_query", capacity=1500, n_live=1300,
                 k=200)
+
+
+@pytest.mark.parametrize("k", [1, 200, 12288])
+@pytest.mark.parametrize("mode", ["insert_query", "query_topk"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_wave_single_session_full_cache(card, dtype, mode, k):
+    """Algorithm 1's cache at Table 1's setting: one session, capacity
+    12000 (12288 physical slots, every block of the split grid on its own
+    chunk), 11000 live docs plus a k_c = 1000 insert; k = 1, 200 and every
+    physical slot (past the live docs: empties in ascending order)."""
+    empty = _wave_check(card, dtype, mode, capacity=12000, n_live=11000,
+                        k=k, s=1, kc=1000)
+    assert (empty > 0) == (k == 12288)
+
+
+def _chunk_edges(s, cp):
+    """Insert positions on both sides of every chunk edge of the wave grid
+    (the first and last physical slot included) plus two drop sentinels,
+    in a different order per row."""
+    chunk, chunks = wave_ops.wave_grid(s, cp, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert chunks > 2
+    edges = sorted({0, cp - 1} | {e for c in range(1, chunks)
+                                  for e in (c * chunk - 1, c * chunk)
+                                  if e < cp})
+    base = torch.tensor(edges + [cp, cp + 7], dtype=torch.int32)
+    rows = [base[torch.randperm(len(base), generator=torch.Generator()
+                                .manual_seed(r))] for r in range(s)]
+    return torch.stack(rows).cuda()
+
+
+@pytest.mark.parametrize("mode", ["insert_query", "query_topk",
+                                  "insert_scatter"])
+@pytest.mark.parametrize("dtype", ["fp32", "int8"])
+def test_wave_insert_on_chunk_edges(card, dtype, mode):
+    """Rows landing on each side of every chunk boundary, and the drop
+    sentinels, write exactly what the plain scatter writes."""
+    s, capacity = 3, 1500
+    cp = tc.CacheConfig(capacity=capacity, dim=DIM).phys_capacity
+    pos = _chunk_edges(s, cp)
+    _wave_check(card, dtype, mode, capacity=capacity, n_live=400, k=300,
+                s=s, kc=pos.shape[1], pos=pos)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("mode", ["insert_query", "query_topk",
+                                  "insert_scatter"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_wave_rows_on_stacked_payload(card, dtype, mode):
+    """The wave through a row index on the stacked payload: rows [4, 1, 4,
+    4] of six sessions, the last two padding the wave with its first
+    session (no insert positions, rec false).  The stacked payload and the
+    wave's leaves equal the plain version bit for bit, the real rows'
+    answers agree, and no payload row outside the wave changes."""
+    cfg = tc.CacheConfig(capacity=1500, dim=DIM, max_queries=8,
+                         store_dtype=dtype)
+    total, n_live, kc, k = 6, 900, 400, 64
+    cp, dp = cfg.phys_capacity, cfg.phys_dim
+    state = tc.init_batched_cache(cfg, total, "cuda")
+    data, scale = tc.store_rows(_unit(total, n_live, DIM, gen=card), dtype)
+    state.doc_emb[:, :n_live, :DIM] = data
+    state.doc_scale[:, :n_live] = scale
+    state.doc_ids[:, :n_live] = torch.arange(
+        total * n_live, dtype=torch.int32, device="cuda").view(total, n_live)
+    state.n_queries.copy_(torch.arange(total, dtype=torch.int32) * 5)
+    wave = [4, 1, 4, 4]
+    w = len(wave)
+    rows = torch.tensor(wave, dtype=torch.int32, device="cuda")
+    new_q, new_scale = tc.store_rows(_unit(w, kc, DIM, gen=card), dtype)
+    # distinct slots per row, live ones included (an overwrite), then drops
+    pos = torch.stack([torch.randperm(cp, generator=card, device="cuda")[:kc]
+                       for _ in range(w)])
+    pos[:, ::5] = cp
+    pos[2:] = cp                                         # the padded rows
+    pos = pos.to(torch.int32)
+    psi = _unit(w, DIM, gen=card)
+    psi_q, psi_scale = tc.store_rows(psi, dtype)
+    rec = torch.tensor([True, True, False, False], device="cuda")
+    full_k = tc.CacheState(*(x.clone() for x in state))
+    full_p = tc.CacheState(*(x.clone() for x in state))
+    idx = rows.long()
+
+    def leaves(full):
+        return (full.doc_emb, *(getattr(full, f)[idx].clone() for f in
+                                ("doc_ids", "doc_stamp", "doc_scale",
+                                 "q_emb", "q_radius", "q_scale")))
+    lk, lp = leaves(full_k), leaves(full_p)
+    ins = (tc.pad_features(new_q, dp), new_scale,
+           torch.arange(w * kc, dtype=torch.int32, device="cuda").view(w, kc)
+           + 10 ** 6, pos, tc.pad_features(psi_q, dp), psi_scale,
+           torch.rand(w, device="cuda"), rec,
+           torch.remainder(state.n_queries[idx], 8).to(torch.int32),
+           torch.full((w,), 4, dtype=torch.int32, device="cuda"))
+    psi_p = tc.pad_features(psi, dp)
+    dispatch.reset_counters()
+    if mode == "insert_query":
+        v, i, sl = wave_ops.wave_insert_query(*lk, *ins, psi_p, k, rows=rows)
+        wave_ref.insert_scatter(*lp, *ins, rows=rows)
+        rv, ri, _ = wave_ref.query_topk(lp[0], lp[1], lp[3], psi_p, k, rows)
+    elif mode == "query_topk":
+        v, i, sl = wave_ops.wave_query_topk(lk[0], lk[1], lk[3], psi_p, k,
+                                            rows=rows)
+        rv, ri, _ = wave_ref.query_topk(lp[0], lp[1], lp[3], psi_p, k, rows)
+    else:
+        wave_ops.wave_insert_scatter(*lk, *ins, rows=rows)
+        wave_ref.insert_scatter(*lp, *ins, rows=rows)
+    assert dispatch.counters()[f"wave_{mode}"].launches == 1
+    assert torch.equal(_bits(full_k.doc_emb), _bits(full_p.doc_emb))
+    for a, b in zip(lk[1:], lp[1:]):
+        assert torch.equal(_bits(a), _bits(b))
+    outside = [r for r in range(total) if r not in wave]
+    assert torch.equal(_bits(full_k.doc_emb[outside]),
+                       _bits(state.doc_emb[outside]))
+    if mode != "insert_scatter":
+        assert_topk_agree(v[:2], i[:2], rv[:2], ri[:2], TOL,
+                          f"wave rows {mode} {dtype}")
+        assert torch.equal(torch.gather(lk[1], 1, sl.long())[:2], i[:2])
+
+
+@pytest.mark.parametrize("mode", ["insert_query", "query_topk"])
+def test_wave_keys_past_the_shared_stage(card, mode):
+    """A capacity whose keys do not fit the merge's shared-memory stage
+    (20480 physical slots): the merge reads them from L2."""
+    _wave_check(card, "fp32", mode, capacity=20000, n_live=19000, k=300,
+                s=2, kc=1000)
+
+
+def test_wave_refuses_bad_rows(card):
+    """A stacked payload needs its row index: int32, one entry a wave row,
+    on the payload's device."""
+    emb = torch.zeros(4, 64, 800, device="cuda")
+    ids = torch.full((2, 64), -1, dtype=torch.int32, device="cuda")
+    scale = torch.ones(2, 64, device="cuda")
+    psi = torch.zeros(2, 800, device="cuda")
+    for rows in (None, torch.tensor([0, 1], device="cuda"),
+                 torch.tensor([0, 1, 2], dtype=torch.int32, device="cuda"),
+                 torch.tensor([0, 1], dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            wave_ops.wave_query_topk(emb, ids, scale, psi, 5, rows=rows)
+    v, i, _ = wave_ops.wave_query_topk(
+        emb, ids, scale, psi, 5,
+        rows=torch.tensor([3, 0], dtype=torch.int32, device="cuda"))
+    assert (i == -1).all() and torch.isneginf(v).all()
+
+
+def test_wave_single_session_pairs_in_global_scratch(card, monkeypatch):
+    """The one-session query at k = 200 with its survivors forced into
+    global scratch."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "SMEM_PAIRS", 64)
+    _wave_check(card, "fp32", "insert_query", capacity=12000, n_live=11000,
+                k=200, s=1, kc=1000)
 
 
 def test_engine_on_card_matches_cpu(card):
