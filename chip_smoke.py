@@ -11,33 +11,47 @@ Run from the repository root.  Phases, each fatal on failure:
   2. build   — ``nvcc`` builds every kernel source of ``src/repro_torch/csrc``
      (one process per source, all started together).
   3. kernels — every kernel against its plain PyTorch version on the card,
-     on the same inputs, at its path's shapes: the batched probe (S=64,
-     Qmax=64, dim 769) and the single-session probe (Qmax=64, dim 769, rings
-     of 0, 1, 64 and 73 records), the wave in its three modes and three
+     on the same inputs, at its path's shapes: the batched probe's decision
+     (S=64, Qmax=64, dim 769; one launch: ring validity, the first maximal
+     r_hat, the hit test, nearest = -1 for an empty ring) against the plain
+     decision on the card and on the CPU, and its r_hat entry; the
+     single-session probe (Qmax=64, rings of 0, 1, 64 and 73 records, an int
+     and a device record count), the wave in its three modes and three
      store dtypes (S=64, capacity 16000, k_c=1000, k=10; and the query at
      k=200) and at one session on Table 1's cache with every slot live
      (capacity 12000, the query at k=200, a k_c=1000 insert), the kNN search (B=64, k=1000 and k=2048; fp32 at N=8,841,823,
      bf16 / int8 / int8-dot at N=1,000,000; and B=1 at k=1000 and 200, the
      single-query score path), the score paths around their threshold
-     beside ``torch.mm`` (B = 1, 8, 9, 16, 32, 64: the crossover), the
-     radix select on synthetic (2, N) rows (all scores
+     beside ``torch.mm`` (B = 1, 8, 9, 16, 32, 64: the crossover; the plain
+     score at B = 16), ``MetricIndex.search`` of 2,048 queries over the
+     whole corpus (chunked under ``kernels/knn/ops.SCRATCH_BUDGET``: ids
+     equal the 64-query searches, its time and its peak memory above the
+     corpus), the radix select on synthetic (2, N) rows (all scores
      equal, a tie run across rank k, -inf runs and a row with 10 finite
      scores, k = 2048 and 20,000) against the plain stable top-k bit for
      bit, and the two-stage scan (B=64, k=1000 at N=1,000,000: fp32 and
      int8-dot with the tuned tile, fp32 with tile_n=256).  Each is timed
      with CUDA events beside its plain version, its bound and, where one
      PyTorch call computes the same function, that call.
+     probe   — (also part of kernels) the probe's times through the entries
+     that this package and its parent share: ``cache_probe_batched`` at
+     S=64 and ``cache_probe`` at S=1 (Qmax=64, every record live), on the
+     device alone and back to back, and the r_hat entries' device time.
   4. recsys  — the recsys serving path at full published widths, before the
      corpus so its 9 GB of tables never meet the 28 GB corpus: first the
      smoke configs on the CPU path and, moved to the card, through the
      kernel (logits within 1e-5); then ``DLRM(dlrm_rm2.full_config())`` (26
      x 1,048,576 x 64 f32) with the embedding-bag kernel held against its
-     plain version (the flattened table at ``serve_bulk``; f16 / bf16
-     tables; sum / mean / max with weights, pads and an empty bag), serving
+     plain version (bit for bit for bags of one item) and timed beside it,
+     ``F.embedding_bag`` and its bound at every shape: the flattened table
+     at ``serve_bulk`` and ``serve_p99``, f16 / bf16 copies at
+     ``serve_bulk``, and 65,536 multi-hot bags of 8 (weights, pads, an
+     empty bag) in sum / mean / max; serving
      ``CTRStream`` batches at ``serve_p99`` (512 rows, 51 calls: latency
      p50 / p99) and ``serve_bulk`` (262,144 rows: rows/s), 1 launch per
      forward; then ``XDeepFM(xdeepfm.full_config())`` (39 x 1,048,576 x 10
-     plus the x 1 linear term; the D = 10 and D = 1 kernels against plain)
+     plus the x 1 linear term; the kernel at D = 10 over the bulk batch and
+     one 16,384-row chunk, and at D = 1)
      at ``serve_p99`` and at ``serve_bulk`` in 16 chunks of 16,384 rows
      (CIN's (B, H*m, D) product is 81.8 GB at 262,144 rows), 2 launches per
      forward.  Logits are finite and equal the interaction fed the plain
@@ -65,7 +79,8 @@ Run from the repository root.  Phases, each fatal on failure:
      under the ``none``, ``static`` and ``dynamic`` policies over the 64
      conversations, with Table 1's columns (hit rate over turns 2-10,
      MAP@200, MRR@200, nDCG@3, P@1, P@3, cov@10), the largest cache and the
-     per-turn latency; every ``none`` turn equals the exact top-200; per
+     per-turn latency (and the p50 of hit turns); every ``none`` turn
+     equals the exact top-200; per
      turn one probe and one cache query, per miss one kNN search and one
      insert.  First, on 8 conversations x 4 turns over the 60,000 world
      docs (k_c=100), the card answers as the CPU path does.
@@ -73,7 +88,10 @@ Run from the repository root.  Phases, each fatal on failure:
      (corpus)])`` serves 8 conversations x 10 turns (k=10, k_c=1000) and
      agrees turn for turn with the dynamic searcher.
 
-Every path (recsys, ab, main, the three paper runs, engine) runs with the kernel
+``--phases`` runs a subset (``probe,recsys,paper`` also drives the
+parent package, whose entries these phases share, for a comparison in one
+call).  Every path (recsys, ab, main, the three paper runs, engine) runs
+with the kernel
 counters zeroed just before it and read just after; each checks its own
 launch accounting, and the ``launches`` of the kernels line are their sums.
 The line also holds ``knn_score_b1`` and ``knn_select_b1``: the same two
@@ -83,12 +101,14 @@ kernels timed at the single-query shape, with the launches of [paper] and
 one session (every cache query and insert of [paper] and [engine]), timed
 with the stream's queue filled ahead so that the wrapper's host time
 between launches is not counted (the back-to-back time is printed
-beside it).
+beside it).  The two probe rows (``cache_probe``, ``probe_rhat``) are the
+decision ops, one launch each, timed the same way.
 
 Tolerances (the kernels and the plain versions sum f32 dot products in
 different orders): scores and r_hat within 1e-5 and 1e-4 (r_hat takes a
 square root of 2 - 2s, which widens the score's error); pooled rows within
-1e-5 for f32 tables and 1e-3 for f16 / bf16 ones; ranks compared by
+1e-5 for f32 tables and 1e-3 for f16 / bf16 ones (bags of one item: equal
+bit for bit); ranks compared by
 ``repro_torch.kernels.parity.assert_topk_agree`` (ids equal where the score
 gap to the neighbouring ranks exceeds the tolerance, as sets inside tied
 runs).  Wave states must be equal bit for bit: the scatter copies rows.
@@ -146,7 +166,7 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 P99_CALLS = 51                     # the first is a warm-up, not in the stats
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
-PHASES = ("kernels", "recsys", "ab", "main", "paper", "engine")
+PHASES = ("kernels", "probe", "recsys", "ab", "main", "paper", "engine")
 XDEEPFM_CHUNK = 16_384
 
 
@@ -176,20 +196,39 @@ def timed(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def timed_device(torch, fn, reps: int) -> float:
+def timed_device(torch, fn, reps: int, strict: bool = True):
     """Mean device ms of ``fn`` over ``reps`` calls enqueued while the
     stream sleeps, so the host's enqueue time between calls is not in the
-    interval (a short kernel otherwise waits on its wrapper)."""
+    interval (a short kernel otherwise waits on its wrapper).  The sleep
+    outlasts the enqueue (sized from a host-timed trial).  An ``fn`` that
+    waits for the device (a copy from pageable memory) outruns any sleep:
+    then the reading is refused, or None when not ``strict``."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    host_s = (time.perf_counter() - t0) / 5
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)         # about 10 ms at the H100's clock
+    s.record()
+    # cycles of a clock at up to 2 GHz: at least twice the enqueue + 5 ms
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 0.005)))
     a.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
     b.record()
     b.synchronize()
+    if enqueue_ms >= s.elapsed_time(a):
+        if not strict:
+            return None
+        raise AssertionError(f"timed_device: the enqueue ({enqueue_ms:.2f} "
+                             f"ms) outran the sleep "
+                             f"({s.elapsed_time(a):.2f} ms)")
     return a.elapsed_time(b) / reps
 
 
@@ -238,109 +277,197 @@ def pad_to(torch, q, width: int):
 
 
 # ------------------------------------------------------------------ probe
-def probe_phase(torch, rep: Report, gen):
+def probe_records(torch, gen, s, n_queries):
+    """``s`` sessions' fp32 record rings (Qmax = 64, Dp = 800) scattered
+    around each session's psi at growing distances, radii in [0.3, 1.1)
+    and the record counts ``n_queries`` (an (s,) int32 tensor): (q_emb,
+    q_scale, psi (s, 769), radius, n_queries)."""
     from repro_torch.core import cache_ops as tc
-    from repro_torch.kernels.cache_probe import ops as probe_ops
-    from repro_torch.kernels.cache_probe import ref as probe_ref
-    from repro_torch.kernels.parity import assert_close
 
     cfg = tc.CacheConfig(capacity=CAPACITY, dim=DIM_RAW + 1,
                          max_queries=QMAX)
     dp, qp = cfg.phys_dim, cfg.phys_max_queries
     psi = torch.nn.functional.normalize(
-        torch.randn(S, dp, generator=gen, device=DEV), dim=1)
-    psi[:, cfg.dim:] = 0
-    psi = torch.nn.functional.normalize(psi, dim=1)
-    noise = torch.randn(S, qp, dp, generator=gen, device=DEV)
-    noise[..., cfg.dim:] = 0
+        torch.randn(s, cfg.dim, generator=gen, device=DEV), dim=1)
+    noise = torch.randn(s, qp, cfg.dim, generator=gen, device=DEV)
     spread = torch.linspace(0.3, 1.5, qp, device=DEV)[None, :, None]
     recs = torch.nn.functional.normalize(
         psi[:, None, :] + spread * noise / cfg.dim ** 0.5, dim=2)
-    radius = 0.3 + 0.8 * torch.rand(S, qp, generator=gen, device=DEV)
-    n_queries = torch.randint(0, 2 * QMAX, (S,), generator=gen,
-                              device=DEV, dtype=torch.int32)
-    n_queries[:4] = torch.tensor([0, 1, QMAX, QMAX + 9], dtype=torch.int32)
-    for dtype in ("fp32", "bf16", "int8"):
-        q_emb, q_scale = tc.store_rows(recs, dtype)
-        hit, r_best, near = probe_ops.cache_probe_batched(
-            q_emb, psi[:, :cfg.dim], radius, n_queries, 0.25, q_scale=q_scale,
-            max_queries=QMAX)
-        cpu = [t.cpu() for t in (q_emb, psi[:, :cfg.dim], radius, n_queries)]
-        phit, pbest, pnear = probe_ops.cache_probe_batched(
-            *cpu, 0.25, q_scale=q_scale.cpu(), max_queries=QMAX)
-        if not (torch.equal(hit.cpu(), phit) and torch.equal(near.cpu(), pnear)):
-            raise AssertionError(f"probe {dtype}: hit / nearest_q differ")
-        if not (phit.any() and not phit.all()):
-            raise AssertionError("probe inputs must mix hits and misses")
-        rk = probe_ops.probe_rhat_batched(q_emb, psi, radius, q_scale)
-        rp = probe_ref.probe_rhat_batched(q_emb, psi, radius, q_scale)
-        err = assert_close(rk, rp, RHAT_TOL, f"probe {dtype} r_hat")
-        assert_close(r_best.cpu(), pbest, RHAT_TOL, f"probe {dtype} best")
-        log(f"[kernels] cache_probe {dtype}: ok (max_abs_err {err:.3g})")
-        if dtype == "fp32":
-            fp32 = (q_emb, q_scale, err)
-    q_emb, q_scale, err = fp32
-    ms = timed(torch, lambda: probe_ops.probe_rhat_batched(
-        q_emb, psi, radius, q_scale), 50)
-    plain = timed(torch, lambda: probe_ref.probe_rhat_batched(
-        q_emb, psi, radius, q_scale), 20)
-    rep.add("cache_probe", err=err, ms=ms, plain_ms=plain,
-            nbytes=S * qp * dp * 4 + S * dp * 4 + 3 * S * qp * 4,
-            ops=2 * S * qp * dp, rate=F32_OPS)
+    radius = 0.3 + 0.8 * torch.rand(s, qp, generator=gen, device=DEV)
+    q_emb, q_scale = tc.store_rows(tc.pad_features(recs, dp), "fp32")
+    return q_emb, q_scale, psi, radius, n_queries
 
 
-def probe_single_phase(torch, rep: Report, gen):
-    """The single-session probe of Algorithm 1 at the searcher's ring."""
+def probe_timing(torch, seed):
+    """The probe at S = 64 (record counts drawn in [0, 128), the edges 0, 1,
+    64 and 73 first) and at S = 1 (Qmax = 64, every record live), through
+    the public entries that both this package and its parent have: the
+    device time (the stream's queue filled ahead) and the back-to-back time
+    of ``cache_probe_batched`` / ``cache_probe`` as whole ops, and the
+    device time of the r_hat entry.  Returns {S: (inputs, times)}."""
+    from repro_torch.kernels.cache_probe import ops as probe_ops
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 3)
+    n_q = torch.randint(0, 2 * QMAX, (S,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    n_q[:4] = torch.tensor([0, 1, QMAX, QMAX + 9], dtype=torch.int32)
+    wave = probe_records(torch, gen, S, n_q)
+    one = probe_records(torch, gen, 1, torch.full((1,), QMAX,
+                                                  dtype=torch.int32,
+                                                  device=DEV))
+    out = {}
+    for s, (q_emb, q_scale, psi, radius, n_queries) in ((S, wave), (1, one)):
+        psi_p = pad_to(torch, psi, q_emb.shape[-1])
+        if s == 1:
+            args = (q_emb[0], psi[0], radius[0], n_queries[0], EPS)
+            kw = dict(q_scale=q_scale[0], max_queries=QMAX)
+            op = lambda: probe_ops.cache_probe(*args, **kw)  # noqa: E731
+            rhat = lambda: probe_ops.probe_rhat(  # noqa: E731
+                q_emb[0], psi_p[0], radius[0], q_scale[0])
+        else:
+            args = (q_emb, psi, radius, n_queries, EPS)
+            kw = dict(q_scale=q_scale, max_queries=QMAX)
+            op = lambda: probe_ops.cache_probe_batched(*args,  # noqa: E731
+                                                       **kw)
+            rhat = lambda: probe_ops.probe_rhat_batched(  # noqa: E731
+                q_emb, psi_p, radius, q_scale)
+        t = {"op_device": timed_device(torch, op, 200, strict=False),
+             "op_b2b": timed(torch, op, 200),
+             "rhat_device": timed_device(torch, rhat, 200)}
+        dev = "not measurable (the op waits on the host)" \
+            if t["op_device"] is None else f"{t['op_device']:.4f} ms"
+        log(f"[kernels] probe S={s} Qmax={QMAX} Dp={q_emb.shape[-1]} "
+            f"(records live: {int(torch.clamp(n_queries, max=QMAX).sum())}"
+            f"): {'cache_probe' if s == 1 else 'cache_probe_batched'} "
+            f"device {dev}, back to back {t['op_b2b']:.4f} ms; r_hat entry "
+            f"device {t['rhat_device']:.4f} ms")
+        out[s] = ((q_emb, q_scale, psi, radius, n_queries), t)
+    return out
+
+
+def probe_checks(torch, gen):
+    """The fused decision against the plain path at S = 64, for every store
+    dtype: hit and nearest equal, best_r within RHAT_TOL, on the card
+    (``ref.lowquality`` over the plain r_hat) and on the CPU; the r_hat
+    entry against ``ref.probe_rhat_batched``."""
     from repro_torch.core import cache_ops as tc
     from repro_torch.kernels.cache_probe import ops as probe_ops
     from repro_torch.kernels.cache_probe import ref as probe_ref
     from repro_torch.kernels.parity import assert_close
 
-    cfg = tc.CacheConfig(capacity=PAPER_CAP, dim=DIM_RAW + 1,
-                         max_queries=QMAX)
-    dp, qp = cfg.phys_dim, cfg.phys_max_queries
-    psi = torch.zeros(dp, device=DEV)
-    psi[:cfg.dim] = torch.nn.functional.normalize(
-        torch.randn(cfg.dim, generator=gen, device=DEV), dim=0)
-    noise = torch.zeros(qp, dp, device=DEV)
-    noise[:, :cfg.dim] = torch.randn(qp, cfg.dim, generator=gen, device=DEV)
-    spread = torch.linspace(0.3, 1.5, qp, device=DEV)[:, None]
-    recs = torch.nn.functional.normalize(psi + spread * noise
-                                         / cfg.dim ** 0.5, dim=1)
-    radius = 0.3 + 0.8 * torch.rand(qp, generator=gen, device=DEV)
-    hits = set()
+    n_q = torch.randint(0, 2 * QMAX, (S,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    n_q[:4] = torch.tensor([0, 1, QMAX, QMAX + 9], dtype=torch.int32)
+    recs, _, psi, radius, _ = probe_records(torch, gen, S, n_q)
+    dp = recs.shape[-1]
+    errs = {}
     for dtype in ("fp32", "bf16", "int8"):
         q_emb, q_scale = tc.store_rows(recs, dtype)
-        rk = probe_ops.probe_rhat(q_emb, psi, radius, q_scale)
-        rp = probe_ref.probe_rhat(q_emb, psi, radius, q_scale)
-        err = assert_close(rk, rp, RHAT_TOL, f"probe_rhat {dtype}")
+        got = probe_ops.cache_probe_batched(q_emb, psi, radius, n_q, 0.25,
+                                            q_scale=q_scale, max_queries=QMAX)
+        plain = probe_ref.lowquality(q_emb, psi, radius, n_q, 0.25, q_scale,
+                                     QMAX)
+        cpu = probe_ops.cache_probe_batched(
+            *(t.cpu() for t in (q_emb, psi, radius, n_q)), 0.25,
+            q_scale=q_scale.cpu(), max_queries=QMAX)
+        for want, where in ((plain, "card"), (cpu, "CPU")):
+            if not (torch.equal(got[0].cpu(), want[0].cpu())
+                    and torch.equal(got[2].cpu(), want[2].cpu())):
+                raise AssertionError(f"probe {dtype}: hit / nearest_q differ "
+                                     f"from the plain path on the {where}")
+        if not (cpu[0].any() and not cpu[0].all()):
+            raise AssertionError("probe inputs must mix hits and misses")
+        live = torch.isfinite(plain[1])
+        errs[dtype] = assert_close(
+            torch.where(live, got[1], 0.0), torch.where(live, plain[1], 0.0),
+            RHAT_TOL, f"probe {dtype} best_r")
+        psi_p = pad_to(torch, psi, dp)
+        assert_close(probe_ops.probe_rhat_batched(q_emb, psi_p, radius,
+                                                  q_scale),
+                     probe_ref.probe_rhat_batched(q_emb, psi_p, radius,
+                                                  q_scale),
+                     RHAT_TOL, f"probe {dtype} r_hat")
+        log(f"[kernels] cache_probe {dtype}: the fused decision equals the "
+            f"plain path (best_r max_abs_err {errs[dtype]:.3g})")
+    return errs["fp32"]
+
+
+def probe_bytes(q_emb, n_queries, s):
+    """Bytes the decision must move: the live records with their radius
+    and scale, psi at 769, the counts and the three outputs."""
+    live = int(n_queries.clamp(min=0, max=QMAX).sum())
+    return (live * (q_emb.shape[-1] * q_emb.element_size() + 8)
+            + s * ((DIM_RAW + 1) * 4 + 4 + 9)), live
+
+
+def probe_phase(torch, rep: Report, gen, timing):
+    """The wave's probe (``cache_probe`` row): checks, then its times."""
+    from repro_torch.kernels.cache_probe import ref as probe_ref
+
+    err = probe_checks(torch, gen)
+    (q_emb, q_scale, psi, radius, n_q), t = timing[S]
+    if t["op_device"] is None:
+        raise AssertionError("cache_probe_batched waits on the host")
+    nbytes, live = probe_bytes(q_emb, n_q, S)
+    rep.add("cache_probe", err=err, ms=t["op_device"],
+            plain_ms=timed(torch, lambda: probe_ref.lowquality(
+                q_emb, psi, radius, n_q, EPS, q_scale, QMAX), 50),
+            nbytes=nbytes, ops=2 * live * q_emb.shape[-1], rate=F32_OPS)
+
+
+def probe_single_phase(torch, rep: Report, gen, timing):
+    """The single-session probe of Algorithm 1 at the searcher's ring: the
+    r_hat entry against its plain version, the decision against the CPU
+    path (rings of 0, 1, 64 and 73 records, an int and a device count),
+    then the ``probe_rhat`` row's times at a full ring."""
+    from repro_torch.core import cache_ops as tc
+    from repro_torch.kernels.cache_probe import ops as probe_ops
+    from repro_torch.kernels.cache_probe import ref as probe_ref
+    from repro_torch.kernels.parity import assert_close
+
+    recs, _, psi, radius, _ = probe_records(
+        torch, gen, 1, torch.zeros(1, dtype=torch.int32, device=DEV))
+    recs, psi, radius = recs[0], psi[0], radius[0]
+    dp = recs.shape[-1]
+    hits, err = set(), 0.0
+    for dtype in ("fp32", "bf16", "int8"):
+        q_emb, q_scale = tc.store_rows(recs, dtype)
+        psi_p = pad_to(torch, psi, dp)
+        e = assert_close(probe_ops.probe_rhat(q_emb, psi_p, radius, q_scale),
+                         probe_ref.probe_rhat(q_emb, psi_p, radius, q_scale),
+                         RHAT_TOL, f"probe_rhat {dtype}")
         for n_q in (0, 1, QMAX, QMAX + 9):
-            got = probe_ops.cache_probe(q_emb, psi[:cfg.dim], radius, n_q,
-                                        0.25, q_scale=q_scale,
-                                        max_queries=QMAX)
-            want = probe_ops.cache_probe(
-                q_emb.cpu(), psi[:cfg.dim].cpu(), radius.cpu(), n_q, 0.25,
-                q_scale=q_scale.cpu(), max_queries=QMAX)
-            if bool(got[0]) != bool(want[0]) or int(got[2]) != int(want[2]):
-                raise AssertionError(f"probe_rhat {dtype} n_queries={n_q}: "
-                                     f"hit / nearest differ from the CPU")
-            if n_q:
-                assert_close(got[1].cpu(), want[1], RHAT_TOL,
-                             f"probe_rhat {dtype} best")
-            hits.add(bool(got[0]))
-        log(f"[kernels] probe_rhat {dtype}: ok (max_abs_err {err:.3g})")
+            for count in (n_q, torch.tensor(n_q, dtype=torch.int32,
+                                            device=DEV)):
+                got = probe_ops.cache_probe(q_emb, psi, radius, count, 0.25,
+                                            q_scale=q_scale, max_queries=QMAX)
+                want = probe_ops.cache_probe(
+                    q_emb.cpu(), psi.cpu(), radius.cpu(), n_q, 0.25,
+                    q_scale=q_scale.cpu(), max_queries=QMAX)
+                if bool(got[0]) != bool(want[0]) \
+                        or int(got[2]) != int(want[2]):
+                    raise AssertionError(f"cache_probe {dtype} n_queries="
+                                         f"{n_q}: hit / nearest differ from "
+                                         f"the CPU")
+                if n_q:
+                    e = max(e, assert_close(got[1].cpu(), want[1], RHAT_TOL,
+                                            f"cache_probe {dtype} best"))
+                hits.add(bool(got[0]))
+        log(f"[kernels] probe_rhat / cache_probe {dtype}: ok (max_abs_err "
+            f"{e:.3g})")
         if dtype == "fp32":
-            fp32 = (q_emb, q_scale, err)
+            err = e
     if hits != {True, False}:
         raise AssertionError("single-probe inputs must mix hits and misses")
-    q_emb, q_scale, err = fp32
-    rep.add("probe_rhat", err=err,
-            ms=timed(torch, lambda: probe_ops.probe_rhat(
-                q_emb, psi, radius, q_scale), 200),
-            plain_ms=timed(torch, lambda: probe_ref.probe_rhat(
-                q_emb, psi, radius, q_scale), 50),
-            nbytes=qp * dp * 4 + dp * 4 + 3 * qp * 4, ops=2 * qp * dp,
-            rate=F32_OPS)
+    (q_emb, q_scale, psi, radius, n_q), t = timing[1]
+    if t["op_device"] is None:
+        raise AssertionError("cache_probe waits on the host")
+    nbytes, live = probe_bytes(q_emb, n_q, 1)
+    rep.add("probe_rhat", err=err, ms=t["op_device"],
+            plain_ms=timed(torch, lambda: probe_ref.lowquality(
+                q_emb, psi, radius, n_q, EPS, q_scale, QMAX), 50),
+            nbytes=nbytes, ops=2 * live * q_emb.shape[-1], rate=F32_OPS)
 
 
 # ------------------------------------------------------------------- wave
@@ -601,16 +728,67 @@ def serve_calls(torch, model, batches, per_call, what):
     return outs[-1], lat, launches["embedding_bag"]
 
 
-def bag_check(torch, table, idx, w, mode, tol, what) -> float:
+def bag_row(torch, what, table, idx, w=None, mode="sum", reps=20):
+    """``embedding_bag`` at one shape: held against its plain version (bit
+    for bit for bags of one item, else within BAG_TOL / HALF_TOL), then
+    timed beside the plain version and ``F.embedding_bag`` over the same
+    items (the valid ids in a flat list with per-bag offsets; items of
+    weight <= 0 left out in max mode, as the kernel does; none for a
+    weighted mean, which no one call computes), with its bound: the output,
+    the ids, the weights and every distinct row once.  Logs one line and
+    returns the row's numbers."""
     from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.embedding_bag import ref as bag_ref
     from repro_torch.kernels.parity import assert_close
-    got = bag_ops.embedding_bag(table, idx, w, mode)
-    err = assert_close(got, bag_ref.embedding_bag(table, idx, w, mode), tol,
-                       what)
+
+    kernel = lambda: bag_ops.embedding_bag(table, idx, w, mode)  # noqa: E731
+    plain = lambda: bag_ref.embedding_bag(table, idx, w, mode)  # noqa: E731
+    got, want = kernel(), plain()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite pooled rows")
-    return err
+    if idx.shape[1] == 1:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: bags of one item differ from the "
+                                 f"plain version")
+        err = 0.0
+    else:
+        err = assert_close(got, want, BAG_TOL if table.dtype == torch.float32
+                           else HALF_TOL, what)
+    del got, want
+    keep = idx >= 0
+    if mode == "max" and w is not None:
+        keep &= w > 0
+    counts = keep.sum(dim=1)
+    offsets = torch.cumsum(counts, 0) - counts
+    flat = idx[keep].long()
+    psw = w[keep] if (w is not None and mode == "sum") else None
+    b, d = idx.shape[0], table.shape[1]
+    items = int(counts.sum())
+    uq = int(torch.unique(flat).numel())
+    row = {"bags": b, "items": items, "D": d, "dtype": str(table.dtype),
+           "mode": mode, "weighted": w is not None,
+           "ms": timed(torch, kernel, reps),
+           "device_ms": timed_device(torch, kernel, reps),
+           "plain_ms": timed(torch, plain, max(2, reps // 4)),
+           "library_ms": None if (mode == "mean" and w is not None)
+           else timed(torch, lambda: torch.nn.functional.embedding_bag(
+               flat, table, offsets, mode=mode, per_sample_weights=psw),
+               reps),
+           "unique_rows": uq, "err": err,
+           "nbytes": b * d * 4 + idx.numel() * 4 * (1 if w is None else 2)
+           + uq * d * table.element_size(), "ops": 2 * items * d}
+    del keep, counts, offsets, flat, psw
+    row["bound_ms"], row["bound_by"] = bound(row["nbytes"], row["ops"],
+                                             F32_OPS)
+    lib = row["library_ms"]
+    log(f"[kernels] embedding_bag {what}: {b} bags, D={d} {table.dtype}, "
+        f"{mode}{' weighted' if w is not None else ''}: ok (max_abs_err "
+        f"{err:.3g}) ms={row['ms']:.4f} (device {row['device_ms']:.4f}) "
+        f"plain_ms={row['plain_ms']:.4f} "
+        f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; {uq} unique "
+        f"rows)")
+    return row
 
 
 def recsys_cpu_check(torch, seed):
@@ -651,8 +829,6 @@ def recsys_phase(torch, rep: Report, gen, seed):
 
     from repro_torch.configs import dlrm_rm2, registry, xdeepfm
     from repro_torch.data.recsys import CTRSpec, CTRStream
-    from repro_torch.kernels.embedding_bag import ops as bag_ops
-    from repro_torch.kernels.embedding_bag import ref as bag_ref
     from repro_torch.models import recsys as rs
 
     recsys_cpu_check(torch, seed)
@@ -694,48 +870,30 @@ def recsys_phase(torch, rep: Report, gen, seed):
     flat, flat_idx = rs.flatten_fields(tables, sparse_b)
     if flat.data_ptr() != tables.data_ptr():
         raise AssertionError("[recsys] the flat table is not a view")
-    # (a) the kernel at serve_bulk on the flattened table
+    # (a) the kernel at every shape of the served path and beside it: the
+    # flattened table at serve_bulk (the kernels line's row) and serve_p99,
+    # f16 / bf16 copies of it, multi-hot bags in the three modes
     n_bags = flat_idx.shape[0]
-    err = bag_check(torch, flat, flat_idx, None, "sum", BAG_TOL,
-                    "embedding_bag f32 serve_bulk")
-    ones = torch.ones(flat_idx.shape, device=DEV)
-    ids64 = flat_idx.long()
-    lib_out = torch.nn.functional.embedding_bag(
-        ids64, flat, per_sample_weights=ones, mode="sum")
-    lib_err = float((lib_out - bag_ops.embedding_bag(flat, flat_idx))
-                    .abs().max())
-    del lib_out
-    ms = timed(torch, lambda: bag_ops.embedding_bag(flat, flat_idx), 20)
-    plain = timed(torch, lambda: bag_ref.embedding_bag(flat, flat_idx), 5)
-    lib = timed(torch, lambda: torch.nn.functional.embedding_bag(
-        ids64, flat, per_sample_weights=ones, mode="sum"), 20)
-    del ones, ids64
-    unique = int(torch.unique(flat_idx).numel())
-    out_ids = n_bags * d * 4 + n_bags * 4
-    all_ms = bound(out_ids + n_bags * d * 4, 2 * n_bags * d, F32_OPS)[0]
-    rep.add("embedding_bag", err=err, ms=ms, plain_ms=plain,
-            nbytes=out_ids + unique * d * 4, ops=2 * n_bags * d,
-            rate=F32_OPS, library_ms=lib)
-    log(f"[kernels] embedding_bag f32 ({f * v}, {d}) table, {n_bags} bags "
-        f"of 1 at serve_bulk: {unique} unique rows "
-        f"({unique / n_bags:.4f} of the gathered); bound_ms unique rows "
-        f"{rep.rows['embedding_bag']['bound_ms']:.4f}, every gathered row "
-        f"from HBM {all_ms:.4f}; F.embedding_bag agrees within {lib_err:.3g}")
-    p99_idx = flat_idx[:b_p99 * f]
-    log(f"[kernels] embedding_bag f32 at serve_p99 ({b_p99 * f} bags): "
-        f"ms={timed(torch, lambda: bag_ops.embedding_bag(flat, p99_idx), 50):.4f}")
-    # (b) f16 and bf16 tables, widened to f32 as the plain version does
+    rows = {}
+    rows["dlrm serve_bulk"] = r = bag_row(torch, "dlrm serve_bulk", flat,
+                                          flat_idx)
+    rep.add("embedding_bag", err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], nbytes=r["nbytes"], ops=r["ops"],
+            rate=F32_OPS, library_ms=r["library_ms"])
+    all_ms = bound(n_bags * d * 8 + n_bags * 4, 2 * n_bags * d, F32_OPS)[0]
+    log(f"[kernels] embedding_bag serve_bulk: {r['unique_rows']} unique rows "
+        f"({r['unique_rows'] / n_bags:.4f} of the gathered); bound_ms if "
+        f"every gathered row came from HBM {all_ms:.4f}")
+    rows["dlrm serve_p99"] = bag_row(torch, "dlrm serve_p99", flat,
+                                     flat_idx[:b_p99 * f], reps=200)
     for dt in (torch.float16, torch.bfloat16):
         half = flat.to(dt)
-        e = bag_check(torch, half, flat_idx, None, "sum", HALF_TOL,
-                      f"embedding_bag {dt} serve_bulk")
-        hms = timed(torch, lambda: bag_ops.embedding_bag(half, flat_idx), 20)
-        log(f"[kernels] embedding_bag {dt} serve_bulk: ok (max_abs_err "
-            f"{e:.3g}) ms={hms:.4f}")
+        rows[f"dlrm serve_bulk {dt}"] = bag_row(
+            torch, f"dlrm serve_bulk {dt}", half, flat_idx)
         del half
         torch.cuda.empty_cache()
-    # (c) multi-hot bags: weights (some <= 0), 20% pads, an empty bag, a
-    # bag of zero weights, in the three modes
+    # multi-hot bags: weights (some <= 0), 20% pads, an empty bag, a bag of
+    # zero weights, in the three modes
     mh = torch.randint(0, f * v, (65_536, 8), generator=gen, device=DEV,
                        dtype=torch.int32)
     mh = torch.where(torch.rand(mh.shape, generator=gen, device=DEV) < 0.2,
@@ -744,10 +902,8 @@ def recsys_phase(torch, rep: Report, gen, seed):
     w = torch.rand(mh.shape, generator=gen, device=DEV) * 2 - 0.5
     w[1] = 0.0
     for mode in ("sum", "mean", "max"):
-        e = bag_check(torch, flat, mh, w, mode, BAG_TOL,
-                      f"embedding_bag {mode} multi-hot")
-        log(f"[kernels] embedding_bag {mode} (65536 bags of 8, weights, "
-            f"pads, an empty bag): ok (max_abs_err {e:.3g})")
+        rows[f"multi-hot {mode}"] = bag_row(torch, f"multi-hot {mode}", flat,
+                                            mh, w, mode, reps=50)
     del mh, w, flat, flat_idx
     torch.cuda.empty_cache()
     # serve_p99: 51 calls, 1 launch each
@@ -806,21 +962,14 @@ def recsys_phase(torch, rep: Report, gen, seed):
         f"{tuple(model.linear.shape)} f32 ({tab_bytes / 1e9:.3f} GB) drawn "
         f"in {time.perf_counter() - t0:.2f} s")
     (sparse_b,), = batches(cfg, [0], b_bulk, dense=False)
-    # (d) D = 10 and D = 1 at xDeepFM's widths, serve_bulk ids
-    for name in ("tables", "linear"):
-        tab, idx = rs.flatten_fields(params[name], sparse_b)
-        e = bag_check(torch, tab, idx, None, "sum", BAG_TOL,
-                      f"embedding_bag xdeepfm {name}")
-        kms = timed(torch, lambda: bag_ops.embedding_bag(tab, idx), 10)
-        dd = tab.shape[1]
-        nb = idx.shape[0]
-        uq = int(torch.unique(idx).numel())
-        bms, _ = bound(nb * dd * 4 + nb * 4 + uq * dd * 4, 2 * nb * dd,
-                       F32_OPS)
-        log(f"[kernels] embedding_bag xdeepfm {name} ({tab.shape[0]}, {dd}) "
-            f"table, {nb} bags: ok (max_abs_err {e:.3g}) ms={kms:.4f} "
-            f"bound_ms={bms:.4f} ({uq} unique rows)")
+    # (b) D = 10 and D = 1 at xDeepFM's widths: serve_bulk ids, and the
+    # fields of one 16,384-row chunk (what a chunked serve_bulk call pools)
+    for name, ids in (("tables", sparse_b), ("linear", sparse_b),
+                      ("tables chunk", sparse_b[:XDEEPFM_CHUNK])):
+        tab, idx = rs.flatten_fields(params[name.split()[0]], ids)
+        rows[f"xdeepfm {name}"] = bag_row(torch, f"xdeepfm {name}", tab, idx)
         del tab, idx
+    log("[recsys] embedding_bag rows " + json.dumps(rows))
     # serve_p99: 51 calls, 2 launches each
     torch.cuda.reset_peak_memory_stats()
     p99 = batches(cfg, range(1, P99_CALLS + 1), b_p99, dense=False)
@@ -1078,6 +1227,9 @@ def knn_phase(torch, rep: Report, corpus, streams):
                 torch, lambda: knn_ops._score(corpus, ids, qb, None, None,
                                               gemv=gemv), 3), 4)
         row["mm"] = round(timed(torch, lambda: torch.mm(qb, corpus.T), 3), 4)
+        if bb == 16:
+            row["plain"] = round(timed(torch, lambda: knn_ref.score(
+                corpus, ids, qb), 2), 4)
         row["bound"] = round(bound(
             N_CORPUS * (dp * 4 + 4) + bb * dp * 4 + bb * N_CORPUS * 4,
             2 * bb * N_CORPUS * dp, F32_OPS)[0], 4)
@@ -1086,6 +1238,7 @@ def knn_phase(torch, rep: Report, corpus, streams):
     log(f"[kernels] knn_score crossover (ms; the wrapper takes the GEMV up "
         f"to B={thr}): {json.dumps(cross)}")
     torch.cuda.empty_cache()
+    bulk_search_check(torch, corpus)
     select_cases(torch)
     # quantized corpora at N_SMALL
     sub = corpus[:N_SMALL]
@@ -1125,6 +1278,59 @@ def knn_phase(torch, rep: Report, corpus, streams):
             f"{err:.3g}) ms={ms:.4f}")
         del qc
         torch.cuda.empty_cache()
+
+
+def bulk_search_check(torch, corpus):
+    """``MetricIndex.search`` with 2,048 queries over the whole corpus, more
+    than the ~1,450 whose (B, N) f32 scores would fit beside it unchunked:
+    ids equal those of the same queries searched 64 at a time, scores
+    within SCORE_TOL; its time, and its peak memory above what was
+    allocated before it (the corpus), which must stay under the scratch
+    budget plus the outputs and the padded queries."""
+    from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.kernels.knn import ops as knn_ops
+
+    index = MetricIndex(corpus, transformed=True, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(11)
+    b, dp = 2048, corpus.shape[1]
+    q = torch.zeros(b, dp, device=DEV)
+    q[:, :DIM_RAW] = torch.nn.functional.normalize(
+        torch.randn(b, DIM_RAW, generator=gen, device=DEV), dim=1)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = index.search(q, KC)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    outs = sum(t.numel() * t.element_size() for t in res)
+    limit = knn_ops.SCRATCH_BUDGET + outs + q.numel() * 4
+    if peak > limit:
+        raise AssertionError(f"2048-query search: {peak} B above the corpus "
+                             f"> {limit}")
+    err = 0.0
+    for lo in range(0, b, 64):
+        part = index.search(q[lo:lo + 64], KC)
+        if not torch.equal(part.ids, res.ids[lo:lo + 64]):
+            raise AssertionError(f"2048-query search: ids of queries "
+                                 f"{lo}..{lo + 63} differ from a 64-query "
+                                 f"search")
+        err = max(err, float((part.scores - res.scores[lo:lo + 64])
+                             .abs().max()))
+    if err > SCORE_TOL:
+        raise AssertionError(f"2048-query search: scores differ by {err}")
+    rows = knn_ops.chunk_rows(corpus.shape[0], 4 * knn_ops._select_words(
+        corpus.shape[0], KC)[2])
+    log(f"[kernels] MetricIndex.search of {b} queries over {corpus.shape[0]} "
+        f"docs, k={KC}: {secs:.3f} s in chunks of {rows} queries; ids equal "
+        f"the 64-query searches (scores max diff {err:.3g}); peak device "
+        f"memory above the corpus {peak / 1e9:.3f} GB (limit "
+        f"{limit / 1e9:.3f} GB: scratch budget "
+        f"{knn_ops.SCRATCH_BUDGET / 1e9:.3f} + outputs + queries)")
+    del index, res, q
+    torch.cuda.empty_cache()
 
 
 def select_cases(torch):
@@ -1532,6 +1738,9 @@ def paper_phase(torch, corpus, world, streams):
                "max_cache_docs": max_docs,
                "turn_p50_s": float(np.percentile(lat, 50)),
                "turn_p99_s": float(np.percentile(lat, 99)),
+               "hit_turn_p50_s": float(np.percentile(
+                   [r.latency_s for r in flat_recs if r.hit], 50))
+               if policy != "none" else None,
                "wall_s": wall}
         log("[paper] " + json.dumps(row))
         runs[policy] = recs
@@ -1636,9 +1845,11 @@ def main() -> int:
     rep = Report()
     t_start = time.perf_counter()
     paths = {}
+    if phases & {"kernels", "probe"}:
+        timing = probe_timing(torch, args.seed)
     if "kernels" in phases:
-        probe_phase(torch, rep, gen)
-        probe_single_phase(torch, rep, gen)
+        probe_phase(torch, rep, gen, timing)
+        probe_single_phase(torch, rep, gen, timing)
         wave_phase(torch, rep, gen)
         wave_single_phase(torch, rep, gen)
     if "recsys" in phases:

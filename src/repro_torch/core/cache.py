@@ -10,8 +10,9 @@ The port of ``repro.core.cache``'s wrappers:
     has no kernel tiers, and the state's device alone decides (a CUDA
     state launches the kernels, a CPU state runs their plain versions).
   * ``BatchedMetricCache`` — one stacked ``CacheState`` for S concurrent
-    sessions on one device, with ``gather`` / ``scatter`` of a wave's rows
-    and per-session ``reset``.  ``gather`` copies the wave's rows (the
+    sessions on one device: ``probe``, ``query`` and ``insert`` over every
+    session at once (the batched ``cache_ops`` ops, one launch each),
+    ``gather`` / ``scatter`` of a wave's rows and per-session ``reset``.  ``gather`` copies the wave's rows (the
     cache ops then update that copy in place) and ``scatter`` writes them
     back, in place.  A wave leaves the payload where it is:
     ``gather(..., payload=False)`` copies every leaf but ``doc_emb``, the
@@ -26,7 +27,8 @@ import torch
 
 from repro_torch.core.cache_ops import (CacheConfig, CacheState,
                                         ProbeResult, init_batched_cache,
-                                        init_cache, insert, query)
+                                        init_cache, insert, insert_batched,
+                                        probe_batched, query, query_batched)
 from repro_torch.kernels.cache_probe.ops import cache_probe
 
 __all__ = ["MetricCache", "BatchedMetricCache"]
@@ -84,10 +86,13 @@ class MetricCache:
 
     def memory_bytes(self) -> int:
         """Worst-case occupancy (paper RQ1.C) at the physical extents."""
-        s = self.state
-        return sum(x.numel() * x.element_size() for x in
-                   (s.doc_emb, s.doc_ids, s.doc_stamp, s.q_emb, s.q_radius,
-                    s.doc_scale, s.q_scale))
+        return _memory_bytes(self.state)
+
+
+def _memory_bytes(s: CacheState) -> int:
+    return sum(x.numel() * x.element_size() for x in
+               (s.doc_emb, s.doc_ids, s.doc_stamp, s.q_emb, s.q_radius,
+                s.doc_scale, s.q_scale))
 
 
 class BatchedMetricCache:
@@ -126,6 +131,34 @@ class BatchedMetricCache:
     @property
     def n_docs(self) -> np.ndarray:
         return self.state.n_docs.cpu().numpy()
+
+    def _t(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def probe(self, psi, epsilon=None) -> ProbeResult:
+        """The LowQuality test of every session: psi (S, dim)."""
+        eps = self.cfg.epsilon if epsilon is None else epsilon
+        return probe_batched(self.state, self._t(psi).to(torch.float32), eps,
+                             max_queries=self.cfg.max_queries)
+
+    def query(self, psi, k: int):
+        """Every session's (scores, dists, ids, slots) top k, with the LRU
+        touch, in place."""
+        out, self.state = query_batched(
+            self.state, self._t(psi).to(torch.float32), k)
+        return out
+
+    def insert(self, psi, radius, new_emb, new_ids, do=None, record=None):
+        """Insert each session's k_c back-end rows (and its (psi, r_a)
+        record) where ``do`` (and ``record``) say, in place."""
+        self.state, dropped = insert_batched(
+            self.state, self.cfg, self._t(psi), self._t(radius),
+            self._t(new_emb), new_ids, do, record)
+        self.total_dropped += int(dropped.sum())
+
+    def memory_bytes(self) -> int:
+        """Worst-case occupancy of every session at the physical extents."""
+        return _memory_bytes(self.state)
 
     @property
     def n_queries(self) -> np.ndarray:

@@ -52,7 +52,7 @@ from repro_torch.kernels.cache_wave import ops as wave_ops
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["CacheState", "CacheConfig", "ProbeResult", "init_cache",
-           "init_batched_cache", "probe", "query",
+           "init_batched_cache", "reset_sessions", "probe", "query",
            "insert", "probe_batched", "query_batched", "insert_batched",
            "insert_query_batched", "pad_features", "store_rows",
            "dedup_mask", "evicting_positions", "insert_positions",
@@ -119,6 +119,18 @@ def init_batched_cache(cfg: CacheConfig, n_sessions: int,
         step=torch.zeros((s,), dtype=i32, device=dev),
         doc_scale=torch.ones((s, cp), dtype=f32, device=dev),
         q_scale=torch.ones((s, qp), dtype=f32, device=dev))
+
+
+def reset_sessions(state: CacheState, cfg: CacheConfig,
+                   mask) -> CacheState:
+    """Re-initialize, in place, the rows of a batched state where ``mask``
+    (S,) is True; the others are untouched.  Returns the same state."""
+    mask = torch.as_tensor(mask, dtype=torch.bool,
+                           device=state.doc_ids.device)
+    for full, one in zip(state, init_batched_cache(cfg, 1,
+                                                   state.doc_ids.device)):
+        full[mask] = one
+    return state
 
 
 def init_cache(cfg: CacheConfig, device=None) -> CacheState:

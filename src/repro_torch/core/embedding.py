@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["transform_documents", "transform_queries", "distance_from_scores",
-           "pairwise_scores"]
+           "pairwise_scores", "pairwise_distances"]
 
 
 def transform_documents(phi: torch.Tensor, max_norm=None):
@@ -44,3 +44,9 @@ def distance_from_scores(scores: torch.Tensor) -> torch.Tensor:
 def pairwise_scores(queries: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
     """(q, l+1) x (n, l+1) -> (q, n) inner products."""
     return queries @ docs.T
+
+
+def pairwise_distances(queries: torch.Tensor,
+                       docs: torch.Tensor) -> torch.Tensor:
+    """(q, l+1) x (n, l+1) -> (q, n) Euclidean distances (unit-norm inputs)."""
+    return distance_from_scores(pairwise_scores(queries, docs))

@@ -6,8 +6,9 @@ rows never win, -inf result positions carry id -1, equal scores keep the
 lower corpus position — and runs the fused kNN wrapper
 (``kernels.knn.ops.knn_search``): the hand-written kernels on a CUDA
 corpus, the plain version on a CPU one.  ``streaming_topk`` is the plain
-chunked scan with a running top-k carry (peak memory O(B * chunk)), and
-``exact_nn`` the one-shot full-matrix oracle.
+chunked scan with a running top-k carry (peak memory O(B * chunk)) behind
+``chunked_nn`` and ``masked_chunked_nn``, and ``exact_nn`` the one-shot
+full-matrix oracle.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from repro_torch.core.cache_ops import pad_features
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.knn import ops as knn_ops
 
-__all__ = ["SearchResult", "exact_nn", "streaming_topk", "scan_topk",
-           "MetricIndex"]
+__all__ = ["SearchResult", "exact_nn", "chunked_nn", "masked_chunked_nn",
+           "streaming_topk", "scan_topk", "MetricIndex"]
 
 
 class SearchResult(NamedTuple):
@@ -71,6 +72,20 @@ def streaming_topk(docs: torch.Tensor, doc_ids: torch.Tensor,
         best_s, pos = _stable_topk(cand_s, k)
         best_i = torch.gather(cand_i, 1, pos)
     return best_s, best_i
+
+
+def chunked_nn(docs: torch.Tensor, doc_ids: torch.Tensor,
+               queries: torch.Tensor, k: int, chunk: int = 4096) -> SearchResult:
+    """Streaming exact k-NN over an unpadded corpus (``streaming_topk``)."""
+    return _as_result(*streaming_topk(docs, doc_ids, queries, k, chunk))
+
+
+def masked_chunked_nn(docs: torch.Tensor, doc_ids: torch.Tensor,
+                      queries: torch.Tensor, k: int,
+                      chunk: int = 4096) -> SearchResult:
+    """``chunked_nn`` over a sentinel-padded corpus (id < 0 rows masked)."""
+    return _as_result(*streaming_topk(docs, doc_ids, queries, k, chunk,
+                                      masked=True))
 
 
 def scan_topk(docs: torch.Tensor, doc_ids: torch.Tensor,

@@ -2,18 +2,23 @@
 (``cache_probe_batched``) and of every turn of Algorithm 1 for one session
 (``cache_probe``).
 
-The port of ``repro.kernels.cache_probe.ops``: the wrappers fold ring
-validity into the radius as -inf (a slot is live iff its index <
-min(n_queries, the LOGICAL ``max_queries``)), run one kernel over the
-record payload for r_hat, then take the argmax (the first maximal index, as
-``jnp.argmax``), the hit test r_hat >= epsilon, and nearest_q = -1 for
-caches that hold no record.  ``cache_probe`` also pads a ring that is not a
-multiple of ``layout.RING`` and a width that is not a multiple of
-``layout.FEAT`` (never taken for a state from ``init_cache``).
+The port of ``repro.kernels.cache_probe.ops``.  ``cache_probe`` and
+``cache_probe_batched`` are one launch of ``csrc/cache_probe.cu`` in its
+decision mode and no PyTorch op after it: the kernel folds ring validity
+in (a slot is live iff its index < min(n_queries, the LOGICAL
+``max_queries``)), dots only the live records, and takes the first maximal
+r_hat (``jnp.argmax``'s pick), the hit test r_hat >= epsilon and
+nearest_q = -1 for a cache that holds no record.  Nothing runs before the
+launch either when the inputs are the state's own: a missing ``q_scale``
+reads as ones, psi is read at its own width (zero past it), any ring
+length and width are taken as they are, and an int record count goes to
+the kernel as a scalar.
 
-``probe_rhat`` and ``probe_rhat_batched`` dispatch on the tensor's device:
-CUDA launches ``csrc/cache_probe.cu`` (entries ``probe_rhat`` and
-``probe_rhat_batched``, one counter each), CPU runs the ``ref`` version.
+``probe_rhat`` and ``probe_rhat_batched`` return r_hat alone (the kernel's
+r_hat mode, the functions held against the JAX kernels).  Every entry
+dispatches on the tensor's device: CUDA launches the kernel (counter
+``probe_rhat`` for one session, ``cache_probe`` for a wave), CPU runs the
+``ref`` version.
 """
 
 from __future__ import annotations
@@ -22,7 +27,6 @@ import ctypes
 
 import torch
 
-from repro_torch.core import layout
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.cache_probe import ref
 
@@ -31,15 +35,71 @@ __all__ = ["probe_rhat", "cache_probe", "probe_rhat_batched",
 
 COUNTER = dispatch.counter("cache_probe")
 SINGLE = dispatch.counter("probe_rhat")
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_SINGLE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def _check_f32(name, t, shape, device):
-    if t.dtype != torch.float32 or tuple(t.shape) != shape \
-            or t.device != device:
-        raise ValueError(f"{name}: expected f32 {shape} on {device}, "
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 and t.is_contiguous() \
+        else t.to(torch.float32).contiguous()
+
+
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} {shape} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch(counter: dispatch.KernelCounter, q_emb, psi, radius, scale, *,
+            r_hat=None, decision=None, n_queries=None, epsilon=0.0,
+            max_queries=None):
+    """One launch over q_emb (S, Qp, Dp) (or (Qp, Dp): one session): r_hat
+    mode into ``r_hat``, or decision mode into ``decision`` = (hit,
+    best_r, nearest) with the record counts ``n_queries`` (an int or an
+    (S,) / 0-dim tensor)."""
+    if q_emb.dtype not in _build.STORE:
+        raise TypeError(f"unsupported record payload dtype {q_emb.dtype}")
+    dev = q_emb.device
+    qp, dp = q_emb.shape[-2:]
+    s = q_emb.shape[0] if q_emb.dim() == 3 else 1
+    if qp < 1 or dp < 1:
+        raise ValueError(f"empty record ring {tuple(q_emb.shape)}")
+    lead = q_emb.shape[:-2]
+    if psi.shape[:-1] != lead or psi.shape[-1] > dp:
+        raise ValueError(f"psi {tuple(psi.shape)} does not fit records "
+                         f"{tuple(q_emb.shape)}")
+    psi, radius = _f32(psi), _f32(radius)
+    _check("psi", psi, tuple(psi.shape), dev)
+    _check("radius", radius, (*lead, qp), dev)
+    if scale is not None:
+        scale = _f32(scale)
+        _check("q_scale", scale, (*lead, qp), dev)
+    nq_ptr, nq = None, 0
+    if decision is not None:
+        if isinstance(n_queries, torch.Tensor):
+            if n_queries.dtype != torch.int32 or n_queries.device != dev:
+                n_queries = n_queries.to(dev, torch.int32)
+            _check("n_queries", n_queries, tuple(lead), dev, torch.int32)
+            nq_ptr = n_queries.contiguous().data_ptr()
+        else:
+            if lead:
+                raise ValueError("a batched probe takes n_queries as an "
+                                 "(S,) tensor")
+            nq = int(n_queries)
+    hit, best_r, nearest = decision or (None, None, None)
+    q_emb = q_emb.contiguous()
+    fn = _build.function("cache_probe", "cache_probe", _ARGS)
+    counter.launch()
+    code = fn(q_emb.data_ptr(), psi.data_ptr(), radius.data_ptr(),
+              None if scale is None else scale.data_ptr(), nq_ptr,
+              None if r_hat is None else r_hat.data_ptr(),
+              None if hit is None else hit.data_ptr(),
+              None if best_r is None else best_r.data_ptr(),
+              None if nearest is None else nearest.data_ptr(),
+              s, qp, dp, psi.shape[-1], nq,
+              qp if max_queries is None else max_queries, float(epsilon),
+              _build.STORE[q_emb.dtype], _build.stream_of(q_emb))
+    _build.check(code, "cache_probe")
 
 
 def probe_rhat(q_emb: torch.Tensor, psi: torch.Tensor, radius: torch.Tensor,
@@ -48,22 +108,35 @@ def probe_rhat(q_emb: torch.Tensor, psi: torch.Tensor, radius: torch.Tensor,
     radius and scale (Qp,) f32."""
     if not dispatch.is_kernel(q_emb):
         return ref.probe_rhat(q_emb, psi, radius, scale)
-    qp, dp = q_emb.shape
-    if q_emb.dtype not in _build.STORE:
-        raise TypeError(f"unsupported record payload dtype {q_emb.dtype}")
-    for name, t, shape in (("psi", psi, (dp,)), ("radius", radius, (qp,)),
-                           ("scale", scale, (qp,))):
-        _check_f32(name, t, shape, q_emb.device)
-    q_emb, psi, radius, scale = (t.contiguous()
-                                 for t in (q_emb, psi, radius, scale))
-    out = torch.empty((qp,), dtype=torch.float32, device=q_emb.device)
-    fn = _build.function("cache_probe", "probe_rhat", _SINGLE_ARGS)
-    SINGLE.launch()
-    code = fn(q_emb.data_ptr(), psi.data_ptr(), radius.data_ptr(),
-              scale.data_ptr(), out.data_ptr(), qp, dp,
-              _build.STORE[q_emb.dtype], _build.stream_of(q_emb))
-    _build.check(code, "probe_rhat")
+    if tuple(psi.shape) != (q_emb.shape[1],):
+        raise ValueError(f"psi {tuple(psi.shape)} is not ({q_emb.shape[1]},)")
+    out = torch.empty((q_emb.shape[0],), dtype=torch.float32,
+                      device=q_emb.device)
+    _launch(SINGLE, q_emb, psi, radius, scale, r_hat=out)
     return out
+
+
+def probe_rhat_batched(q_emb: torch.Tensor, psi: torch.Tensor,
+                       radius: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """r_hat (S, Qp) f32 for q_emb (S, Qp, Dp), psi (S, Dp) f32, radius and
+    scale (S, Qp) f32."""
+    if not dispatch.is_kernel(q_emb):
+        return ref.probe_rhat_batched(q_emb, psi, radius, scale)
+    s, qp, dp = q_emb.shape
+    if tuple(psi.shape) != (s, dp):
+        raise ValueError(f"psi {tuple(psi.shape)} is not ({s}, {dp})")
+    out = torch.empty((s, qp), dtype=torch.float32, device=q_emb.device)
+    _launch(COUNTER, q_emb, psi, radius, scale, r_hat=out)
+    return out
+
+
+def _decision(shape, device):
+    """Empty (hit, best_r, nearest) of ``shape``: best_r and nearest share
+    one allocation."""
+    stats = torch.empty((2, *shape), dtype=torch.int32, device=device)
+    return (torch.empty(shape, dtype=torch.bool, device=device),
+            stats[0].view(torch.float32), stats[1])
 
 
 def cache_probe(q_emb: torch.Tensor, psi: torch.Tensor, radius: torch.Tensor,
@@ -75,70 +148,16 @@ def cache_probe(q_emb: torch.Tensor, psi: torch.Tensor, radius: torch.Tensor,
     ring length (None = every slot).  Returns (hit, best_r_hat, best_idx)
     as 0-dim tensors, best_idx -1 for an empty cache."""
     SINGLE.call()
-    qmax, d = q_emb.shape
-    dev = q_emb.device
-    qpad, dpad = (-qmax) % layout.RING, (-d) % layout.FEAT
-    if q_scale is None:
-        q_scale = torch.ones((qmax,), dtype=torch.float32, device=dev)
-    q_scale = q_scale.to(torch.float32)
-    radius = radius.to(torch.float32)
-    if qpad or dpad:   # unpadded callers only: O(ring), never O(capacity)
-        q_emb = torch.nn.functional.pad(q_emb, (0, dpad, 0, qpad))
-        radius = torch.nn.functional.pad(radius, (0, qpad),
-                                         value=float("-inf"))
-        q_scale = torch.nn.functional.pad(q_scale, (0, qpad), value=1.0)
-    psi_p = torch.nn.functional.pad(psi.to(torch.float32),
-                                    (0, d + dpad - psi.shape[0]))
-    hit, best_r, nearest = _lowquality(
-        lambda r: probe_rhat(q_emb, psi_p, r[0], q_scale)[None], radius[None],
-        torch.as_tensor(n_queries, device=dev).reshape(1), epsilon,
-        qmax if max_queries is None else max_queries)
-    return hit[0], best_r[0], nearest[0]
-
-
-def _lowquality(rhat, radius, n_queries, epsilon, max_queries: int):
-    """The LowQuality decision over (S, Qp) records: ring validity folded
-    into the radius as -inf, r_hat = ``rhat(radius)``, the first maximal
-    record, the hit test and nearest_q = -1 for an empty cache."""
-    qp = radius.shape[1]
-    dev = radius.device
-    idx = torch.arange(qp, device=dev)[None, :]
-    valid = (idx < n_queries[:, None]) & (idx < max_queries)
-    neg = torch.tensor(float("-inf"), device=dev)
-    r_hat = torch.where(valid, rhat(torch.where(valid, radius, neg)), neg)
-    best = torch.argmax(r_hat, dim=1)
-    best_r = torch.gather(r_hat, 1, best[:, None])[:, 0]
-    has_q = n_queries > 0
-    hit = has_q & (best_r >= epsilon)
-    nearest = torch.where(has_q, best.to(torch.int32),
-                          torch.tensor(-1, dtype=torch.int32, device=dev))
-    return hit, best_r, nearest
-
-
-def probe_rhat_batched(q_emb: torch.Tensor, psi: torch.Tensor,
-                       radius: torch.Tensor,
-                       scale: torch.Tensor) -> torch.Tensor:
-    """r_hat (S, Qp) f32 for q_emb (S, Qp, Dp), psi (S, Dp) f32, radius and
-    scale (S, Qp) f32."""
     if not dispatch.is_kernel(q_emb):
-        return ref.probe_rhat_batched(q_emb, psi, radius, scale)
-    s, qp, dp = q_emb.shape
-    if q_emb.dtype not in _build.STORE:
-        raise TypeError(f"unsupported record payload dtype {q_emb.dtype}")
-    if s > 65535:
-        raise ValueError(f"{s} sessions exceed the probe grid's 65535 rows")
-    for name, t, shape in (("psi", psi, (s, dp)), ("radius", radius, (s, qp)),
-                           ("scale", scale, (s, qp))):
-        _check_f32(name, t, shape, q_emb.device)
-    q_emb, psi, radius, scale = (t.contiguous()
-                                 for t in (q_emb, psi, radius, scale))
-    out = torch.empty((s, qp), dtype=torch.float32, device=q_emb.device)
-    fn = _build.function("cache_probe", "probe_rhat_batched", _ARGS)
-    COUNTER.launch()
-    code = fn(q_emb.data_ptr(), psi.data_ptr(), radius.data_ptr(),
-              scale.data_ptr(), out.data_ptr(), s, qp, dp,
-              _build.STORE[q_emb.dtype], _build.stream_of(q_emb))
-    _build.check(code, "probe_rhat_batched")
+        out = ref.lowquality(
+            q_emb[None], psi[None], radius[None],
+            torch.as_tensor(n_queries).reshape(1), epsilon,
+            None if q_scale is None else q_scale[None],
+            q_emb.shape[0] if max_queries is None else max_queries)
+        return tuple(x[0] for x in out)
+    out = _decision((), q_emb.device)
+    _launch(SINGLE, q_emb, psi, radius, q_scale, decision=out,
+            n_queries=n_queries, epsilon=epsilon, max_queries=max_queries)
     return out
 
 
@@ -152,14 +171,10 @@ def cache_probe_batched(q_emb: torch.Tensor, psi: torch.Tensor,
     logical ring length (None = every slot).  Returns (hit (S,) bool,
     best_r_hat (S,) f32, best_idx (S,) int32, -1 for empty caches)."""
     COUNTER.call()
-    s, qp, dp = q_emb.shape
-    dev = q_emb.device
-    psi_p = torch.nn.functional.pad(psi.to(torch.float32),
-                                    (0, dp - psi.shape[1]))
-    if q_scale is None:
-        q_scale = torch.ones((s, qp), dtype=torch.float32, device=dev)
-    q_scale = q_scale.to(torch.float32)
-    return _lowquality(
-        lambda r: probe_rhat_batched(q_emb, psi_p, r, q_scale),
-        radius.to(torch.float32), n_queries, epsilon,
-        qp if max_queries is None else max_queries)
+    if not dispatch.is_kernel(q_emb):
+        return ref.lowquality(q_emb, psi, radius, n_queries, epsilon, q_scale,
+                              max_queries)
+    out = _decision((q_emb.shape[0],), q_emb.device)
+    _launch(COUNTER, q_emb, psi, radius, q_scale, decision=out,
+            n_queries=n_queries, epsilon=epsilon, max_queries=max_queries)
+    return out

@@ -28,7 +28,7 @@ MODES = {"sum": 0, "mean": 1, "max": 2}
 TABLE_STORE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_longlong] \
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def _validate(table, indices, weights, mode):
@@ -68,17 +68,17 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"table must be row-major contiguous (stride "
                          f"{table.stride()}): the kernel reads it in place")
     b, l = indices.shape
+    if b >= 2 ** 31:
+        raise ValueError(f"{b} bags exceed the kernel's int32 bag index")
     indices = indices.contiguous()
     if weights is not None:
         weights = weights.to(torch.float32).contiguous()
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
-    vec = 4 if table.dtype == torch.float32 and d % 4 == 0 \
-        and table.data_ptr() % 16 == 0 else 1
     fn = _build.function("embedding_bag", "embedding_bag", _ARGS)
     COUNTER.launch()
     code = fn(table.data_ptr(), indices.data_ptr(),
               None if weights is None else weights.data_ptr(), out.data_ptr(),
-              b, l, d, v, TABLE_STORE[table.dtype], vec, MODES[mode],
+              b, l, d, v, TABLE_STORE[table.dtype], MODES[mode],
               _build.stream_of(table))
     _build.check(code, "embedding_bag")
     return out

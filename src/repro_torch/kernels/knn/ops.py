@@ -26,6 +26,14 @@ with (-inf, -1).  Two paths, any k:
 On a CUDA tensor the kernels launch; on a CPU tensor the plain versions in
 ``ref`` run.  Every scratch buffer of the kernels (the select's
 histograms, counters, candidates and filter buffers) is allocated here.
+
+The scratch is bounded: ``knn_search`` answers the queries in chunks of
+``chunk_rows`` rows, a multiple of the score GEMM's ``QUERY_TILE``, sized
+so that one chunk's (B_c, N) f32 scores and select scratch fit
+``SCRATCH_BUDGET`` bytes; both devices chunk alike.  Rows are independent,
+and every chunk takes the score path that the whole B chooses (a tail of
+<= ``SCORE_GEMV_MAX_B`` queries stays on the GEMM), so the answers equal the
+unchunked search's bit for bit.
 """
 
 from __future__ import annotations
@@ -39,8 +47,9 @@ from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.knn import ref
 
 __all__ = ["knn_score", "knn_select", "knn_tile_topk", "knn_tile_select",
-           "knn_search",
-           "autotune_knn", "SCORE", "SELECT", "TILE", "SCORE_GEMV_MAX_B"]
+           "knn_search", "chunk_rows",
+           "autotune_knn", "SCORE", "SELECT", "TILE", "SCORE_GEMV_MAX_B",
+           "SCRATCH_BUDGET", "QUERY_TILE"]
 
 SCORE = dispatch.counter("knn_score")
 SELECT = dispatch.counter("knn_select")
@@ -53,6 +62,12 @@ LANE, SUBLANE = 128, 8
 SCORE_GEMV_MAX_B = 8
 SELECT_WS = 2 * 4096 + 16 + 256  # csrc/knn.cu WS_ROW
 SELECT_BUF = 1 << 16      # filter buffer per row (keys at the k-th digit)
+# bytes one chunk of a search may hold in scratch: its (B_c, N) f32 scores
+# and select scratch (64 queries over the 8,841,823-doc corpus take 2.3 GB)
+SCRATCH_BUDGET = 4 << 30
+# the score GEMM's query tile (csrc/knn.cu), the plain scores' block too
+QUERY_TILE = ref.QUERY_BLOCK
+MAX_ROWS = 65535          # the select and tile grids' row limit
 _SCORE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _SELECT_ARGS = ([ctypes.c_void_p] * 5
@@ -147,6 +162,24 @@ def _score(docs, doc_ids, queries, scale, q_scale, *, gemv: bool):
     return out
 
 
+def _select_words(n: int, k: int) -> tuple[int, int, int]:
+    """(cap, bufcap, int32 words of scratch per row) of a select of the top
+    ``k`` of ``n``: every key above the k-th plus its tie run, up to cap;
+    the workspace (histograms, counters), candidates and filter buffers."""
+    cap = 2 << (k - 1).bit_length()
+    bufcap = min(n, SELECT_BUF)
+    return cap, bufcap, SELECT_WS + 2 * cap + 4 * bufcap
+
+
+def chunk_rows(n: int, row_bytes: int) -> int:
+    """Queries per chunk of a search over ``n`` documents when a query row
+    needs ``row_bytes`` of scratch besides its f32 scores: the most that
+    fit ``SCRATCH_BUDGET``, in whole ``QUERY_TILE``s (at least one), and
+    never more than the grids' row limit."""
+    rows = SCRATCH_BUDGET // (4 * n + row_bytes) // QUERY_TILE * QUERY_TILE
+    return min(max(rows, QUERY_TILE), MAX_ROWS // QUERY_TILE * QUERY_TILE)
+
+
 def knn_select(scores, doc_ids, k: int):
     """Stable top-k of (B, N) scores, any 1 <= k <= N: (vals (B, k) f32,
     ids (B, k) int32)."""
@@ -158,17 +191,12 @@ def knn_select(scores, doc_ids, k: int):
         raise ValueError(f"k={k} outside [1, N={n}]")
     if n >= 2 ** 31 - 1:
         raise ValueError(f"row of {n} scores exceeds int32 positions")
-    if b > 65535:
-        raise ValueError(f"{b} rows exceed the select grid's 65535")
+    if b > MAX_ROWS:
+        raise ValueError(f"{b} rows exceed the select grid's {MAX_ROWS}")
     _check(doc_ids, "doc_ids", torch.int32, (n,), dev)
     scores = scores.contiguous()
-    # candidates: every key above the k-th plus its tie run, up to cap; one
-    # scratch for the workspace (histograms, counters), candidates and
-    # buffers
-    cap = 2 << (k - 1).bit_length()
-    bufcap = min(n, SELECT_BUF)
-    scratch = torch.empty(b * (SELECT_WS + 2 * cap + 4 * bufcap),
-                          dtype=torch.int32, device=dev)
+    cap, bufcap, words = _select_words(n, k)
+    scratch = torch.empty(b * words, dtype=torch.int32, device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = _build.function("knn", "knn_select", _SELECT_ARGS)
@@ -182,12 +210,13 @@ def knn_select(scores, doc_ids, k: int):
 
 
 def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
-                  scale=None, q_scale=None):
+                  scale=None, q_scale=None, gemv: bool | None = None):
     """Per-tile stable top ``k_eff`` of the masked scores, the corpus read
     as padded to a ``tile_n`` multiple: (vals (tiles, B, k_eff) f32,
     positions (tiles, B, k_eff) int32).  Queries at the corpus width (int8
-    payload with ``q_scale`` under int8-dot).  A position whose value is
-    -inf may be any masked or padded one."""
+    payload with ``q_scale`` under int8-dot); ``gemv`` the score path (None:
+    the one these B queries choose).  A position whose value is -inf may be
+    any masked or padded one."""
     if not dispatch.is_kernel(docs):
         return ref.tile_topk(docs, doc_ids, queries, k_eff, tile_n, scale,
                              q_scale)
@@ -195,10 +224,13 @@ def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
     b = queries.shape[0]
     if not 1 <= k_eff <= tile_n:
         raise ValueError(f"k_eff={k_eff} outside [1, tile_n={tile_n}]")
-    if b > 65535:
-        raise ValueError(f"{b} queries exceed the tile grid's 65535 rows")
-    return knn_tile_select(knn_score(docs, doc_ids, queries, scale, q_scale),
-                           k_eff, tile_n)
+    if b > MAX_ROWS:
+        raise ValueError(f"{b} queries exceed the tile grid's {MAX_ROWS} "
+                         f"rows")
+    if gemv is None:
+        gemv = b <= SCORE_GEMV_MAX_B
+    return knn_tile_select(_score(docs, doc_ids, queries, scale, q_scale,
+                                  gemv=gemv), k_eff, tile_n)
 
 
 def knn_tile_select(scores, k_eff: int, tile_n: int):
@@ -227,10 +259,11 @@ def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
                tile_n: int | None = None, two_stage: bool = False):
     """Top-k MIPS.  docs (N, Dp) fp32 / bf16 / int8 payload with ``scale``
     its (N,) f32 per-document multiplier (None = unquantized); doc_ids (N,)
-    int32, -1 on sentinel rows; queries (B, d <= Dp) f32.  ``int8_dot``
-    (None = the ``REPRO_INT8_DOT`` policy, int8 corpora only) scores int8 x
-    int8 in int32.  ``two_stage`` takes the per-tile scan with ``tile_n``
-    (None = ``autotune_knn``), which raises when its tiles * k_eff
+    int32, -1 on sentinel rows; queries (B, d <= Dp) f32, any B (answered
+    in chunks of ``chunk_rows``).  ``int8_dot`` (None = the
+    ``REPRO_INT8_DOT`` policy, int8 corpora only) scores int8 x int8 in
+    int32.  ``two_stage`` takes the per-tile scan with ``tile_n`` (None =
+    ``autotune_knn`` for the whole B), which raises when its tiles * k_eff
     candidates cannot hold k.  Returns (scores (B, k) descending, ids
     (B, k), -1 where the score is -inf)."""
     n, dp = docs.shape
@@ -240,12 +273,13 @@ def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
     if quant.resolve_int8_dot(int8_dot, docs.dtype):
         qq = quant.quantize(q, "int8")
         q, q_scale = qq.data, qq.scale
+    b = q.shape[0]
+    gemv = b <= SCORE_GEMV_MAX_B     # the whole B's path, for every chunk
     if two_stage:
         SCORE.call()
         TILE.call()
         if tile_n is None:
-            tile_n, k_eff = autotune_knn(n, dp, q.shape[0], k,
-                                         docs.element_size())
+            tile_n, k_eff = autotune_knn(n, dp, b, k, docs.element_size())
         else:
             tile_n = min(tile_n, max(SUBLANE, 1 << max(n - 1, 1).bit_length()))
             k_eff = min(k, tile_n)
@@ -253,18 +287,46 @@ def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
         if tiles * k_eff < k:
             raise ValueError(f"two-stage candidate pool {tiles}x{k_eff} < "
                              f"k={k}; use the fused search")
-        vals, pos = knn_tile_topk(docs, doc_ids, q, k_eff, tile_n, scale,
-                                  q_scale)
-        return ref.merge_tiles(vals, pos, doc_ids, k)
+
+        def chunk(lo, hi):
+            vals, pos = knn_tile_topk(docs, doc_ids, q[lo:hi], k_eff, tile_n,
+                                      scale, _rows(q_scale, lo, hi), gemv)
+            return ref.merge_tiles(vals, pos, doc_ids, k)
+        return _chunked(chunk, b, k, chunk_rows(n, 8 * tiles * k_eff),
+                        q.device)
     SCORE.call()
     SELECT.call()
-    if not dispatch.is_kernel(docs):
-        return ref.search(docs, doc_ids, q, k, scale, q_scale)
     k_eff = min(k, n)
-    vals, ids = knn_select(knn_score(docs, doc_ids, q, scale, q_scale),
-                           doc_ids, k_eff)
-    if k_eff < k:
-        vals = torch.nn.functional.pad(vals, (0, k - k_eff),
-                                       value=float("-inf"))
-        ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
+
+    def chunk(lo, hi):
+        qs = _rows(q_scale, lo, hi)
+        if not dispatch.is_kernel(docs):
+            return ref.search(docs, doc_ids, q[lo:hi], k, scale, qs)
+        vals, ids = knn_select(_score(docs, doc_ids, q[lo:hi], scale, qs,
+                                      gemv=gemv), doc_ids, k_eff)
+        if k_eff < k:
+            vals = torch.nn.functional.pad(vals, (0, k - k_eff),
+                                           value=float("-inf"))
+            ids = torch.nn.functional.pad(ids, (0, k - k_eff), value=-1)
+        return vals, ids
+    return _chunked(chunk, b, k, chunk_rows(n, 4 * _select_words(n, k_eff)[2]),
+                    q.device)
+
+
+def _rows(t, lo: int, hi: int):
+    return None if t is None else t[lo:hi]
+
+
+def _chunked(chunk, b: int, k: int, rows: int, device):
+    """``chunk(lo, hi)`` over [0, b) in steps of ``rows``: its (scores,
+    ids), written into the (B, k) answer when there is more than one."""
+    if b <= rows:
+        return chunk(0, b)
+    vals = torch.empty((b, k), dtype=torch.float32, device=device)
+    ids = torch.empty((b, k), dtype=torch.int32, device=device)
+    for lo in range(0, b, rows):
+        v, i = chunk(lo, min(lo + rows, b))
+        vals[lo:lo + rows].copy_(v)
+        ids[lo:lo + rows].copy_(i)
+        del v, i
     return vals, ids

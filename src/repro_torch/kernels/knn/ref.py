@@ -2,7 +2,12 @@
 
 One masked (B, N) score matrix and stable descending sorts, so equal
 scores keep the lower corpus position (``lax.top_k``'s order); -inf
-results carry id -1 and k > N pads with (-inf, -1).  ``score`` is the
+results carry id -1 and k > N pads with (-inf, -1).  The scores are taken
+``QUERY_BLOCK`` queries at a time, one matrix product per block: a BLAS
+sums a row in an order that can depend on how many rows the product
+holds, and blocks aligned to the search's chunks (``ops.chunk_rows``, a
+multiple of the block) make a chunked search equal the unchunked one bit
+for bit.  ``score`` is the
 plain version of the score kernel, ``select`` of the select kernel,
 ``search`` of the fused op and ``tile_topk`` of the two-stage scan's
 per-tile stage.  ``merge_tiles`` is the two-stage merge itself, which
@@ -13,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+QUERY_BLOCK = 64    # queries per matrix product (the GEMM's query tile)
+
 
 def score(docs: torch.Tensor, doc_ids: torch.Tensor, queries: torch.Tensor,
           scale: torch.Tensor | None = None,
@@ -20,11 +27,14 @@ def score(docs: torch.Tensor, doc_ids: torch.Tensor, queries: torch.Tensor,
     """Masked (B, N) f32 scores.  With ``q_scale`` the queries are an int8
     payload and the dot is the exact integer sum (taken in f64, exact for
     any practical width), scaled as (f32(acc) * q_scale) * scale."""
+    wide = torch.float32 if q_scale is None else torch.float64
+    d = docs.to(wide).T
+    q = queries.to(wide)
+    parts = [(q[lo:lo + QUERY_BLOCK] @ d).to(torch.float32)
+             for lo in range(0, max(q.shape[0], 1), QUERY_BLOCK)]
+    scores = parts[0] if len(parts) == 1 else torch.cat(parts)
     if q_scale is not None:
-        acc = queries.to(torch.float64) @ docs.to(torch.float64).T
-        scores = acc.to(torch.float32) * q_scale[:, None]
-    else:
-        scores = queries.to(torch.float32) @ docs.to(torch.float32).T
+        scores = scores * q_scale[:, None]
     if scale is not None:
         scores = scores * scale[None, :]
     return torch.where(doc_ids[None, :] < 0,

@@ -346,6 +346,11 @@ class SessionManager:
             overlap=overlap)
 
     @property
+    def batcher(self) -> ContinuousScheduler:
+        """Alias of ``scheduler`` (the reference's earlier name)."""
+        return self.scheduler
+
+    @property
     def telemetry(self) -> ServeTelemetry:
         return self.scheduler.telemetry
 

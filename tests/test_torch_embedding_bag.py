@@ -5,7 +5,8 @@ interpret mode (``use_kernel=True``), and through the port's wrapper on CPU
 tensors (the plain PyTorch version beside ``csrc/embedding_bag.cu``): the
 cases of ``tests/test_kernels_embedding_bag.py`` plus the widths on the
 recsys path that are not multiples of 4 (D = 1, the xDeepFM linear term;
-D = 10, its fields).  Tolerances: 1e-5 for f32 tables (the two packages
+D = 10, its fields), and every load width of the kernel (D = 1, 2, 10, 33
+and 64 in f32, f16 and bf16, bags of one item and of eight).  Tolerances: 1e-5 for f32 tables (the two packages
 sum the same products in other orders), 1e-3 for f16 / bf16 tables, as
 the JAX dtype sweep.
 """
@@ -73,6 +74,29 @@ def test_bag_table_dtypes(dtype, mode):
     got, want = _both(table, idx, w, mode, jdtype=getattr(jnp, dtype),
                       tdtype=getattr(torch, dtype))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [1, 2, 10, 33, 64])
+@pytest.mark.parametrize("l", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+def test_bag_load_widths_match_jax_kernel(d, l, dtype):
+    """The widths the kernel loads in 4, 8 and 16 bytes (or 2, one half),
+    in bags of one item (the recsys models') and of eight, weighted, in
+    every mode; a bag of one unweighted item is the row itself."""
+    tol = 1e-5 if dtype == "float32" else 1e-3
+    table, idx, w = _case(d * 10 + l, 200, d, 6, l)
+    for mode in ("sum", "mean", "max"):
+        for weights in (None, w):
+            got, want = _both(table, idx, weights, mode,
+                              jdtype=getattr(jnp, dtype),
+                              tdtype=getattr(torch, dtype))
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    if l == 1:
+        tt = torch.as_tensor(table).to(getattr(torch, dtype))
+        got = embedding_bag(tt, torch.as_tensor(idx))
+        rows = tt.float()[torch.as_tensor(idx[:, 0]).clamp(min=0).long()]
+        rows[torch.as_tensor(idx[:, 0]) < 0] = 0
+        assert torch.equal(got, rows)
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean", "max"])

@@ -807,3 +807,166 @@ def test_embedding_bag_refuses_bad_inputs(card):
         bag_ops.embedding_bag(table.double(), idx)
     with pytest.raises(ValueError):
         bag_ops.embedding_bag(table, idx, mode="prod")
+
+
+# ------------------------------------------- chunked search, fused probe
+@pytest.mark.parametrize("dtype,i8", [("fp32", False), ("bf16", False),
+                                      ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("two_stage", [False, True])
+def test_knn_search_in_chunks_equals_unchunked(card, monkeypatch, dtype, i8,
+                                               two_stage):
+    """B = 134 over a budget that holds 64 queries: chunks of 64, 64 and a
+    tail of 6 (on the GEMM path the whole B takes), bit for bit the
+    unchunked search; one launch of each kernel per chunk."""
+    n, b, k = 30011, 134, 100
+    docs = tc.pad_features(_unit(n, DIM, gen=card), 800)
+    qc = quant.quantize(docs, dtype)
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    ids[[5, 700]] = -1
+    q = _unit(b, DIM, gen=card)
+    kw = dict(scale=qc.scale, int8_dot=i8, two_stage=two_stage)
+    whole = knn_ops.knn_search(qc.data, ids, q, k, **kw)
+    monkeypatch.setattr(knn_ops, "SCRATCH_BUDGET", 64 * 4 * n)
+    dispatch.reset_counters()
+    parts = knn_ops.knn_search(qc.data, ids, q, k, **kw)
+    c = dispatch.counters()
+    assert c["knn_score"].launches == 3
+    assert c["knn_tile_topk" if two_stage else "knn_select"].launches == 3
+    assert torch.equal(parts[0], whole[0]) and torch.equal(parts[1], whole[1])
+    # the tail alone, as a search of its own, takes the GEMV path: its rows
+    # then need only agree by the tolerance
+    tail = knn_ops.knn_search(qc.data, ids, q[128:], k, **kw)
+    assert_topk_agree(tail[0], tail[1], whole[0][128:], whole[1][128:], TOL,
+                      f"tail {dtype} i8={i8}")
+
+
+def _probe_wave(gen, dtype, s=9, qmax=13, dim=DIM, width=None):
+    """Records around each psi, edges per session: empty, 1 record, a tie
+    for the best record (slots 2 and 5), every radius -inf, n_queries past
+    the ring, a miss (psi flipped)."""
+    width = width or dim
+    psi = _unit(s, dim, gen=gen)
+    noise = torch.randn(s, qmax, dim, generator=gen, device="cuda")
+    spread = torch.linspace(0.2, 1.6, qmax, device="cuda")[None, :, None]
+    recs = torch.nn.functional.normalize(psi[:, None] + spread * noise
+                                         / dim ** 0.5, dim=2)
+    radius = 0.2 + 0.9 * torch.rand(s, qmax, generator=gen, device="cuda")
+    recs[3, 2] = recs[3, 5] = torch.nn.functional.normalize(
+        psi[3] + 0.01 * noise[3, 0], dim=0)
+    radius[3, 2] = radius[3, 5] = 1.5
+    radius[4] = float("-inf")
+    psi[6] = -psi[6]
+    q_emb, q_scale = tc.store_rows(tc.pad_features(recs, width), dtype)
+    n_q = torch.tensor([0, 1, 7, 13, 5, qmax + 9, 13, 3, 11],
+                       dtype=torch.int32, device="cuda")[:s]
+    return q_emb, psi, radius, n_q, q_scale
+
+
+def _decision_equal(got, want, what):
+    hit, best, near = got
+    rhit, rbest, rnear = want
+    assert torch.equal(hit, rhit), what
+    assert torch.equal(near, rnear), what
+    fin = torch.isfinite(rbest)
+    assert torch.equal(torch.isfinite(best), fin), what
+    assert_close(torch.where(fin, best, 0.0), torch.where(fin, rbest, 0.0),
+                 1e-4, what)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("width", [DIM, 800])
+@pytest.mark.parametrize("max_queries", [None, 9, 0])
+def test_fused_probe_decision_matches_plain(card, dtype, width, max_queries):
+    """``cache_probe_batched``: one launch that folds ring validity, the
+    first maximal r_hat, the hit test and nearest = -1 for an empty cache,
+    against ``ref.lowquality`` over the plain r_hat on the same card
+    tensors; at the unaligned width 769 (element loads) and the padded 800
+    (16-byte loads), with q_scale given and absent."""
+    q_emb, psi, radius, n_q, q_scale = _probe_wave(card, dtype, width=width)
+    for scale in (q_scale, None):
+        dispatch.reset_counters()
+        got = probe_ops.cache_probe_batched(q_emb, psi, radius, n_q, 0.2,
+                                            q_scale=scale,
+                                            max_queries=max_queries)
+        c = dispatch.counters()["cache_probe"]
+        assert (c.calls, c.launches) == (1, 1)
+        want = probe_ref.lowquality(q_emb, psi, radius, n_q, 0.2, scale,
+                                    max_queries)
+        _decision_equal(got, want, f"{dtype} width={width} "
+                        f"max_queries={max_queries}")
+        if max_queries is None:
+            assert int(got[2][3]) == 2 and int(got[2][4]) == 0
+            assert int(got[2][0]) == -1 and bool(got[0][1])
+            assert not bool(got[0][6]) and not bool(got[0][4])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_fused_single_probe_matches_plain(card, dtype):
+    """``cache_probe`` for one session: one launch; an int or a device
+    record count; a 64-record ring at 800 (Algorithm 1's) and a 13-record
+    ring at 769."""
+    for qmax, width in ((64, 800), (13, DIM)):
+        q_emb, psi, radius, n_q, q_scale = _probe_wave(card, dtype, qmax=qmax,
+                                                       width=width)
+        for s in range(q_emb.shape[0]):
+            for count in (n_q[s], int(n_q[s]), qmax + 3):
+                dispatch.reset_counters()
+                got = probe_ops.cache_probe(q_emb[s], psi[s], radius[s],
+                                            count, 0.2, q_scale=q_scale[s],
+                                            max_queries=qmax)
+                assert dispatch.counters()["probe_rhat"].launches == 1
+                assert all(x.shape == () and x.is_cuda for x in got)
+                want = probe_ref.lowquality(
+                    q_emb[s:s + 1], psi[s:s + 1], radius[s:s + 1],
+                    torch.as_tensor(count, device="cuda").reshape(1), 0.2,
+                    q_scale[s:s + 1], qmax)
+                _decision_equal([x[None] for x in got], want,
+                                f"{dtype} qmax={qmax} session {s}")
+
+
+def test_probe_rhat_entries_after_the_redesign(card):
+    """The r_hat entries (held against the JAX kernels) launch the same
+    body in r_hat mode: every slot, radius as given."""
+    q_emb, psi, radius, _, q_scale = _probe_wave(card, "fp32", width=800)
+    psi_p = tc.pad_features(psi, 800)
+    rk = probe_ops.probe_rhat_batched(q_emb, psi_p, radius, q_scale)
+    assert_close(rk, probe_ref.probe_rhat_batched(q_emb, psi_p, radius,
+                                                  q_scale), 1e-4, "batched")
+    assert torch.isneginf(rk[4]).all()
+    r1 = probe_ops.probe_rhat(q_emb[2], psi_p[2], radius[2], q_scale[2])
+    assert_close(r1, rk[2], 1e-6, "single")
+
+
+# ---------------------------------------------- embedding bag, load widths
+@pytest.mark.parametrize("d", [1, 2, 10, 33, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 8])
+def test_embedding_bag_load_widths_match_plain(card, d, dtype, l):
+    """Every load width (16, 8, 4, 2 bytes) in every mode: within the
+    tolerance for bags of eight, bit for bit for bags of one item."""
+    table, idx, w = _bag_inputs(card, 7000, d, 2001, l, dtype)
+    for mode in ("sum", "mean", "max"):
+        for weights in (None, w):
+            dispatch.reset_counters()
+            got = bag_ops.embedding_bag(table, idx, weights, mode)
+            assert dispatch.counters()["embedding_bag"].launches == 1
+            want = bag_ref.embedding_bag(table, idx, weights, mode)
+            if l == 1:
+                assert torch.equal(got, want), f"{mode} D={d} {dtype}"
+            else:
+                assert_close(got, want, BAG_TOL[dtype],
+                             f"bag {mode} {dtype} D={d} L={l}")
+
+
+@pytest.mark.parametrize("d,dtype", [(10, torch.float32), (1, torch.float32),
+                                     (64, torch.bfloat16)])
+def test_embedding_bag_persistent_grid_walks_every_bag(card, d, dtype):
+    """More slots than the resident grid holds (each thread walks several
+    steps of 4 slots, the last partial): bags of one item bit for bit."""
+    v, b = 1_000_003, 1_500_001
+    table = torch.randn(v, d, generator=card, device="cuda").to(dtype)
+    idx = torch.randint(-1, v + 5, (b, 1), generator=card, device="cuda",
+                        dtype=torch.int32)
+    got = bag_ops.embedding_bag(table, idx)
+    assert torch.equal(got, bag_ref.embedding_bag(table, idx))
