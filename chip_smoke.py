@@ -29,8 +29,11 @@ Run from the repository root.  Phases, each fatal on failure:
      corpus), the radix select on synthetic (2, N) rows (all scores
      equal, a tie run across rank k, -inf runs and a row with 10 finite
      scores, k = 2048 and 20,000) against the plain stable top-k bit for
-     bit, and the two-stage scan (B=64, k=1000 at N=1,000,000: fp32 and
-     int8-dot with the tuned tile, fp32 with tile_n=256).  Each is timed
+     bit, and the two-stage scan (k=1000 at N=1,000,000, B=64: fp32 and
+     int8-dot with the tuned tile, a cluster of 2 and of 4 blocks; fp32
+     with tile_n=256 and 100, whole tiles a block; bf16 at 4096, a cluster
+     of 16; fp32 at 8192, the kept pair; and B=4 at 512, a query tile
+     mostly empty).  Each is timed
      with CUDA events beside its plain version, its bound and, where one
      PyTorch call computes the same function, that call.
      probe   — (also part of kernels) the probe's times through the entries
@@ -63,8 +66,12 @@ Run from the repository root.  Phases, each fatal on failure:
      collection of TREC CAsT 2019); one Eq. 1 M over the whole corpus.
   6. ab      — the two-stage A/B baseline over that corpus:
      ``knn_search(two_stage=True)`` for the 64 first turns at k = k_c =
-     1000, against the fused search and the plain two-stage version; the
-     op's parts (score, tile select, merge) timed apart.
+     1000 (one launch of the fused tile kernel, one of the merge's
+     select), against the fused search and the plain two-stage version;
+     its peak memory above the corpus; timed apart: the fused tile kernel,
+     the merge (beside its plain sort and ``torch.topk``), the kept pair
+     (``knn_score`` + ``knn_tile_select``) on the same queries, and the
+     whole two-stage search beside the fused one.
   7. main    — the batched serving path: ``SessionManager`` ->
      ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity=
      16000)`` -> ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns
@@ -1262,19 +1269,26 @@ def knn_phase(torch, rep: Report, corpus, streams):
             f"ok (max_abs_err {e:.3g}) ms={ms:.4f} bound_ms={bms:.4f} ({by})")
         del qc, vp, ip
         torch.cuda.empty_cache()
-    # the two-stage scan at N_SMALL: the tuned tile (fp32: k_eff < k),
-    # int8-dot with its tuned tile, and a small explicit tile
-    for dtype, i8, tile_n in (("fp32", False, None), ("int8", True, None),
-                              ("fp32", False, 256)):
+    # the two-stage scan at N_SMALL: the tuned tile (fp32 512: a cluster
+    # of 2, k_eff < k; int8-dot 1024: 4), narrow tiles (256 and 100: whole
+    # tiles a block), a cluster of 16 (4096), the kept pair (8192) and 4
+    # queries (a query tile mostly empty)
+    for dtype, i8, tile_n, nq in (("fp32", False, None, 64),
+                                  ("int8", True, None, 64),
+                                  ("fp32", False, 256, 64),
+                                  ("fp32", False, 100, 64),
+                                  ("bf16", False, 4096, 64),
+                                  ("fp32", False, 8192, 64),
+                                  ("fp32", False, 512, 4)):
         qc = quant.quantize(sub, dtype)
         err, t_n, k_eff, _ = two_stage_check(
-            torch, qc.data, ids[:N_SMALL], q, KC, scale=qc.scale, i8=i8,
+            torch, qc.data, ids[:N_SMALL], q[:nq], KC, scale=qc.scale, i8=i8,
             tile_n=tile_n)
         ms = timed(torch, lambda: knn_ops.knn_search(
-            qc.data, ids[:N_SMALL], q, KC, scale=qc.scale, int8_dot=i8,
+            qc.data, ids[:N_SMALL], q[:nq], KC, scale=qc.scale, int8_dot=i8,
             tile_n=tile_n, two_stage=True), 3)
         log(f"[kernels] knn two-stage {dtype}{' int8-dot' if i8 else ''} "
-            f"N={N_SMALL} tile_n={t_n} k_eff={k_eff}: ok (max_abs_err "
+            f"N={N_SMALL} B={nq} tile_n={t_n} k_eff={k_eff}: ok (max_abs_err "
             f"{err:.3g}) ms={ms:.4f}")
         del qc
         torch.cuda.empty_cache()
@@ -1372,9 +1386,13 @@ def select_cases(torch):
 # ------------------------------------------------------------------ A/B
 def ab_phase(torch, rep: Report, corpus, streams):
     """The two-stage A/B baseline over the main path's corpus: the 64 first
-    turns at k = k_c through ``knn_search(two_stage=True)`` (counted),
-    against the fused search and the plain two-stage version; then the
-    ``knn_tile_topk`` row at this shape."""
+    turns at k = k_c through ``knn_search(two_stage=True)`` (counted: the
+    fused tile kernel and the merge's select), its peak memory above the
+    corpus, against the fused search and the plain two-stage version; then
+    the ``knn_tile_topk`` row at this shape, and apart: the fused tile
+    kernel, the merge, the kept pair (``knn_score`` + ``knn_tile_select``)
+    on the same queries, the fused tile kernel at B = 1, and the whole
+    two-stage search beside the fused one."""
     import numpy as np
 
     from repro_torch.kernels.knn import ops as knn_ops
@@ -1385,10 +1403,14 @@ def ab_phase(torch, rep: Report, corpus, streams):
     ids = torch.arange(n, dtype=torch.int32, device=DEV)
     q = pad_to(torch, np.stack([s[0] for s in streams]), dp)
     b = q.shape[0]
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     (v2, i2), launches = counted(torch, lambda: knn_ops.knn_search(
         corpus, ids, q, KC, two_stage=True))
+    peak = torch.cuda.max_memory_allocated() - before
     want = {name: 0 for name in launches}
-    want.update(knn_score=1, knn_tile_topk=1)
+    want.update(knn_tile_topk=1, knn_select=1)
     if launches != want:
         raise AssertionError(f"[ab] launches {launches} != {want}")
     vf, i_f = knn_ops.knn_search(corpus, ids, q, KC)
@@ -1401,6 +1423,11 @@ def ab_phase(torch, rep: Report, corpus, streams):
                                                     tile_n), 3)
     plain = timed(torch, lambda: knn_ref.tile_topk(corpus, ids, qq, k_eff,
                                                    tile_n), 1)
+    # one query through the same kernel (every B takes its 64-query tile),
+    # beside the single-query score path alone
+    ms1 = timed(torch, lambda: knn_ops.knn_tile_topk(corpus, ids, qq[:1],
+                                                     k_eff, tile_n), 3)
+    gemv1 = timed(torch, lambda: knn_ops.knn_score(corpus, ids, qq[:1]), 3)
     torch.cuda.empty_cache()
 
     def library():
@@ -1411,24 +1438,42 @@ def ab_phase(torch, rep: Report, corpus, streams):
 
     lib = timed(torch, library, 2)
     torch.cuda.empty_cache()
-    # the op's parts apart: the score, the tile select on those scores, the
-    # wrapper's merge; and torch.topk over the same view of those scores
+    # apart: the merge of the fused kernel's candidates through the select,
+    # its plain version (a stable sort of every candidate) and torch.topk
+    # over the same candidate values
+    tv, tp = knn_ops.knn_tile_topk(corpus, ids, qq, k_eff, tile_n)
+    merge_ms = timed(torch, lambda: knn_ops.merge_tiles(tv, tp, ids, KC), 3)
+    merge_plain = timed(torch, lambda: knn_ref.merge_tiles(tv, tp, ids, KC),
+                        1)
+    flat = tv.permute(1, 0, 2).reshape(b, tiles * k_eff)
+    merge_lib = timed(torch, lambda: torch.topk(flat, KC, dim=1), 3)
+    merge_bound = bound(flat.numel() * 4, 0, F32_OPS)[0]
+    del tv, tp, flat
+    torch.cuda.empty_cache()
+    # the kept pair on the same queries: the score into the (B, N) scratch,
+    # then the tile select on it
     scores = knn_ops.knn_score(corpus, ids, qq)
     score_ms = timed(torch, lambda: knn_ops.knn_score(corpus, ids, qq), 3)
-    select_ms = timed(torch, lambda: knn_ops.knn_tile_select(
+    pair_ms = timed(torch, lambda: knn_ops.knn_tile_select(
         scores, k_eff, tile_n), 3)
-    tv, tp = knn_ops.knn_tile_select(scores, k_eff, tile_n)
-    merge_ms = timed(torch, lambda: knn_ref.merge_tiles(tv, tp, ids, KC), 3)
-    view = torch.nn.functional.pad(scores, (0, tiles * tile_n - n),
-                                   value=float("-inf")).view(b, tiles, tile_n)
     del scores
-    topk_ms = timed(torch, lambda: torch.topk(view, k_eff, dim=2), 3)
-    del view, tv, tp
     torch.cuda.empty_cache()
-    log(f"[ab] knn_tile_topk apart: knn_score {score_ms:.3f} ms, "
-        f"knn_tile_select {select_ms:.3f} ms, merge {merge_ms:.3f} ms; "
-        f"torch.topk over the (B, tiles, {tile_n}) view of the same scores "
-        f"{topk_ms:.3f} ms")
+    search_ms = timed(torch, lambda: knn_ops.knn_search(
+        corpus, ids, q, KC, two_stage=True), 3)
+    fused_ms = timed(torch, lambda: knn_ops.knn_search(corpus, ids, q, KC),
+                     3)
+    torch.cuda.empty_cache()
+    log(f"[ab] knn_tile_topk apart: the fused tile kernel {ms:.3f} ms; the "
+        f"merge through knn_select {merge_ms:.3f} ms (bound "
+        f"{merge_bound:.3f}, bytes; its plain stable sort {merge_plain:.3f}, "
+        f"torch.topk over the same candidates {merge_lib:.3f}); the kept "
+        f"pair knn_score {score_ms:.3f} + knn_tile_select {pair_ms:.3f} = "
+        f"{score_ms + pair_ms:.3f} ms; the fused tile kernel at B=1 "
+        f"{ms1:.3f} ms (the B=1 score alone {gemv1:.3f})")
+    log(f"[ab] two-stage knn_search {search_ms:.3f} ms, the fused search "
+        f"{fused_ms:.3f} ms on the same queries; peak device memory of the "
+        f"two-stage search above the corpus {peak / 1e9:.3f} GB (its "
+        f"candidates {8 * b * tiles * k_eff / 1e9:.3f} GB)")
     rep.add("knn_tile_topk", err=err, ms=ms, plain_ms=plain,
             nbytes=n * (dp * 4 + 8) + b * dp * 4 + tiles * b * k_eff * 8,
             ops=2 * b * n * dp, rate=F32_OPS, library_ms=lib)

@@ -5,7 +5,8 @@
 // max-extract) and src/repro/kernels/knn/knn.py:285 knn_tile_topk (the
 // per-tile k_eff rounds of max-extract of the two-stage scheme).  On a GPU
 // at k = k_c = 1000 those merges are k serial block reductions per tile;
-// here the work is split in two ops instead:
+// here the fused search is split in two ops instead, and the tile stage is
+// one kernel that scores and selects each tile on chip:
 //
 //   (a) knn_score — masked f32 scores for the whole (B, N) matrix into a
 //       scratch buffer.  Dequantize-first rule: payload -> f32, f32 dot (FMA
@@ -50,11 +51,27 @@
 //       a position-ordered compaction of the row; a digit too full for the
 //       buffer makes the next pass read the scores again.  A memset and 5
 //       device kernels at every B.
-//   (b') knn_tile_select — the two-stage scheme's per-tile stage: one block
-//       per (tile, query row), the stable top-k of the tile's tile_n scores
-//       (select.cuh block_topk; positions past N read -inf), writing
-//       (tiles, B, k_eff) values and corpus positions.  The wrapper merges
-//       the candidates.
+//   (c) knn_tile_topk — the two-stage scheme's tile stage: the stable top
+//       k_eff of every tile_n tile of the masked scores, as knn.py:285
+//       computes it, with no (B, N) scratch: each tile is scored and
+//       selected on chip and only (B, tiles, k_eff) values and positions
+//       are written.  Bound: the f32 operations, as the score (13.5 ms at
+//       B = 64 over the 8.8M-document corpus; the bytes alone, the corpus
+//       read and the candidates written, 9.8 ms).  The TPU kernel held a
+//       whole tile's (B, tile_n) scores in VMEM; a Hopper block holds 64 x
+//       256 of them, so the GEMM's main loop (gemm_units) gets a new
+//       epilogue in its dead ring: a warp sorts each row's 256 keys in
+//       registers (no block barrier per row), and a tile wider than 256
+//       spans a thread-block cluster whose runs are merged by rank through
+//       distributed shared memory (gemm_tile_kernel).  Every B takes it (a
+//       B <= 8 scan pays the 64-query tile's operations, as knn_score's
+//       GEMM would).  Tiles up to FUSED_MAX_TILE documents, of any width.
+//   (c') knn_tile_select — the kept pair for wider tiles (the wrapper's
+//       shape rule, tile_n > FUSED_MAX_TILE): knn_score into the scratch, then one
+//       block per (tile, query row) selecting from it (select.cuh
+//       block_topk; positions past N read -inf).
+//
+//   The wrapper merges the candidates of (c) or (c') with (b).
 //
 // Every buffer (histograms, counters, candidates, filter buffers, pairs)
 // comes from the wrapper; the kernels allocate nothing.
@@ -62,12 +79,17 @@
 #include <climits>
 #include <type_traits>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "select.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using repro::float_key;
+using repro::key_float;
 
 constexpr int H0 = 256;  // bins of the first radix digit (the key's top byte)
 
@@ -114,17 +136,22 @@ __device__ __forceinline__ void count_bin(unsigned* h, bool ok, unsigned bin) {
   if (ok && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&h[bin], __popc(peers));
 }
 
+// The score of query m from its accumulator and the document's scale sc.
+template <bool I8DOT, typename Acc>
+__device__ __forceinline__ float scaled_score(Acc a, const float* q_scale, int m, float sc) {
+  if constexpr (I8DOT) {
+    return __fmul_rn(__fmul_rn(__int2float_rn(a), q_scale[m]), sc);
+  } else {
+    return __fmul_rn(a, sc);
+  }
+}
+
 // The score of one (query, document) pair from its accumulator.
 template <bool I8DOT, typename Acc>
 __device__ __forceinline__ float finish_score(Acc a, const float* q_scale, const int* ids,
                                               const float* dscale, int m, long long c) {
   const float sc = dscale ? dscale[c] : 1.0f;
-  float s;
-  if constexpr (I8DOT) {
-    s = __fmul_rn(__fmul_rn(__int2float_rn(a), q_scale[m]), sc);
-  } else {
-    s = __fmul_rn(a, sc);
-  }
+  const float s = scaled_score<I8DOT>(a, q_scale, m, sc);
   return ids[c] < 0 ? -INFINITY : s;
 }
 
@@ -211,49 +238,49 @@ __device__ __forceinline__ auto lane_of(const V4& v, int i) {
 __device__ __forceinline__ float mac(float a, float d, float c) { return fmaf(a, d, c); }
 __device__ __forceinline__ int mac(int a, int d, int c) { return c + a * d; }
 
-template <typename T, bool I8DOT>
-__global__ void __launch_bounds__(GTHREADS, 2)
-    gemm_score_kernel(const void* __restrict__ q_raw, const float* __restrict__ q_scale,
-                      const T* __restrict__ docs, const int* __restrict__ ids,
-                      const float* __restrict__ dscale, float* __restrict__ scores, int b,
-                      long long n, int dp) {
+// The lane's place in a 64 x 256 unit: warp (wr, wc) owns rows wr * 32 + lr
+// + 4 i and documents wc * 128 + lc + 8 j (i < 8, j < 16) of the unit: the 8
+// lanes of a row group read 8 consecutive document rows, the 4 row groups
+// the same ones, so every float4 shared read of a warp is one broadcast
+// wavefront.
+__device__ __forceinline__ int gemm_qrow() {
+  return ((threadIdx.x >> 5) & 1) * 32 + ((threadIdx.x & 31) >> 3);
+}
+__device__ __forceinline__ int gemm_dcol() {
+  return (threadIdx.x >> 6) * 128 + (threadIdx.x & 7);
+}
+
+// The GEMM's main loop, shared by the score kernel and the tile kernel.  The
+// block walks `mine` (64-query, 256-document) units, unit j at query row m0
+// and document n0 as place(j, m0, n0) sets them, through the 2-stage ring in
+// `smem`; epi(acc, m0, n0) runs after a unit's last K slice, while the
+// ring's other stage may already be loading the next unit's first slice.
+template <typename T, bool I8DOT, typename Place, typename Epi>
+__device__ __forceinline__ void gemm_units(const void* __restrict__ q_raw,
+                                           const T* __restrict__ docs, int b, long long n,
+                                           int dp, long long mine, unsigned char* smem,
+                                           Place place, Epi epi) {
   using Acc = typename std::conditional<I8DOT, int, float>::type;
   using Q = typename std::conditional<I8DOT, int8_t, float>::type;
   using V4 = typename std::conditional<I8DOT, int4, float4>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
   Acc* ring = reinterpret_cast<Acc*>(smem);
-  // warp (wr, wc) owns rows wr * 32 + lr + 4 i and documents wc * 128 + lc
-  // + 8 j (i < 8, j < 16) of the tile: the 8 lanes of a row group read 8
-  // consecutive document rows, the 4 row groups the same ones, so every
-  // float4 shared read of a warp is one broadcast wavefront
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qrow = (warp & 1) * 32 + (lane >> 3);
-  const int dcol = (warp >> 1) * 128 + (lane & 7);
-  const long long dtiles = (n + GN - 1) / GN;
-  const long long tiles = dtiles * ((b + GM - 1) / GM);
+  const int qrow = gemm_qrow(), dcol = gemm_dcol();
   const int kt_n = dp / GK;
-  // the block's tiles: blockIdx.x, + gridDim.x, ...
-  const long long mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
   const long long steps = mine * kt_n;
   TileLoader<Q, Acc, GM> ql;
   TileLoader<T, Acc, GN> dl;
-  // a position in the block's sequence of (tile, K slice) steps; the tile's
-  // origin is worked out once per tile, not per step
+  // a position in the block's sequence of (unit, K slice) steps; the unit's
+  // origin is worked out once per unit, not per step
   struct Cursor {
-    long long j;  // the block's tile ordinal: tile blockIdx.x + j * gridDim.x
+    long long j;  // the block's unit ordinal
     int kt, slot, m0;
     long long n0;
-  };
-  auto place = [&](Cursor& c) {
-    const long long t = blockIdx.x + c.j * gridDim.x;
-    c.m0 = static_cast<int>(t / dtiles) * GM;
-    c.n0 = (t % dtiles) * GN;
   };
   auto advance = [&](Cursor& c) {
     if (++c.slot == GSTAGES) c.slot = 0;
     if (++c.kt == kt_n) {
       c.kt = 0;
-      if (++c.j < mine) place(c);
+      if (++c.j < mine) place(c.j, c.m0, c.n0);
     }
   };
   auto issue = [&](const Cursor& c) {
@@ -267,8 +294,8 @@ __global__ void __launch_bounds__(GTHREADS, 2)
     dl.store(s + GM * GLD);
   };
   Cursor in{0, 0, 0, 0, 0}, out{0, 0, 0, 0, 0};
-  place(in);
-  place(out);
+  place(0, in.m0, in.n0);
+  place(0, out.m0, out.n0);
 
 #pragma unroll
   for (int s = 0; s < GSTAGES - 1; ++s) {
@@ -315,23 +342,50 @@ __global__ void __launch_bounds__(GTHREADS, 2)
       }
     }
     if (more) store(next_slot);
-    if (out.kt == kt_n - 1) {  // epilogue of the tile
+    if (out.kt == kt_n - 1) {  // epilogue of the unit
+      epi(acc, out.m0, out.n0);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = out.m0 + qrow + 4 * i;
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          const long long c = out.n0 + dcol + 8 * j;
-          if (m < b && c < n)
-            scores[static_cast<size_t>(m) * n + c] =
-                finish_score<I8DOT>(acc[i][j], q_scale, ids, dscale, m, c);
-          acc[i][j] = Acc(0);
-        }
-      }
+        for (int j = 0; j < TJ; ++j) acc[i][j] = Acc(0);
     }
     advance(out);
   }
   cp_async_wait<0>();
+}
+
+template <typename T, bool I8DOT>
+__global__ void __launch_bounds__(GTHREADS, 2)
+    gemm_score_kernel(const void* __restrict__ q_raw, const float* __restrict__ q_scale,
+                      const T* __restrict__ docs, const int* __restrict__ ids,
+                      const float* __restrict__ dscale, float* __restrict__ scores, int b,
+                      long long n, int dp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qrow = gemm_qrow(), dcol = gemm_dcol();
+  const long long dtiles = (n + GN - 1) / GN;
+  const long long tiles = dtiles * ((b + GM - 1) / GM);
+  // the block's units: blockIdx.x, + gridDim.x, ...
+  const long long mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
+  gemm_units<T, I8DOT>(
+      q_raw, docs, b, n, dp, mine, smem,
+      [&](long long j, int& m0, long long& n0) {
+        const long long t = blockIdx.x + j * gridDim.x;
+        m0 = static_cast<int>(t / dtiles) * GM;
+        n0 = (t % dtiles) * GN;
+      },
+      [&](auto& acc, int m0, long long n0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int m = m0 + qrow + 4 * i;
+#pragma unroll
+          for (int j = 0; j < TJ; ++j) {
+            const long long c = n0 + dcol + 8 * j;
+            if (m < b && c < n)
+              scores[static_cast<size_t>(m) * n + c] =
+                  finish_score<I8DOT>(acc[i][j], q_scale, ids, dscale, m, c);
+          }
+        }
+      });
 }
 
 template <typename T, bool I8DOT>
@@ -360,6 +414,8 @@ constexpr int GEMV_MAX_B = 8;   // the widest query block of the GEMV path
 constexpr int VTHREADS = 256;
 constexpr int VUNROLL = 8;      // 16-byte loads in flight per lane
 
+// The BQ query rows (rows past b as zeros) into shared memory, by a block of
+// VTHREADS.
 template <typename T, bool I8DOT, int BQ>
 __global__ void __launch_bounds__(VTHREADS)
     gemv_score_kernel(const void* __restrict__ q_raw, const float* __restrict__ q_scale,
@@ -721,9 +777,10 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// One block per (tile, query row): the stable top-k of the tile's tile_n
-// scores, positions past the corpus reading -inf.  Writes (tiles, B, k)
-// values and corpus positions.
+// The kept pair's select (knn_tile_select), for tiles wider than the fused
+// kernel holds: one block per (tile, query row), the stable top-k of the
+// tile's tile_n scores from the (B, N) scratch, positions past the corpus
+// reading -inf.  Writes (B, tiles, k) values and corpus positions.
 __global__ void __launch_bounds__(256)
     tile_select_kernel(const float* __restrict__ scores, float* __restrict__ out_vals,
                        int* __restrict__ out_pos, uint32_t* pair_key, int* pair_pos,
@@ -733,7 +790,7 @@ __global__ void __launch_bounds__(256)
   const long long base = static_cast<long long>(blockIdx.x) * tile_n;
   const float* row = scores + static_cast<size_t>(blockIdx.y) * n + base;
   const long long valid = n - base < tile_n ? n - base : tile_n;
-  const size_t o = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
+  const size_t o = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   uint32_t* ck = pair_key ? pair_key + o * kp : pairs;
   int* cpos = pair_key ? pair_pos + o * kp : reinterpret_cast<int*>(pairs + kp);
   repro::block_topk(repro::RowKeys{row, valid}, tile_n, k, kp, ck, cpos, sh);
@@ -742,6 +799,296 @@ __global__ void __launch_bounds__(256)
     out_vals[o * k + r] = p < valid ? row[p] : -INFINITY;
     out_pos[o * k + r] = static_cast<int>(base + p);
   }
+}
+
+// ----------------------------------------- the fused tile stage: score and select
+// knn_tile_topk: the stable top k_eff of every tile_n tile of the masked
+// scores, written as (B, tiles, k_eff) values and corpus positions; no (B,
+// N) score leaves the chip.
+// The widest tile the fused kernel takes: the build passes the wrapper's
+// shape rule (kernels/_build.py FUSED_MAX_TILE) so that one constant owns it.
+#ifndef REPRO_FUSED_MAX_TILE
+#error "REPRO_FUSED_MAX_TILE is set by kernels/_build.py"
+#endif
+constexpr int FUSED_MAX_TILE = REPRO_FUSED_MAX_TILE;
+static_assert(FUSED_MAX_TILE <= 16 * GN, "a cluster holds at most 16 blocks (non-portable size)");
+constexpr int KLD = GN + 8;  // key row stride in words: the epilogue's stores of 4 rows x 8
+                             // consecutive columns hit 32 distinct banks
+constexpr size_t TILE_EPI_BYTES =
+    static_cast<size_t>(GM) * KLD * 4 + GM * GN + (GTHREADS / 32) * GN * 4;
+static_assert(TILE_EPI_BYTES <= GRING_BYTES, "the tile epilogue must fit the dead ring");
+
+// A warp's 256 (key, slot) pairs, lane l holding elements 8l .. 8l+7, sorted
+// into runs of 2^lseg (<= 256) elements, each run in the stable top-k order
+// (key descending, slot ascending; slots are distinct).  A bitonic network:
+// strides under 8 compare within a lane's registers, wider ones swap
+// through shuffles; runs that are not the last level alternate direction.
+__device__ __forceinline__ void warp_sort256(uint32_t (&k)[8], int (&p)[8], int lseg) {
+  const int lane = threadIdx.x & 31;
+  const int seg = 1 << lseg;
+#pragma unroll
+  for (int size = 2; size <= GN; size <<= 1) {
+    if (size > seg) break;
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 8) {
+        const int ls = stride >> 3;
+        const bool lower = (lane & ls) == 0;
+        const bool desc = size == seg || ((8 * lane) & size) == 0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t ok = __shfl_xor_sync(0xffffffffu, k[e], ls);
+          const int op = __shfl_xor_sync(0xffffffffu, p[e], ls);
+          const bool other_first = repro::key_before(ok, op, k[e], p[e]);
+          if (other_first == (lower == desc)) {
+            k[e] = ok;
+            p[e] = op;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (e & stride) continue;
+          const int f = e | stride;
+          const bool desc = size == seg || ((8 * lane + e) & size) == 0;
+          if (repro::key_before(k[f], p[f], k[e], p[e]) == desc) {
+            const uint32_t tk = k[e];
+            k[e] = k[f];
+            k[f] = tk;
+            const int tp = p[e];
+            p[e] = p[f];
+            p[f] = tp;
+          }
+        }
+      }
+    }
+  }
+}
+
+// How many keys of a descending run of GN come before `key`: those above
+// it, and those equal to it too when `ge` (the run holds lower positions).
+__device__ __forceinline__ int count_before(const uint32_t* run, uint32_t key, bool ge) {
+  int pos = 0;
+#pragma unroll
+  for (int step = GN / 2; step > 0; step >>= 1) {
+    const uint32_t x = run[pos + step - 1];
+    if (x > key || (ge && x == key)) pos += step;
+  }
+  const uint32_t x = run[GN - 1];
+  if (pos == GN - 1 && (x > key || (ge && x == key))) pos = GN;
+  return pos;
+}
+
+// B > 8: the GEMM's main loop (gemm_units), one 64-query x 256-document unit
+// a block, then a new epilogue in the dead ring.  Bound: the f32 operations,
+// 2 B N Dp at 67 TFLOP/s, as knn_score; what the select adds is issue slots
+// beside the FFMA of the SM's other block.  The unit's masked keys go to
+// shared memory; a warp sorts each query row's 256 (key, slot) pairs in
+// registers (warp_sort256), so no row takes a block-wide barrier.
+//   * tile_n <= 256: the block holds 256 / seg whole tiles (seg the power of
+//     two >= tile_n), each tile's columns at its own run of seg slots; the
+//     slots past tile_n read key 0, below every score's key, and sort last.
+//     Each run is a tile's answer.
+//   * tile_n > 256: a tile spans a cluster of ceil(tile_n / 256) blocks along
+//     the documents (2 at the fp32 tile of 512, 16 at 4096).  Each block
+//     sorts its own run per row; after cluster.sync() an element's rank in
+//     the tile is its rank in its own run plus, for every other block's run
+//     (copied through distributed shared memory to the warp), the keys
+//     before it (binary search): equal keys of a lower block come first, as
+//     their positions are lower.  Ranks under k_eff are written out.
+// Rows past b are neither sorted nor written; positions past n read -inf.
+template <typename T, bool I8DOT>
+__global__ void __launch_bounds__(GTHREADS, 2)
+    gemm_tile_kernel(const void* __restrict__ q_raw, const float* __restrict__ q_scale,
+                     const T* __restrict__ docs, const int* __restrict__ ids,
+                     const float* __restrict__ dscale, float* __restrict__ out_vals,
+                     int* __restrict__ out_pos, int b, long long n, int dp, int tile_n,
+                     int lseg, int clus, int k_eff, long long tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int seg = 1 << lseg;
+  const int per_blk = clus > 1 ? 1 : GN / seg;  // whole tiles a block holds
+  const int rank = clus > 1 ? static_cast<int>(blockIdx.x % clus) : 0;
+  const long long tile0 =
+      clus > 1 ? blockIdx.x / clus : static_cast<long long>(blockIdx.x) * per_blk;
+  const long long n0 = tile0 * tile_n + static_cast<long long>(rank) * GN;
+  const int m0 = blockIdx.y * GM;
+  // the unit's columns that belong to a tile (the rest were computed and
+  // are dropped)
+  const int vcols = clus > 1 ? min(GN, tile_n - rank * GN) : per_blk * tile_n;
+  gemm_units<T, I8DOT>(
+      q_raw, docs, b, n, dp, 1, smem,
+      [&](long long, int& m, long long& c) {
+        m = m0;
+        c = n0;
+      },
+      [&](auto& acc, int, long long) {
+        cp_async_wait<0>();
+        __syncthreads();  // every warp is done with the ring
+        uint32_t* K = reinterpret_cast<uint32_t*>(smem);       // (GM, KLD) keys
+        uint8_t* P = smem + static_cast<size_t>(GM) * KLD * 4;  // (GM, GN) slots
+        uint32_t* W = reinterpret_cast<uint32_t*>(P + GM * GN);  // a run per warp
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        const int qrow = gemm_qrow(), dcol = gemm_dcol();
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) {
+          const int cc = dcol + 8 * j;
+          if (cc >= vcols) continue;
+          int slot = cc;
+          if (clus == 1) {
+            const int t = cc / tile_n;
+            slot = t * seg + (cc - t * tile_n);
+          }
+          // the column's id and scale read once for its 8 rows
+          const long long g = n0 + cc;
+          const bool live = g < n && ids[g] >= 0;
+          const float sc = live && dscale ? dscale[g] : 1.0f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int m = qrow + 4 * i;
+            float s = -INFINITY;
+            if (live && m0 + m < b) s = scaled_score<I8DOT>(acc[i][j], q_scale, m0 + m, sc);
+            K[m * KLD + slot] = float_key(s);
+          }
+        }
+        __syncthreads();
+        for (int r = warp; r < GM && m0 + r < b; r += GTHREADS / 32) {
+          uint32_t k[8];
+          int p[8];
+          const uint4* src = reinterpret_cast<const uint4*>(K + r * KLD + 8 * lane);
+          const uint4 x0 = src[0], x1 = src[1];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            k[e] = word(x0, e);
+            k[e + 4] = word(x1, e);
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            p[e] = 8 * lane + e;
+            const bool real = clus > 1 ? p[e] < vcols : (p[e] & (seg - 1)) < tile_n;
+            if (!real) k[e] = 0u;
+          }
+          warp_sort256(k, p, lseg);
+          uint4* dst = reinterpret_cast<uint4*>(K + r * KLD + 8 * lane);
+          dst[0] = make_uint4(k[0], k[1], k[2], k[3]);
+          dst[1] = make_uint4(k[4], k[5], k[6], k[7]);
+          uint2 ps;
+          ps.x = static_cast<unsigned>(p[0] | (p[1] << 8) | (p[2] << 16) | (p[3] << 24));
+          ps.y = static_cast<unsigned>(p[4] | (p[5] << 8) | (p[6] << 16) | (p[7] << 24));
+          reinterpret_cast<uint2*>(P + r * GN)[lane] = ps;
+          __syncwarp();
+          if (clus > 1) continue;
+          // one block holds whole tiles: each run is a tile's answer
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int i = lane + 32 * e;
+            const int t = i >> lseg, rk = i & (seg - 1);
+            const long long tile = tile0 + t;
+            if (rk < k_eff && tile < tiles) {
+              const size_t o = (static_cast<size_t>(m0 + r) * tiles + tile) * k_eff + rk;
+              out_vals[o] = key_float(K[r * KLD + i]);
+              out_pos[o] = static_cast<int>(tile * tile_n + (P[r * GN + i] - t * seg));
+            }
+          }
+        }
+        if (clus == 1) return;
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();  // every block's runs are sorted
+        // the warp's jobs: (row, other block) in order, each copying that
+        // block's run of the row to the warp's buffer while the next job's
+        // run is already loading from distributed shared memory
+        uint32_t* w = W + warp * GN;
+        const int others = clus - 1;
+        const int live_rows = min(GM, b - m0);
+        const int jobs = (live_rows > warp ? (live_rows - warp + 3) / 4 : 0) * others;
+        uint4 a0 = make_uint4(0u, 0u, 0u, 0u), a1 = a0;
+        auto fetch = [&](int job) {
+          const int r = warp + 4 * (job / others), t = job % others;
+          const uint4* rk = reinterpret_cast<const uint4*>(
+              cluster.map_shared_rank(K, static_cast<unsigned>(t + (t >= rank))) + r * KLD);
+          a0 = rk[2 * lane];
+          a1 = rk[2 * lane + 1];
+        };
+        if (jobs > 0) fetch(0);
+        uint32_t mk[8];
+        int cnt[8];
+        for (int job = 0; job < jobs; ++job) {
+          const int r = warp + 4 * (job / others), t = job % others;
+          if (t == 0) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              mk[e] = K[r * KLD + lane + 32 * e];
+              cnt[e] = 0;
+            }
+          }
+          __syncwarp();
+          reinterpret_cast<uint4*>(w)[2 * lane] = a0;
+          reinterpret_cast<uint4*>(w)[2 * lane + 1] = a1;
+          __syncwarp();
+          if (job + 1 < jobs) fetch(job + 1);
+          const bool lower = t < rank;  // the other block holds lower positions
+#pragma unroll
+          for (int e = 0; e < 8; ++e) cnt[e] += count_before(w, mk[e], lower);
+          if (t < others - 1) continue;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int i = lane + 32 * e, f = i + cnt[e];
+            if (f < k_eff && mk[e] != 0u) {
+              const size_t o = (static_cast<size_t>(m0 + r) * tiles + tile0) * k_eff + f;
+              out_vals[o] = key_float(mk[e]);
+              out_pos[o] = static_cast<int>(n0 + P[r * GN + i]);
+            }
+          }
+        }
+        cluster.sync();  // no block leaves while another reads its runs
+      });
+}
+
+template <typename T, bool I8DOT>
+cudaError_t launch_tile(const void* q, const void* q_scale, const void* docs, const void* ids,
+                        const void* dscale, void* vals, void* pos, int b, long long n, int dp,
+                        int tile_n, int k_eff, cudaStream_t st) {
+  const long long tiles = (n + tile_n - 1) / tile_n;
+  auto kern = gemm_tile_kernel<T, I8DOT>;
+  const size_t smem = GRING_BYTES;
+  cudaError_t err = repro::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  int lseg = 0;
+  while ((1 << lseg) < tile_n && lseg < 8) ++lseg;
+  const int clus = tile_n > GN ? (tile_n + GN - 1) / GN : 1;
+  const unsigned qtiles = static_cast<unsigned>((b + GM - 1) / GM);
+  const float* qs = static_cast<const float*>(q_scale);
+  const T* d = static_cast<const T*>(docs);
+  const int* id = static_cast<const int*>(ids);
+  const float* ds = static_cast<const float*>(dscale);
+  float* v = static_cast<float*>(vals);
+  int* p = static_cast<int*>(pos);
+  if (clus == 1) {
+    const long long per_blk = GN >> lseg;
+    const dim3 grid(static_cast<unsigned>((tiles + per_blk - 1) / per_blk), qtiles);
+    kern<<<grid, GTHREADS, smem, st>>>(q, qs, d, id, ds, v, p, b, n, dp, tile_n, lseg, 1, k_eff,
+                                       tiles);
+    return cudaGetLastError();
+  }
+  if (clus > 8) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * clus), qtiles);
+  cfg.blockDim = dim3(GTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(clus);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, q, qs, d, id, ds, v, p, b, n, dp, tile_n, lseg, clus,
+                           k_eff, tiles);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -767,6 +1114,37 @@ extern "C" int knn_score(const void* q, const void* q_scale, const void* docs,
     case repro::kI8:
       return launch_score<int8_t, false>(q, q_scale, docs, ids, dscale, scores, b, n, dp, gemv,
                                          st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The fused tile stage: (b, tiles, k_eff) values and positions of the stable
+// top k_eff of every tile_n tile (tile_n <= FUSED_MAX_TILE).
+extern "C" int knn_tile_topk(const void* q, const void* q_scale, const void* docs,
+                             const void* ids, const void* dscale, void* out_vals, void* out_pos,
+                             int b, long long n, int dp, int store, int int8_dot, int tile_n,
+                             int k_eff, void* stream) {
+  if (b == 0 || n == 0) return 0;
+  if (dp % 32 != 0 || b > 65535 || tile_n < 1 ||
+      tile_n > FUSED_MAX_TILE || k_eff < 1 || k_eff > tile_n ||
+      n + tile_n >= static_cast<long long>(INT_MAX))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int8_dot) {
+    if (store != repro::kI8) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tile<int8_t, true>(q, q_scale, docs, ids, dscale, out_vals, out_pos, b, n, dp,
+                                     tile_n, k_eff, st);
+  }
+  switch (store) {
+    case repro::kF32:
+      return launch_tile<float, false>(q, q_scale, docs, ids, dscale, out_vals, out_pos, b, n,
+                                       dp, tile_n, k_eff, st);
+    case repro::kBF16:
+      return launch_tile<__nv_bfloat16, false>(q, q_scale, docs, ids, dscale, out_vals, out_pos,
+                                               b, n, dp, tile_n, k_eff, st);
+    case repro::kI8:
+      return launch_tile<int8_t, false>(q, q_scale, docs, ids, dscale, out_vals, out_pos, b, n,
+                                        dp, tile_n, k_eff, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,8 @@
-// Block-wide exact top-k in the stable order, shared by the two-stage tile
-// select (knn.cu knn_tile_select) and the cache wave's query
-// (cache_wave.cu); the kNN select (knn.cu knn_select) sorts its candidates
-// with the same bitonic sort (sort_pairs).
+// Block-wide exact top-k in the stable order, shared by the two-stage
+// scan's kept tile select (knn.cu tile_select_kernel) and the cache wave's
+// query (cache_wave.cu); the kNN select (knn.cu knn_select) sorts its
+// candidates with the same bitonic sort (sort_pairs), and the fused tile
+// kernel (knn.cu gemm_tile_kernel) uses the same order (key_before).
 //
 // One block selects the k largest of n order-preserving uint32 keys
 // (repro::float_key) and writes them in the stable top-k order — key

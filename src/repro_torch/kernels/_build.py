@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -DREPRO_FUSED_MAX_TILE=4096 \\
+         -o build/repro_torch/lib<name>-<hash>.so <name>.cu
 
 keyed by a hash of the source (and the shared header) plus the flags, so an
 edited kernel rebuilds and an unchanged one is reused.  ``build_all`` starts
@@ -16,8 +17,9 @@ Every C entry point takes device pointers and the CUDA stream as
 or ``c_longlong``, floats as ``c_float``, launches on the given stream and
 returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 
-The two block selects of ``csrc/select.cuh`` (two-stage tile, cache wave
-query) keep their (key, position) survivors in shared memory up to
+The two block selects of ``csrc/select.cuh`` that take any k (the
+two-stage scan's kept tile select, the cache wave's query) keep their
+(key, position) survivors in shared memory up to
 ``SMEM_PAIRS`` pairs and in a global scratch buffer beyond;
 ``pair_scratch`` makes that choice for both wrappers.  The kNN select sorts
 its candidates in shared memory up to ``SMEM_PAIRS`` pairs too, and in its
@@ -37,14 +39,12 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "STORE",
-           "SMEM_PAIRS", "nvcc_path", "library_path", "build_all",
-           "function", "check", "stream_of", "pair_scratch"]
+           "SMEM_PAIRS", "FUSED_MAX_TILE", "nvcc_path", "library_path",
+           "build_all", "function", "check", "stream_of", "pair_scratch"]
 
 SOURCES = ("cache_probe", "knn", "cache_wave", "embedding_bag")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # storage codes of the C entry points (csrc/common.cuh ``repro::Store``)
 STORE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -52,6 +52,15 @@ STORE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # survivors of a block select held in shared memory (8 B each: 128 KB of
 # the 227 KB a Hopper block may opt into)
 SMEM_PAIRS = 16384
+
+# the widest tile of the two-stage scan that the fused tile kernel takes (a
+# thread-block cluster of 16 blocks of 256 documents); ``csrc/knn.cu`` gets
+# it as ``REPRO_FUSED_MAX_TILE`` and ``kernels/knn/ops.py`` keeps the
+# score + tile-select pair for wider tiles
+FUSED_MAX_TILE = 4096
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              f"-DREPRO_FUSED_MAX_TILE={FUSED_MAX_TILE}")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

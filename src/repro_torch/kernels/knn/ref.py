@@ -9,9 +9,9 @@ holds, and blocks aligned to the search's chunks (``ops.chunk_rows``, a
 multiple of the block) make a chunked search equal the unchunked one bit
 for bit.  ``score`` is the
 plain version of the score kernel, ``select`` of the select kernel,
-``search`` of the fused op and ``tile_topk`` of the two-stage scan's
-per-tile stage.  ``merge_tiles`` is the two-stage merge itself, which
-runs in the wrapper on either device.
+``search`` of the fused op, ``tile_topk`` of the two-stage scan's tile
+kernel and ``merge_tiles`` of its merge (``ops.merge_tiles``, which
+selects through ``knn_select``).
 """
 
 from __future__ import annotations
@@ -63,7 +63,8 @@ def search(docs, doc_ids, queries, k, scale=None, q_scale=None):
 def tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int, scale=None,
               q_scale=None):
     """Per-tile stable top ``k_eff`` over the scores padded with -inf to a
-    ``tile_n`` multiple: (vals, positions), each (tiles, B, k_eff)."""
+    ``tile_n`` multiple: (vals, positions), each the (tiles, B, k_eff) view
+    of a (B, tiles, k_eff) buffer, as the kernel returns them."""
     s = score(docs, doc_ids, queries, scale, q_scale)
     b, n = s.shape
     tiles = -(-n // tile_n)
@@ -71,9 +72,9 @@ def tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int, scale=None,
                                 value=float("-inf")).view(b, tiles, tile_n)
     vals, pos = torch.sort(s, dim=2, descending=True, stable=True)
     base = torch.arange(tiles, device=s.device)[None, :, None] * tile_n
-    pos = pos[..., :k_eff] + base
-    return (vals[..., :k_eff].permute(1, 0, 2).contiguous(),
-            pos.permute(1, 0, 2).to(torch.int32).contiguous())
+    pos = (pos[..., :k_eff] + base).to(torch.int32)
+    return (vals[..., :k_eff].contiguous().permute(1, 0, 2),
+            pos.contiguous().permute(1, 0, 2))
 
 
 def merge_tiles(vals: torch.Tensor, pos: torch.Tensor, doc_ids: torch.Tensor,

@@ -58,24 +58,49 @@ def _check_ranks(v, i, ri, tol, what):
     dead = np.isneginf(v)
     if not (np.all(i[dead] == -1) and np.all(ri[dead] == -1)):
         raise AssertionError(f"{what}: a -inf result carries a real id")
-    for r in range(v.shape[0]):
-        row, k = v[r], v.shape[1]
-        start = 0
-        while start < k:
-            end = start + 1
-            while end < k and (row[end - 1] - row[end] <= tol
-                               or (np.isneginf(row[end - 1])
-                                   and np.isneginf(row[end]))):
-                end += 1
-            a, b = i[r, start:end], ri[r, start:end]
-            if end == start + 1:
-                ok = a[0] == b[0]
-            elif end == k:
-                ok = True           # a tied run cut by the k boundary
-            else:
-                ok = sorted(a.tolist()) == sorted(b.tolist())
-            if not ok:
-                raise AssertionError(
-                    f"{what}: row {r} ranks {start}:{end} ids {a.tolist()} "
-                    f"!= {b.tolist()}")
-            start = end
+    rows, k = v.shape
+    if rows == 0 or k == 0:
+        return
+    # each rank's run: a run goes on while the gap to the rank before is
+    # within tol, or both are -inf
+    joined = (v[:, :-1] - v[:, 1:] <= tol) | (dead[:, :-1] & dead[:, 1:])
+    run = np.zeros((rows, k), dtype=np.int64)
+    run[:, 1:] = np.cumsum(~joined, axis=1)
+    # the run reaching rank k is free when it holds more than one rank
+    last = run == run[:, -1:]
+    free = last & (last.sum(axis=1) > 1)[:, None]
+    # runs compared as sets: ids sorted within each run
+    lo = min(int(i.min()), int(ri.min()))
+    span = max(int(i.max()), int(ri.max())) - lo + 1
+    mine = np.where(free, -1, run * span + (i.astype(np.int64) - lo))
+    want = np.where(free, -1, run * span + (ri.astype(np.int64) - lo))
+    bad = np.flatnonzero(np.any(np.sort(mine, axis=1)
+                                != np.sort(want, axis=1), axis=1))
+    if bad.size:
+        _row_ranks(v[bad[0]], i[bad[0]], ri[bad[0]], tol, f"{what}: row "
+                   f"{bad[0]}")
+        raise AssertionError(f"{what}: row {bad[0]} ranks differ")
+
+
+def _row_ranks(row, i, ri, tol, what):
+    """One row's runs in order, raising at the first that differs."""
+    k = row.shape[0]
+    start = 0
+    while start < k:
+        end = start + 1
+        while end < k and (row[end - 1] - row[end] <= tol
+                           or (np.isneginf(row[end - 1])
+                               and np.isneginf(row[end]))):
+            end += 1
+        a, b = i[start:end], ri[start:end]
+        if end == start + 1:
+            ok = a[0] == b[0]
+        elif end == k:
+            ok = True           # a tied run cut by the k boundary
+        else:
+            ok = sorted(a.tolist()) == sorted(b.tolist())
+        if not ok:
+            raise AssertionError(
+                f"{what} ranks {start}:{end} ids {a.tolist()} "
+                f"!= {b.tolist()}")
+        start = end

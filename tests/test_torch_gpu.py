@@ -592,7 +592,7 @@ def test_tile_topk_kernel_matches_plain(card, dtype, i8, tile_n, k):
                               int8_dot=i8, tile_n=tile_n, two_stage=True)
     c = dispatch.counters()
     assert (c["knn_score"].launches, c["knn_tile_topk"].launches,
-            c["knn_select"].launches) == (1, 1, 0)
+            c["knn_select"].launches) == (0, 1, 1)
     qq, qs = tc.pad_features(q, 800), None
     if i8:
         qqc = quant.quantize(qq, "int8")
@@ -610,14 +610,157 @@ def test_tile_topk_kernel_matches_plain(card, dtype, i8, tile_n, k):
 
 
 def test_tile_topk_pairs_in_global_scratch(card, monkeypatch):
+    """The kept pair's tile select (tiles wider than the fused kernel takes)
+    with its survivors in global scratch."""
     from repro_torch.kernels import _build
     monkeypatch.setattr(_build, "SMEM_PAIRS", 32)
     docs, ids = _knn_corpus(card, 5003, n_sentinels=7)
-    q = _unit(4, DIM, gen=card)
-    vk, pk = knn_ops.knn_tile_topk(docs, ids, tc.pad_features(q, 800), 100,
-                                   512)
-    vr, pr = knn_ref.tile_topk(docs, ids, tc.pad_features(q, 800), 100, 512)
+    q = tc.pad_features(_unit(4, DIM, gen=card), 800)
+    vk, pk = knn_ops.knn_tile_select(knn_ops.knn_score(docs, ids, q), 100,
+                                     512)
+    vr, pr = knn_ref.tile_topk(docs, ids, q, 100, 512)
     _tile_agree(vk, pk, vr, pr, "tiles, global pairs")
+
+
+def _ref_tiles(docs, ids, q, k_eff, tile_n, scale=None, q_scale=None):
+    """The plain tile stage, and beside it each (tile, row)'s next rank
+    (the ``k_eff + 1``-th) when ``k_eff < tile_n``: a kernel may cut a run
+    tied within the tolerance at the k_eff boundary elsewhere."""
+    if k_eff == tile_n:
+        return (*knn_ref.tile_topk(docs, ids, q, k_eff, tile_n, scale,
+                                   q_scale), None)
+    vr, pr = knn_ref.tile_topk(docs, ids, q, k_eff + 1, tile_n, scale,
+                               q_scale)
+    return vr[..., :-1], pr[..., :-1], (vr[..., -1:], pr[..., -1:])
+
+
+def _tile_agree_cut(vals, pos, rv, rp, nxt, what):
+    """``_tile_agree`` with the plain version's next rank appended to both
+    sides (as ``test_searcher_on_card_matches_cpu`` does for its answers)."""
+    if nxt is not None:
+        vals, rv = (torch.cat([x, nxt[0]], dim=2) for x in (vals, rv))
+        pos, rp = (torch.cat([x, nxt[1]], dim=2) for x in (pos, rp))
+    _tile_agree(vals, pos, rv, rp, what)
+
+
+def _tie_corpus(gen, n):
+    """``_knn_corpus`` with exact ties inside a tile too (rows 17, 18, 19 and
+    40) and across tiles (n // 3, 600), and query 0 on them."""
+    docs, ids = _knn_corpus(gen, n, n_sentinels=25)
+    tied = [17, 18, 19, 40, 600, n // 3]
+    docs[tied] = docs[17].clone()
+    ids[tied] = torch.tensor(tied, dtype=torch.int32, device="cuda") + 5
+    return docs, ids
+
+
+@pytest.mark.parametrize("b", [1, 9, 70])
+@pytest.mark.parametrize("tile_n", [16, 100, 256, 512, 1024, 2048, 4096,
+                                    8192])
+@pytest.mark.parametrize("part", [False, True])
+def test_fused_tile_topk_matches_plain(card, b, tile_n, part):
+    """The fused tile kernel at every cluster size (tiles of 512 .. 4096
+    span 2 .. 16 blocks), the narrow tiles (16 and 100: whole tiles a
+    block) and the kept pair (8192), at k_eff = tile_n and below it, with
+    ties and a tile past N; one query row, one partial 64-query tile and
+    two (B = 8 and 64 in ``test_two_stage_search_fused_dtypes``)."""
+    n = 20011
+    docs, ids = _tie_corpus(card, n)
+    q = tc.pad_features(_unit(b, DIM, gen=card), 800)
+    q[0, :DIM] = docs[17, :DIM]
+    k_eff = tile_n // 3 + 1 if part else tile_n
+    dispatch.reset_counters()
+    vk, pk = knn_ops.knn_tile_topk(docs, ids, q, k_eff, tile_n)
+    c = dispatch.counters()
+    kept = tile_n > knn_ops.FUSED_MAX_TILE
+    assert (c["knn_tile_topk"].launches, c["knn_score"].launches,
+            c["knn_tile_select"].launches) == ((0, 1, 1) if kept
+                                               else (1, 0, 0))
+    tiles = -(-n // tile_n)
+    assert vk.shape == pk.shape == (tiles, b, k_eff)
+    vr, pr, nxt = _ref_tiles(docs, ids, q, k_eff, tile_n)
+    _tile_agree_cut(vk, pk, vr, pr, nxt, f"fused tiles b={b} tile_n={tile_n}")
+    # the tied rows lead query 0's first tile in position order
+    if tile_n >= 64 and k_eff >= 4:
+        assert pk[0, 0, :4].tolist() == [17, 18, 19, 40]
+
+
+@pytest.mark.parametrize("dtype,i8", [("fp32", False), ("bf16", False),
+                                      ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("tile_n", [100, 512, 4096])
+@pytest.mark.parametrize("b", [8, 64])
+def test_two_stage_search_fused_dtypes(card, dtype, i8, tile_n, b):
+    """``knn_search(two_stage=True)`` under every dtype and int8-dot: one
+    fused tile launch and one select launch, no score launch; the tile
+    stage and the answer equal the plain two-stage version."""
+    n, k = 20011, 300
+    docs, ids = _tie_corpus(card, n)
+    qc = quant.quantize(docs, dtype)
+    q = _unit(b, DIM, gen=card)
+    dispatch.reset_counters()
+    v, i = knn_ops.knn_search(qc.data, ids, q, k, scale=qc.scale,
+                              int8_dot=i8, tile_n=tile_n, two_stage=True)
+    c = dispatch.counters()
+    assert (c["knn_tile_topk"].launches, c["knn_select"].launches,
+            c["knn_score"].launches) == (1, 1, 0)
+    qq, qs = tc.pad_features(q, 800), None
+    if i8:
+        qqc = quant.quantize(qq, "int8")
+        qq, qs = qqc.data, qqc.scale
+    k_eff = min(k, tile_n)
+    vk, pk = knn_ops.knn_tile_topk(qc.data, ids, qq, k_eff, tile_n, qc.scale,
+                                   qs)
+    vr, pr, nxt = _ref_tiles(qc.data, ids, qq, k_eff, tile_n, qc.scale, qs)
+    _tile_agree_cut(vk, pk, vr, pr, nxt,
+                    f"tiles {dtype} i8={i8} tile_n={tile_n}")
+    rv, ri = knn_ref.merge_tiles(vr, pr, ids, k)
+    assert_topk_agree(v, i, rv, ri, TOL, f"two-stage {dtype} i8={i8}")
+
+
+def test_merge_tiles_through_select_equals_plain(card):
+    """The merge through ``knn_select`` equals the plain stable sort bit for
+    bit: ties across tiles, -inf runs, positions past N."""
+    tiles, b, ke, n = 40, 5, 64, 2500
+    vals = torch.randn(tiles, b, ke, generator=card, device="cuda")
+    vals[3:9, :, 10:20] = 0.5                   # one value in six tiles
+    vals[:, 1, 30:] = float("-inf")
+    vals[20:, 2] = float("-inf")
+    vals = torch.sort(vals, dim=2, descending=True).values
+    pos = torch.randint(0, 2600, (tiles, b, ke), generator=card,
+                        device="cuda", dtype=torch.int32)
+    ids = torch.arange(n, dtype=torch.int32, device="cuda") + 7
+    ids[::11] = -1
+    for k in (1, 100, 700):
+        got = knn_ops.merge_tiles(vals, pos, ids, k)
+        want = knn_ref.merge_tiles(vals, pos, ids, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_two_stage_allocates_no_score_matrix(card):
+    """The fused tile stage at B = 64 allocates its two outputs and nothing
+    else, far below one (B, N) f32 score matrix; the whole two-stage search
+    (k_eff = tile_n) holds the candidates and the merge's scratch, and no
+    score matrix beside them."""
+    n, b, tile_n, k_eff, k = 200_003, 64, 512, 100, 1000
+    docs, ids = _knn_corpus(card, n, n_sentinels=5)
+    q = tc.pad_features(_unit(b, DIM, gen=card), 800)
+    knn_ops.knn_tile_topk(docs, ids, q, k_eff, tile_n)      # built, warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vk, pk = knn_ops.knn_tile_topk(docs, ids, q, k_eff, tile_n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    outs = 8 * b * -(-n // tile_n) * k_eff
+    assert peak <= outs + (1 << 20) < 4 * b * n
+    del vk, pk
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    knn_ops.knn_search(docs, ids, q, k, tile_n=tile_n, two_stage=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    cands = -(-n // tile_n) * min(k, tile_n)
+    assert peak <= b * (8 * cands + 4 * knn_ops._select_words(cands, k)[2]) \
+        + 4 * cands + 16 * b * k + (4 << 20)
 
 
 @pytest.mark.parametrize("policy", ["dynamic", "static", "none"])
@@ -830,8 +973,9 @@ def test_knn_search_in_chunks_equals_unchunked(card, monkeypatch, dtype, i8,
     dispatch.reset_counters()
     parts = knn_ops.knn_search(qc.data, ids, q, k, **kw)
     c = dispatch.counters()
-    assert c["knn_score"].launches == 3
-    assert c["knn_tile_topk" if two_stage else "knn_select"].launches == 3
+    assert c["knn_select"].launches == 3
+    assert c["knn_tile_topk" if two_stage else "knn_score"].launches == 3
+    assert c["knn_score" if two_stage else "knn_tile_topk"].launches == 0
     assert torch.equal(parts[0], whole[0]) and torch.equal(parts[1], whole[1])
     # the tail alone, as a search of its own, takes the GEMV path: its rows
     # then need only agree by the tolerance

@@ -120,12 +120,12 @@ def test_two_stage_search_chunks_too(world, monkeypatch, dtype, int8_dot):
     n = ix.doc_emb.shape[0]
     monkeypatch.setattr(knn_ops, "SCRATCH_BUDGET", 64 * 4 * n)
     merged = []
-    merge = knn_ops.ref.merge_tiles
+    merge = knn_ops.merge_tiles
 
     def recorded(vals, pos, doc_ids, k):
         merged.append(vals.shape[1])
         return merge(vals, pos, doc_ids, k)
-    monkeypatch.setattr(knn_ops.ref, "merge_tiles", recorded)
+    monkeypatch.setattr(knn_ops, "merge_tiles", recorded)
     parts = knn_ops.knn_search(ix.doc_emb, ix.doc_ids, q, K, **kw)
     assert merged == [64, 6]
     assert torch.equal(parts[0], whole[0]) and torch.equal(parts[1], whole[1])

@@ -3,7 +3,8 @@
 The same numpy corpus and queries go through JAX ``knn_search(two_stage=
 True)`` with its Pallas ``knn_tile_topk`` in interpret mode and through the
 port's ``knn_search(two_stage=True)`` on CPU tensors (``ref.tile_topk``,
-the plain version beside the CUDA tile select, then the shared merge).  Ids
+the plain version beside the fused CUDA tile kernel, then the merge
+through ``knn_select``).  Ids
 are equal; scores agree within 1e-6.
 
 Covered: a cluster of top documents packed into one tile with
@@ -84,8 +85,9 @@ def test_two_stage_matches_jax(dtype, int8_dot, k, tile_n):
     dispatch.reset_counters()
     port, ref = _both(data, scale, ids, q, k, tile_n, int8_dot)
     c = dispatch.counters()
-    assert (c["knn_score"].calls, c["knn_tile_topk"].calls) == (1, 1)
-    assert c["knn_select"].calls == 0
+    # the fused tile kernel, then the merge through the select
+    assert (c["knn_tile_topk"].calls, c["knn_select"].calls) == (1, 1)
+    assert c["knn_score"].calls == 0
     _assert_equal(port, ref)
     top = port[1].numpy()[0]
     assert not np.isin([105, 172, 327, 328, 329], port[1].numpy()).any()
