@@ -81,7 +81,34 @@ Run from the repository root.  Phases, each fatal on failure:
      the whole corpus, and the same engine on a small input answers as the
      CPU path does.  Prints each wave's bucket, the p50 of the probe and
      fill spans, and the serve's own peak device memory.
-  8. paper   — Algorithm 1 for one session: ``ConversationalSearcher(
+  8. tiered  — the tiered wave on the same corpus.  First, on the 60,000
+     world docs (one 16-cluster index built on the card), the tiered
+     engine on the card and on the CPU path answers alike: tiers, ids and
+     counters (promotions, memo serves, prefetch accounting).  Then the
+     ``ClusterIndex`` over the whole corpus (64 clusters, at most 10
+     Lloyd iterations, neighbour tables 256 wide), built twice,
+     bit-identical, with no second copy of the corpus; then
+     ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity
+     16000, shared=SharedTier(n_shards=4, capacity=8000, memo_sim=0.995,
+     cluster=...), cluster=..., prefetch_width=128)`` behind one
+     ``DeviceShard`` serves ``serve_bench.bench_zipf``'s traffic (3
+     generations of 64 sessions, each drawing a conversation with Zipf
+     alpha 1.1 and a 0.005 jitter on its raw queries, 10 turns) in fixed
+     rounds: every wave's launches as the tiered contract says (L1 probe,
+     the L2 probe when a row is left after the memo, the kNN pair, the
+     fused insert+query or the query, the L2 query when a row hits L2,
+     one insert per admission sub-wave), turns well formed, L2 serving
+     some, every miss turn the exact top-k, peak memory above the corpus
+     under 10 GB.  ``[chaos]``: ``serve_bench.bench_chaos`` at 8 sessions
+     x 10 rounds over 4 ``DeviceShard``s on row views of the corpus under
+     ``chaos_plan(4)``, with ``SharedTier(ttl_waves=3)`` and
+     ``validate_every=4``: no corrupt answer served, warm availability >=
+     0.99, a breaker opened and closed.  The kernels at the new shapes
+     (the assignment, the neighbour tables, the L2 probe and query, the
+     admission insert, the widened fill) against their plain versions,
+     timed beside ``torch.max(q @ C.T, 1)`` / ``torch.topk(q @ D.T,
+     256)`` where one call computes the same function.
+  9. paper   — Algorithm 1 for one session: ``ConversationalSearcher(
      MetricIndex(corpus), k=200, k_c=1000, epsilon=0.04, capacity=12000)``
      under the ``none``, ``static`` and ``dynamic`` policies over the 64
      conversations, with Table 1's columns (hit rate over turns 2-10,
@@ -91,13 +118,14 @@ Run from the repository root.  Phases, each fatal on failure:
      turn one probe and one cache query, per miss one kNN search and one
      insert.  First, on 8 conversations x 4 turns over the 60,000 world
      docs (k_c=100), the card answers as the CPU path does.
-  9. engine  — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
+  10. engine — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
      (corpus)])`` serves 8 conversations x 10 turns (k=10, k_c=1000) and
      agrees turn for turn with the dynamic searcher.
 
 ``--phases`` runs a subset (``probe,recsys,paper`` also drives the
 parent package, whose entries these phases share, for a comparison in one
-call).  Every path (recsys, ab, main, the three paper runs, engine) runs
+call).  Every path (recsys, ab, main, the cluster build, tiered, chaos,
+the three paper runs, engine) runs
 with the kernel
 counters zeroed just before it and read just after; each checks its own
 launch accounting, and the ``launches`` of the kernels line are their sums.
@@ -109,7 +137,10 @@ one session (every cache query and insert of [paper] and [engine]), timed
 with the stream's queue filled ahead so that the wrapper's host time
 between launches is not counted (the back-to-back time is printed
 beside it).  The two probe rows (``cache_probe``, ``probe_rhat``) are the
-decision ops, one launch each, timed the same way.
+decision ops, one launch each, timed the same way.  The ``*_assign``,
+``*_tables``, ``*_l2`` and ``wave_insert_query_wide`` rows are the kernels
+at the tiered path's shapes, with the launches of the cluster build and of
+``[tiered]`` made at those shapes.
 
 Tolerances (the kernels and the plain versions sum f32 dot products in
 different orders): scores and r_hat within 1e-5 and 1e-4 (r_hat takes a
@@ -173,8 +204,26 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 P99_CALLS = 51                     # the first is a warm-up, not in the stats
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
-PHASES = ("kernels", "probe", "recsys", "ab", "main", "paper", "engine")
+PHASES = ("kernels", "probe", "recsys", "ab", "main", "tiered", "paper",
+          "engine")
 XDEEPFM_CHUNK = 16_384
+# [tiered]: the L2 tier, the cluster index and the traffic of
+# serve_bench.bench_zipf; [chaos]: bench_chaos at 8 sessions x 10 rounds
+TIER_SHARDS, TIER_CAP, MEMO_SIM, PREFETCH_WIDTH = 4, 8000, 0.995, 128
+N_CLUSTERS, CLUSTER_ITERS, MAX_WIDTH = 64, 10, 256
+ASSIGN_CHUNK = 16_384         # corpus rows a k-means assignment scan
+GENERATIONS, ZIPF_ALPHA, ZIPF_JITTER = 3, 1.1, 0.005
+CHAOS_SESSIONS, CHAOS_ROUNDS, CHAOS_SEED = 8, 10, 23
+SEED = 0                      # --seed
+# the kernels again at the tiered path's shapes; their launches are those
+# of [tiered] (the assignment's and tables' those of the cluster build)
+TIER_ROWS = {"knn_score_assign": "knn_score", "knn_select_assign":
+             "knn_select", "knn_score_tables": "knn_score",
+             "knn_select_tables": "knn_select",
+             "cache_probe_l2": "cache_probe",
+             "wave_query_topk_l2": "wave_query_topk",
+             "wave_insert_scatter_l2": "wave_insert_scatter",
+             "wave_insert_query_wide": "wave_insert_query"}
 
 
 def log(msg: str) -> None:
@@ -255,7 +304,7 @@ class Report:
 
     def line(self, launches):
         out = []
-        again = {**B1_ROWS, **S1_ROWS}
+        again = {**B1_ROWS, **S1_ROWS, **TIER_ROWS}
         for name in (*KERNELS, *again):
             src, tpu = KERNELS[again.get(name, name)]
             out.append({"name": name, "route": "cuda", "source": SRC + src,
@@ -478,8 +527,9 @@ def probe_single_phase(torch, rep: Report, gen, timing):
 
 
 # ------------------------------------------------------------------- wave
-def wave_inputs(torch, tc, cfg, gen):
-    """A half-full stacked cache and one insert wave at serving shapes."""
+def wave_inputs(torch, tc, cfg, gen, kc=KC):
+    """A half-full stacked cache and one insert wave of ``kc`` rows a
+    session at serving shapes."""
     cp, dp = cfg.phys_capacity, cfg.phys_dim
     st = tc.init_batched_cache(cfg, S, DEV)
     n_docs = torch.randint(CAPACITY // 8, CAPACITY * 3 // 4, (S,),
@@ -500,13 +550,13 @@ def wave_inputs(torch, tc, cfg, gen):
                                      device=DEV, dtype=torch.int32))
     st.step.fill_(5)
     new = torch.nn.functional.normalize(torch.randn(
-        S, KC, cfg.dim, generator=gen, device=DEV), dim=2)
+        S, kc, cfg.dim, generator=gen, device=DEV), dim=2)
     emb_q, emb_scale = tc.store_rows(new, cfg.store_dtype)
-    keep = torch.rand(S, KC, generator=gen, device=DEV) < 0.7
+    keep = torch.rand(S, kc, generator=gen, device=DEV) < 0.7
     pos = n_docs[:, None] + torch.cumsum(keep.long(), 1) - 1
     pos = torch.where(keep & (pos < CAPACITY), pos,
                       torch.full_like(pos, cp)).to(torch.int32)
-    new_ids = (10 ** 7 + torch.arange(S * KC, device=DEV)).view(S, KC) \
+    new_ids = (10 ** 7 + torch.arange(S * kc, device=DEV)).view(S, kc) \
         .to(torch.int32)
     psi = torch.nn.functional.normalize(torch.randn(
         S, cfg.dim, generator=gen, device=DEV), dim=1)
@@ -1428,15 +1478,18 @@ def ab_phase(torch, rep: Report, corpus, streams):
     ms1 = timed(torch, lambda: knn_ops.knn_tile_topk(corpus, ids, qq[:1],
                                                      k_eff, tile_n), 3)
     gemv1 = timed(torch, lambda: knn_ops.knn_score(corpus, ids, qq[:1]), 3)
+    plain1 = timed(torch, lambda: knn_ref.tile_topk(corpus, ids, qq[:1],
+                                                    k_eff, tile_n), 2)
     torch.cuda.empty_cache()
 
-    def library():
-        s = torch.nn.functional.pad(torch.mm(qq, corpus.T),
+    def library(x):
+        s = torch.nn.functional.pad(torch.mm(x, corpus.T),
                                     (0, tiles * tile_n - n),
                                     value=float("-inf"))
-        return torch.topk(s.view(b, tiles, tile_n), k_eff, dim=2)
+        return torch.topk(s.view(x.shape[0], tiles, tile_n), k_eff, dim=2)
 
-    lib = timed(torch, library, 2)
+    lib = timed(torch, lambda: library(qq), 2)
+    lib1 = timed(torch, lambda: library(qq[:1]), 3)
     torch.cuda.empty_cache()
     # apart: the merge of the fused kernel's candidates through the select,
     # its plain version (a stable sort of every candidate) and torch.topk
@@ -1468,8 +1521,11 @@ def ab_phase(torch, rep: Report, corpus, streams):
         f"{merge_bound:.3f}, bytes; its plain stable sort {merge_plain:.3f}, "
         f"torch.topk over the same candidates {merge_lib:.3f}); the kept "
         f"pair knn_score {score_ms:.3f} + knn_tile_select {pair_ms:.3f} = "
-        f"{score_ms + pair_ms:.3f} ms; the fused tile kernel at B=1 "
-        f"{ms1:.3f} ms (the B=1 score alone {gemv1:.3f})")
+        f"{score_ms + pair_ms:.3f} ms (the same function as the fused "
+        f"kernel: plain {plain:.3f}, library {lib:.3f}); the fused tile "
+        f"kernel at B=1 {ms1:.3f} ms (the B=1 score alone {gemv1:.3f}; "
+        f"plain {plain1:.3f}, library topk(mm.view(1, tiles, {tile_n})) "
+        f"{lib1:.3f})")
     log(f"[ab] two-stage knn_search {search_ms:.3f} ms, the fused search "
         f"{fused_ms:.3f} ms on the same queries; peak device memory of the "
         f"two-stage search above the corpus {peak / 1e9:.3f} GB (its "
@@ -1639,6 +1695,581 @@ def main_phase(torch, corpus, streams):
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
     return launches
 
+
+# ------------------------------------------------------------ tiered wave
+def zipf_generation(torch, world, rng, n_sessions, jitter=ZIPF_JITTER):
+    """One generation of ``serve_bench.bench_zipf``'s traffic: each session
+    draws a conversation from Zipf(ZIPF_ALPHA) popularity and asks its
+    turns with a Gaussian jitter on the raw queries (numpy, from ``rng``);
+    returns each session's transformed stream (host f32)."""
+    import numpy as np
+
+    from repro_torch.core.embedding import transform_queries
+
+    convs = world.conversations
+    pop = np.arange(1, len(convs) + 1, dtype=np.float64) ** -ZIPF_ALPHA
+    pop /= pop.sum()
+    pick = rng.choice(len(convs), size=n_sessions, p=pop)
+    return [transform_queries(torch.as_tensor(
+        convs[c].queries + jitter * rng.standard_normal(
+            convs[c].queries.shape), dtype=torch.float32)).numpy()
+        for c in pick]
+
+
+def wave_kinds(torch, before, after, tiers, promoted):
+    """The launches of one tiered wave by kind, checked against the
+    contract: L1 probe, then the L2 probe when some row is left after the
+    memo, the kNN pair when some row needs the back end, the fused
+    insert+query when some row inserts (else the query), the L2 query when
+    some row hits L2, and one insert per admission sub-wave."""
+    got = {n: after.get(n, 0) - before.get(n, 0) for n in KERNELS}
+    residual = bool(tiers & {"l2", "backend"})
+    miss = "backend" in tiers
+    want = {n: 0 for n in KERNELS}
+    want.update(cache_probe=1 + residual, knn_score=int(miss),
+                knn_select=int(miss),
+                wave_insert_query=int(tiers != {"l1"}),
+                wave_query_topk=int(tiers == {"l1"}) + int("l2" in tiers))
+    flush = got["wave_insert_scatter"]
+    if (flush > 0) != (promoted > 0) or flush > promoted:
+        raise AssertionError(f"{flush} admission inserts for {promoted} "
+                             f"promotions")
+    want["wave_insert_scatter"] = flush
+    if got != want:
+        raise AssertionError(f"tiered wave (tiers {sorted(tiers)}): "
+                             f"launches {got} != {want}")
+    kinds = tuple(n for n in ("cache_probe", "knn_score",
+                              "wave_insert_query", "wave_query_topk",
+                              "wave_insert_scatter")
+                  for _ in range(got[n]))
+    return kinds, {"cache_probe_l2": int(residual),
+                   "wave_query_topk_l2": int("l2" in tiers),
+                   "wave_insert_scatter_l2": flush}
+
+
+def counts_now(torch):
+    from repro_torch.kernels import dispatch
+    field = "launches" if DEV == "cuda" else "calls"
+    return {n: getattr(c, field) for n, c in dispatch.counters().items()}
+
+
+def tiered_serve(torch, docs, ci, world, *, device, n_sessions, k_c,
+                 capacity, tier_cap, width, generations, turns, seed):
+    """The tiered engine (``SharedTier`` with the cluster index, cluster
+    prefetch) over one ``DeviceShard`` of ``docs``, serving
+    ``generations`` of Zipf traffic in fixed rounds (``answer_batch`` over
+    every session, as ``serve_bench`` drives it).  Returns (engine, every
+    wave's turns over all generations, the miss turns' queries and turns,
+    every wave's launch kinds, the L2 launches by row)."""
+    import numpy as np
+
+    from repro_torch.core.shared import SharedTier
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.serve.router import ShardedRouter
+    from repro_torch.serve.session import BatchedEngine
+
+    rng = np.random.default_rng(seed)
+    ids = torch.arange(docs.shape[0], dtype=torch.int32, device=device)
+    sids = list(range(n_sessions))
+    waves, misses, kinds = [], [], []
+    l2 = {"cache_probe_l2": 0, "wave_query_topk_l2": 0,
+          "wave_insert_scatter_l2": 0}
+    with ShardedRouter([DeviceShard(docs, ids, device=device,
+                                    dtype="fp32")], deadline_s=300) as router:
+        tier = SharedTier(dim=DIM_RAW + 1, n_shards=TIER_SHARDS,
+                          capacity=tier_cap, memo_sim=MEMO_SIM, cluster=ci,
+                          device=device)
+        engine = BatchedEngine(router, docs, dim=DIM_RAW + 1,
+                               n_sessions=n_sessions, k=K, k_c=k_c,
+                               epsilon=EPS, capacity=capacity, dtype="fp32",
+                               shared=tier, cluster=ci, prefetch_width=width,
+                               device=device)
+        for _g in range(generations):
+            streams = zipf_generation(torch, world, rng, n_sessions)
+            for s in sids:
+                engine.start_session(s)
+            for t in range(turns):
+                qs = [streams[s][t] for s in sids]
+                before, promoted = counts_now(torch), tier.n_promoted
+                out = engine.answer_batch(sids, qs)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    kind, extra = wave_kinds(
+                        torch, before, counts_now(torch),
+                        {x.tier for x in out}, tier.n_promoted - promoted)
+                    kinds.append(kind)
+                    for name, v in extra.items():
+                        l2[name] += v
+                waves.append(out)
+                misses += [(q, x) for q, x in zip(qs, out)
+                           if x.tier == "backend"]
+    return engine, waves, misses, kinds, l2
+
+
+def tier_stats(engine, waves):
+    """The tier of every turn of every generation (``engine.tier_counts``
+    sees only the last one: ``start_session`` clears a session's turns)
+    and the shared tier's and prefetch's counters."""
+    t = engine.shared
+    tiers = {"l1": 0, "l2": 0, "l2_reuse": 0, "backend": 0}
+    for out in waves:
+        for x in out:
+            tiers[x.tier] += 1
+    return {"tiers": tiers,
+            "n_promoted": t.n_promoted, "n_memo_served": t.n_memo_served,
+            "n_offered": t.n_offered, "prefetch": engine.prefetch_stats()}
+
+
+def build_twice(torch, index, **kw):
+    """Two cluster builds over ``index`` (the first one counted as a path);
+    both must be bit-identical.  Returns (index, seconds each, launches)."""
+    from repro_torch.core.cluster import build_cluster_index
+
+    secs = []
+    t0 = time.perf_counter()
+    ci, launches = counted(torch, lambda: build_cluster_index(index, **kw))
+    secs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    again = build_cluster_index(index, **kw)
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+    for f in ("centroids", "assign", "member_offsets", "member_ids",
+              "near_ids", "near_d"):
+        a, b = getattr(ci, f), getattr(again, f)
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"two cluster builds differ in {f}")
+    if ci.n_iters != again.n_iters:
+        raise AssertionError("two cluster builds took different iterations")
+    return ci, secs, launches
+
+
+def tiered_phase(torch, corpus, world):
+    """The tiered wave: small input card == CPU, then the full corpus (two
+    bit-identical cluster builds, the Zipf serve, the exact check of every
+    miss turn), then the chaos replay.  Returns ({path: launches}, the
+    launches of the tiered kernel rows, what their timing needs)."""
+    import numpy as np
+
+    from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_topk_agree
+
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()        # an earlier phase's engine may sit in a ref cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dim = DIM_RAW + 1
+    # small input first: one cluster index, the engine on the card and on
+    # the CPU path over the 60,000 world documents
+    world_docs = corpus[:60_000]
+    small_ci = MetricIndex(world_docs, transformed=True, dim=dim,
+                           device=DEV).cluster(16, iters=10, max_width=64)
+    kw = dict(ci=small_ci, world=world, n_sessions=8, k_c=100,
+              capacity=1600, tier_cap=800, width=32, generations=2, turns=4,
+              seed=SEED + 7)
+    gpu, rec_gpu, *_ = tiered_serve(torch, world_docs, device=DEV, **kw)
+    cpu, rec_cpu, *_ = tiered_serve(torch, world_docs.cpu(), device="cpu",
+                                    **kw)
+    for w, (wa, wb) in enumerate(zip(rec_gpu, rec_cpu)):
+        for s, (a, b) in enumerate(zip(wa, wb)):
+            if a.tier != b.tier:
+                raise AssertionError(f"[tiered] small wave {w} session {s}: "
+                                     f"tier {a.tier} != {b.tier} on the CPU")
+            assert_topk_agree(a.scores[None], a.ids[None], b.scores[None],
+                              b.ids[None], SCORE_TOL,
+                              f"[tiered] small wave {w} session {s}")
+    small = tier_stats(gpu, rec_gpu)
+    if small != tier_stats(cpu, rec_cpu):
+        raise AssertionError(f"[tiered] small input counters {small} != "
+                             f"{tier_stats(cpu, rec_cpu)}")
+    log(f"[tiered] small input (8 sessions x 2 generations x 4 turns, 60000 "
+        f"docs, 16 clusters): card == CPU path; {json.dumps(small)}")
+    del gpu, cpu, small_ci
+    torch.cuda.empty_cache()
+
+    # full size: the cluster index over the whole corpus, twice
+    index = MetricIndex(corpus, transformed=True, dim=dim, device=DEV)
+    if index.doc_emb.data_ptr() != corpus.data_ptr():
+        raise AssertionError("the MetricIndex copied the corpus")
+    ci, secs, build_launches = build_twice(
+        torch, index, n_clusters=N_CLUSTERS, iters=CLUSTER_ITERS,
+        max_width=MAX_WIDTH, query_chunk=ASSIGN_CHUNK)
+    log(f"[tiered] ClusterIndex over {index.n_docs} docs: {ci.n_clusters} "
+        f"clusters, {ci.n_iters} iterations (at most {CLUSTER_ITERS}), "
+        f"max_width {ci.max_width}, query_chunk {ASSIGN_CHUNK}; built in "
+        f"{secs[0]:.2f} s and again in {secs[1]:.2f} s, bit-identical; "
+        f"sizes min {int(ci.sizes.min())} max {int(ci.sizes.max())}; "
+        f"launches {build_launches}")
+
+    t0 = time.perf_counter()
+    turns = streams_turns(world)
+    before_serve = torch.cuda.memory_allocated()
+    (engine, waves, misses, kinds, l2), launches = counted(torch, lambda: tiered_serve(
+        torch, corpus, ci, world, device=DEV, n_sessions=S, k_c=KC,
+        capacity=CAPACITY, tier_cap=TIER_CAP, width=PREFETCH_WIDTH,
+        generations=GENERATIONS, turns=turns, seed=SEED))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    turns_all = [t for out in waves for t in out]
+    for w, out in enumerate(waves):
+        for s, t in enumerate(out):
+            if t.ids.shape != (K,) or not np.isfinite(t.scores).all() \
+                    or (np.diff(t.scores) > 0).any():
+                raise AssertionError(f"[tiered] wave {w} session {s}: "
+                                     f"malformed turn")
+    stats = tier_stats(engine, waves)
+    if stats["tiers"]["l2"] + stats["tiers"]["l2_reuse"] == 0:
+        raise AssertionError("[tiered] no turn was served by the L2 tier")
+    hist: dict = {}
+    for k in kinds:
+        key = " + ".join(f"{n} x{k.count(n)}" if k.count(n) > 1 else n
+                         for n in dict.fromkeys(k))
+        hist[key] = hist.get(key, 0) + 1
+    log(f"[tiered] {S} sessions x {GENERATIONS} generations x {turns} turns "
+        f"= {len(turns_all)} turns (Zipf alpha {ZIPF_ALPHA}, jitter "
+        f"{ZIPF_JITTER}) over {corpus.shape[0]} docs in {wall:.2f} s: "
+        f"{json.dumps(stats)}")
+    log(f"[tiered] launches per wave by kind, as the contract says "
+        f"({len(kinds)} waves; wave_insert_scatter once per admission "
+        f"sub-wave): {json.dumps(hist)}; path total {launches}")
+    lat = np.array([t.latency_s for t in turns_all])
+    log(f"[tiered] turn p50 {np.percentile(lat, 50):.5f} s, p99 "
+        f"{np.percentile(lat, 99):.5f} s (all {len(turns_all)} turns); peak "
+        f"device memory above the corpus {(peak - corpus.numel() * 4) / 1e9:.3f} GB "
+        f"(held before the phase, corpus included: {held / 1e9:.3f} GB; "
+        f"before the serve {before_serve / 1e9:.3f} GB)")
+    if peak - corpus.numel() * 4 > 10e9:
+        raise AssertionError("[tiered] peak memory above the corpus over "
+                             "10 GB")
+    # every miss turn answers the exact top-k of the whole corpus
+    dp = corpus.shape[1]
+    ids = torch.arange(corpus.shape[0], dtype=torch.int32, device=DEV)
+    for lo in range(0, len(misses), 64):
+        part = misses[lo:lo + 64]
+        v, i = knn_ref.search(corpus, ids, pad_to(
+            torch, np.stack([q for q, _ in part]), dp), K)
+        assert_topk_agree(np.stack([t.scores for _, t in part]),
+                          np.stack([t.ids for _, t in part]), v, i,
+                          SCORE_TOL, "[tiered] miss turns")
+        del v, i
+        torch.cuda.empty_cache()
+    log(f"[tiered] {len(misses)} miss turns match the exact search")
+    rows = {**l2, "wave_insert_query_wide": launches["wave_insert_query"],
+            "knn_score_tables": 1, "knn_select_tables": 1,
+            "knn_score_assign": build_launches["knn_score"] - 1,
+            "knn_select_assign": build_launches["knn_select"] - 1}
+    chaos = chaos_run(torch, corpus, world)
+    log(f"[tiered] phase in {time.perf_counter() - t_phase:.1f} s (both "
+        f"cluster builds included)")
+    return {"cluster": build_launches, "tiered": launches,
+            "chaos": chaos}, rows, (ci, engine)
+
+
+def streams_turns(world) -> int:
+    return int(world.conversations[0].queries.shape[0])
+
+
+def chaos_run(torch, corpus, world):
+    """``serve_bench.bench_chaos`` on the card: 4 ``DeviceShard``s over row
+    views of the corpus under ``chaos_plan(4)`` behind a router with
+    breakers, the tiered engine (``SharedTier(ttl_waves=3)``,
+    ``validate_every=4``), 8 sessions x 10 rounds.  Returns its launches."""
+    import numpy as np
+
+    from repro_torch.core.embedding import transform_queries
+    from repro_torch.core.shared import SharedTier
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.serve.faults import chaos_plan
+    from repro_torch.serve.router import ShardedRouter
+    from repro_torch.serve.session import BatchedEngine
+    from repro_torch.serve.telemetry import ServeTelemetry
+
+    n, n_s, k_c, spike = corpus.shape[0], CHAOS_SESSIONS, 50, 0.02
+    rng = np.random.default_rng(SEED + CHAOS_SEED)
+    bounds = np.linspace(0, n, TIER_SHARDS + 1).astype(int)
+    shards = [DeviceShard(corpus[lo:hi], torch.arange(
+        lo, hi, dtype=torch.int32, device=DEV), device=DEV, dtype="fp32")
+        for lo, hi in zip(bounds[:-1], bounds[1:])]
+    if any(s.docs.data_ptr() != corpus[lo].data_ptr()
+           for s, lo in zip(shards, bounds)):
+        raise AssertionError("[chaos] a shard copied its rows")
+    plan = chaos_plan(TIER_SHARDS, seed=SEED + CHAOS_SEED, spike_s=spike)
+    telemetry = ServeTelemetry()
+    total = answered = warm_total = warm_answered = corrupt = degraded = 0
+    t0 = time.perf_counter()
+
+    def run():
+        nonlocal total, answered, warm_total, warm_answered, corrupt
+        nonlocal degraded
+        with ShardedRouter(plan.wrap(shards), deadline_s=2.0,
+                           hedge_after_s=spike / 2, n_docs=n,
+                           max_retries=1, backoff_base_s=0.002,
+                           breaker_window=8, breaker_fail_rate=0.5,
+                           breaker_min_calls=2, breaker_cooldown_s=0.25,
+                           telemetry=telemetry) as router:
+            tier = SharedTier(dim=DIM_RAW + 1, n_shards=TIER_SHARDS,
+                              capacity=max(8 * k_c, 1024), memo_sim=MEMO_SIM,
+                              ttl_waves=3, device=DEV)
+            engine = BatchedEngine(router, corpus, dim=DIM_RAW + 1,
+                                   n_sessions=n_s, k=K, k_c=k_c,
+                                   epsilon=EPS, capacity=4 * k_c,
+                                   dtype="fp32", shared=tier,
+                                   telemetry=telemetry, validate_every=4,
+                                   device=DEV)
+            convs = world.conversations
+            for _r in range(CHAOS_ROUNDS):
+                streams = [transform_queries(torch.as_tensor(
+                    convs[s].queries + 0.1 * rng.standard_normal(
+                        convs[s].queries.shape), dtype=torch.float32)).numpy()
+                    for s in range(n_s)]
+                for s in range(n_s):
+                    engine.start_session(s)
+                for t in range(streams[0].shape[0]):
+                    try:
+                        out = engine.answer_batch(
+                            list(range(n_s)), [x[t] for x in streams])
+                    except TimeoutError:
+                        out = [None] * n_s
+                    for turn in out:
+                        total += 1
+                        warm_total += t > 0
+                        if turn is None or isinstance(turn, Exception):
+                            continue
+                        answered += 1
+                        warm_answered += t > 0
+                        if turn.ids.size and (
+                                (turn.ids < 0).any() or (turn.ids >= n).any()
+                                or not np.isfinite(turn.scores).all()):
+                            corrupt += 1
+                        degraded += turn.degraded
+            return router.stats, tier, engine
+
+    (stats, tier, engine), launches = counted(torch, run)
+    rec = {"turns": total, "availability": answered / max(total, 1),
+           "warm_availability": warm_answered / max(warm_total, 1),
+           "corrupt_served": corrupt, "degraded_turns": degraded,
+           "breaker_opens": stats.breaker_opens,
+           "breaker_closes": stats.breaker_closes,
+           "rejected_answers": stats.rejected, "shed": stats.shed,
+           "stale_served": tier.n_stale_served,
+           "quarantined": engine.quarantined,
+           "injected_faults": [w.faults for w in plan.wrapped],
+           "seconds": time.perf_counter() - t0}
+    log(f"[chaos] {n_s} sessions x {CHAOS_ROUNDS} rounds over 4 shards of "
+        f"the corpus under chaos_plan(4): {json.dumps(rec)}; launches "
+        f"{launches}")
+    if corrupt or rec["warm_availability"] < 0.99 \
+            or stats.breaker_opens < 1 or stats.breaker_closes < 1:
+        raise AssertionError(f"[chaos] gate failed: {rec}")
+    return launches
+
+
+def tiered_kernels(torch, rep: Report, corpus, ci, engine, world):
+    """The kernels at the tiered path's new shapes against their plain
+    versions, timed: the k-means assignment (``ASSIGN_CHUNK`` corpus rows
+    against the 64 centroids, k = 1), the neighbour tables (the centroids
+    over the corpus, k = ``MAX_WIDTH``), the L2 probe and query over the
+    served tier's gathered shard rows (S = 64), the admission insert (S =
+    4 shard rows of k_c + width rows) and the widened fill (S = 64, k_c +
+    width rows)."""
+    import numpy as np
+
+    from repro_torch.core import cache_ops as tc
+    from repro_torch.kernels.cache_probe import ops as probe_ops
+    from repro_torch.kernels.cache_probe import ref as probe_ref
+    from repro_torch.kernels.cache_wave import ops as wave_ops
+    from repro_torch.kernels.cache_wave import ref as wave_ref
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_close, assert_topk_agree
+
+    n, dp = corpus.shape
+    kc = ci.n_clusters
+    cents = tc.pad_features(torch.as_tensor(ci.centroids, device=DEV), dp)
+    cids = torch.arange(kc, dtype=torch.int32, device=DEV)
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    # the assignment: the corpus's first chunk of rows as queries
+    q = corpus[:ASSIGN_CHUNK]
+    b = q.shape[0]
+    sk = knn_ops.knn_score(cents, cids, q)
+    err = assert_close(sk, knn_ref.score(cents, cids, q), SCORE_TOL,
+                       "knn_score assignment")
+    vk, ik = knn_ops.knn_select(sk, cids, 1)
+    vr, ir = knn_ref.select(sk, cids, 1)
+    if not (torch.equal(vk, vr) and torch.equal(ik, ir)):
+        raise AssertionError("knn_select k=1 != plain")
+    if not np.array_equal(ik[:, 0].cpu().numpy(), ci.assign[:b]):
+        raise AssertionError("the assignment differs from the index's")
+    rep.add("knn_score_assign", err=err,
+            ms=timed(torch, lambda: knn_ops.knn_score(cents, cids, q), 20),
+            plain_ms=timed(torch, lambda: knn_ref.score(cents, cids, q), 20),
+            nbytes=b * dp * 4 + kc * (dp * 4 + 4) + b * kc * 4,
+            ops=2 * b * kc * dp, rate=F32_OPS,
+            library_ms=timed(torch, lambda: torch.mm(q, cents.T), 20))
+    rep.add("knn_select_assign", err=0.0,
+            ms=timed(torch, lambda: knn_ops.knn_select(sk, cids, 1), 20),
+            plain_ms=timed(torch, lambda: knn_ref.select(sk, cids, 1), 20),
+            nbytes=b * kc * 4 + b * 8, ops=0, rate=F32_OPS,
+            library_ms=timed(torch, lambda: torch.max(sk, 1), 20))
+    op = timed(torch, lambda: knn_ops.knn_search(cents, cids, q, 1), 20)
+    lib = timed(torch, lambda: torch.max(q @ cents.T, 1), 20)
+    log(f"[kernels] assignment B={b} N={kc} k=1 (one op, two launches): "
+        f"ms={op:.4f} library_ms={lib:.4f} (torch.max(q @ C.T, 1)); "
+        f"{int(np.ceil(n / ASSIGN_CHUNK))} such ops an iteration")
+    del sk
+    # the neighbour tables: the centroids over the whole corpus
+    sk = knn_ops.knn_score(corpus, ids, cents)
+    err = assert_close(sk, knn_ref.score(corpus, ids, cents), SCORE_TOL,
+                       "knn_score tables")
+    vk, ik = knn_ops.knn_select(sk, ids, MAX_WIDTH)
+    vr, ir = knn_ref.select(sk, ids, MAX_WIDTH)
+    if not (torch.equal(vk, vr) and torch.equal(ik, ir)):
+        raise AssertionError(f"knn_select k={MAX_WIDTH} != plain")
+    if not np.array_equal(ik.cpu().numpy(), ci.near_ids):
+        raise AssertionError("the neighbour tables differ from the index's")
+    rep.add("knn_score_tables", err=err,
+            ms=timed(torch, lambda: knn_ops.knn_score(corpus, ids, cents), 3),
+            plain_ms=timed(torch, lambda: knn_ref.score(corpus, ids, cents),
+                           2),
+            nbytes=n * (dp * 4 + 4) + kc * dp * 4 + kc * n * 4,
+            ops=2 * kc * n * dp, rate=F32_OPS,
+            library_ms=timed(torch, lambda: torch.mm(cents, corpus.T), 2))
+    rep.add("knn_select_tables", err=0.0,
+            ms=timed(torch, lambda: knn_ops.knn_select(sk, ids, MAX_WIDTH),
+                     3),
+            plain_ms=timed(torch, lambda: knn_ref.select(sk, ids, MAX_WIDTH),
+                           2),
+            nbytes=kc * n * 4 + kc * MAX_WIDTH * 8, ops=0, rate=F32_OPS,
+            library_ms=timed(torch, lambda: torch.topk(sk, MAX_WIDTH, 1), 2))
+    del sk, vr, ir
+    torch.cuda.empty_cache()
+    op = timed(torch, lambda: knn_ops.knn_search(corpus, ids, cents,
+                                                 MAX_WIDTH), 3)
+    lib = timed(torch, lambda: torch.topk(cents @ corpus.T, MAX_WIDTH, 1), 2)
+    log(f"[kernels] neighbour tables B={kc} N={n} k={MAX_WIDTH} (one op): "
+        f"ms={op:.4f} library_ms={lib:.4f} (torch.topk(q @ D.T, "
+        f"{MAX_WIDTH}))")
+    torch.cuda.empty_cache()
+
+    # the L2 probe and query over the served tier's gathered shard rows
+    tier = engine.shared
+    psi = torch.as_tensor(np.stack([s[0] for s in zipf_generation(
+        torch, world, np.random.default_rng(SEED + 11), S)]), device=DEV)
+    shards = tier.route(psi.cpu().numpy())
+    sub = tier.shards.gather(shards, payload=False)
+    qmax = tier.cfg.max_queries
+    args = (sub.q_emb, psi, sub.q_radius, sub.n_queries, EPS)
+    got = probe_ops.cache_probe_batched(*args, q_scale=sub.q_scale,
+                                        max_queries=qmax)
+    want = probe_ref.lowquality(sub.q_emb, psi, sub.q_radius, sub.n_queries,
+                                EPS, sub.q_scale, qmax)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+        raise AssertionError("L2 probe: hit / nearest differ from plain")
+    live_m = torch.isfinite(want[1])
+    err = assert_close(torch.where(live_m, got[1], 0.0),
+                       torch.where(live_m, want[1], 0.0), RHAT_TOL,
+                       "L2 probe best_r")
+    live = int(sub.n_queries.clamp(0, qmax).sum())
+    rep.add("cache_probe_l2", err=err,
+            ms=timed_device(torch, lambda: probe_ops.cache_probe_batched(
+                *args, q_scale=sub.q_scale, max_queries=qmax), 200),
+            plain_ms=timed(torch, lambda: probe_ref.lowquality(
+                sub.q_emb, psi, sub.q_radius, sub.n_queries, EPS,
+                sub.q_scale, qmax), 50),
+            nbytes=live * (dp * 4 + 8) + S * ((DIM_RAW + 1) * 4 + 4 + 9),
+            ops=2 * live * dp, rate=F32_OPS)
+    rows = tier.shards.wave_rows(shards)
+    psi_p = tc.pad_features(psi, dp)
+    payload = tier.state.doc_emb
+    vk, ik, _ = wave_ops.wave_query_topk(payload, sub.doc_ids,
+                                         sub.doc_scale, psi_p, K, rows)
+    vr, ir, _ = wave_ref.query_topk(payload, sub.doc_ids, sub.doc_scale,
+                                    psi_p, K, rows)
+    err = assert_topk_agree(vk, ik, vr, ir, SCORE_TOL, "L2 query")
+    cp = tier.cfg.phys_capacity
+    distinct = len(set(shards.tolist()))
+    rep.add("wave_query_topk_l2", err=err,
+            ms=timed_device(torch, lambda: wave_ops.wave_query_topk(
+                payload, sub.doc_ids, sub.doc_scale, psi_p, K, rows), 50),
+            plain_ms=timed(torch, lambda: wave_ref.query_topk(
+                payload, sub.doc_ids, sub.doc_scale, psi_p, K, rows), 10),
+            nbytes=distinct * cp * (dp * 4 + 8) + S * dp * 4 + S * K * 12,
+            ops=2 * S * cp * dp, rate=F32_OPS)
+    log(f"[kernels] L2 rows: {S} wave rows over {distinct} distinct shards "
+        f"(capacity {tier.cfg.capacity}, {live} live records of at most "
+        f"{qmax} a row, n_docs {tier.n_docs.tolist()})")
+    del sub
+    # the admission insert: the 4 shard rows, k_c + width rows each
+    width = KC + PREFETCH_WIDTH
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 13)
+    st = tc.CacheState(*(x.clone() for x in tier.state))
+    srows = torch.arange(TIER_SHARDS, dtype=torch.int32, device=DEV)
+    new = torch.nn.functional.normalize(torch.randn(
+        TIER_SHARDS, width, DIM_RAW + 1, generator=gen, device=DEV), dim=2)
+    new_ids = (10 ** 7 + torch.arange(TIER_SHARDS * width, device=DEV)) \
+        .view(TIER_SHARDS, width).to(torch.int32)
+    old = st.doc_ids[:, :width:4]            # some already cached: dedup
+    new_ids[:, ::4] = torch.where(old >= 0, old, new_ids[:, ::4])
+    ipsi = torch.nn.functional.normalize(torch.randn(
+        TIER_SHARDS, DIM_RAW + 1, generator=gen, device=DEV), dim=1)
+    _keep, pos, _d, _n = tc.insert_positions(st, tier.cfg, ipsi, new_ids)
+    ins = (tc.pad_features(new, dp), torch.ones(TIER_SHARDS, width,
+                                                device=DEV),
+           new_ids, pos, tc.pad_features(ipsi, dp),
+           torch.ones(TIER_SHARDS, device=DEV),
+           torch.full((TIER_SHARDS,), 0.3, device=DEV),
+           torch.ones(TIER_SHARDS, dtype=torch.bool, device=DEV),
+           torch.remainder(st.n_queries, qmax), st.step.clone())
+
+    def lv(x):
+        return (x.doc_emb, x.doc_ids, x.doc_stamp, x.doc_scale, x.q_emb,
+                x.q_radius, x.q_scale)
+    sk = tc.CacheState(*(x.clone() for x in st))
+    wave_ops.wave_insert_scatter(*lv(sk), *ins, rows=srows)
+    wave_ref.insert_scatter(*lv(st), *ins, rows=srows)
+    for f, x, y in zip(tc.CacheState._fields, sk, st):
+        if not torch.equal(x, y):
+            raise AssertionError(f"admission insert: leaf {f} differs")
+    kept = int((pos < cp).sum())
+    rep.add("wave_insert_scatter_l2", err=0.0,
+            ms=timed_device(torch, lambda: wave_ops.wave_insert_scatter(
+                *lv(sk), *ins, rows=srows), 50),
+            plain_ms=timed(torch, lambda: wave_ref.insert_scatter(
+                *lv(st), *ins, rows=srows), 10),
+            nbytes=kept * (2 * dp * 4 + 12) + TIER_SHARDS * width * 4
+            + TIER_SHARDS * 24, ops=0, rate=F32_OPS)
+    del st, sk, ins
+    torch.cuda.empty_cache()
+    # the widened fill: 64 sessions, k_c + width rows an insert
+    cfg = tc.CacheConfig(capacity=CAPACITY, dim=DIM_RAW + 1,
+                         max_queries=QMAX)
+    st, ins, psi, kept = wave_inputs(torch, tc, cfg, gen, kc=width)
+    sk = tc.CacheState(*(x.clone() for x in st))
+    vk, ik, _ = wave_ops.wave_insert_query(*lv(sk), *ins, psi, K)
+    wave_ref.insert_scatter(*lv(st), *ins)
+    vr, ir, _ = wave_ref.query_topk(st.doc_emb, st.doc_ids, st.doc_scale,
+                                    psi, K)
+    for f, x, y in zip(tc.CacheState._fields, sk, st):
+        if not torch.equal(x, y):
+            raise AssertionError(f"widened fill: leaf {f} differs")
+    err = assert_topk_agree(vk, ik, vr, ir, SCORE_TOL, "widened fill")
+    cp = cfg.phys_capacity
+    rep.add("wave_insert_query_wide", err=err,
+            ms=timed(torch, lambda: wave_ops.wave_insert_query(
+                *lv(sk), *ins, psi, K), 10),
+            plain_ms=timed(torch, lambda: (
+                wave_ref.insert_scatter(*lv(st), *ins),
+                wave_ref.query_topk(st.doc_emb, st.doc_ids, st.doc_scale,
+                                    psi, K)), 3),
+            nbytes=S * cp * (dp * 4 + 8) + kept * (2 * dp * 4 + 12)
+            + S * width * 4 + S * 24 + S * K * 12 + S * dp * 4,
+            ops=2 * S * cp * dp, rate=F32_OPS)
+    del st, sk, ins
+    torch.cuda.empty_cache()
 
 # ------------------------------------------------------------ Algorithm 1
 def converse(torch, index, streams, policy, *, k_c, capacity):
@@ -1900,7 +2531,10 @@ def main() -> int:
     if "recsys" in phases:
         paths["recsys"] = recsys_phase(torch, rep, gen, args.seed)
         torch.cuda.empty_cache()
-    if phases & {"kernels", "ab", "main", "paper"}:
+    global SEED
+    SEED = args.seed
+    tier_rows = {}
+    if phases & {"kernels", "ab", "main", "tiered", "paper"}:
         world, corpus, streams = build_corpus(torch, args.seed)
         if "kernels" in phases:
             knn_phase(torch, rep, corpus, streams)
@@ -1908,6 +2542,13 @@ def main() -> int:
             paths["ab"] = ab_phase(torch, rep, corpus, streams)
         if "main" in phases:
             paths["main"] = main_phase(torch, corpus, streams)
+        if "tiered" in phases:
+            tiered, tier_rows, (ci, served) = tiered_phase(torch, corpus,
+                                                           world)
+            paths.update(tiered)
+            tiered_kernels(torch, rep, corpus, ci, served, world)
+            del served
+            torch.cuda.empty_cache()
         if "paper" in phases:
             dynamic, paths["paper"] = paper_phase(torch, corpus, world,
                                                   streams)
@@ -1920,6 +2561,7 @@ def main() -> int:
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in KERNELS}
     launches.update({n: paths["paper"].get(k, 0) + paths["engine"].get(k, 0)
                      for n, k in {**B1_ROWS, **S1_ROWS}.items()})
+    launches.update(tier_rows)
     print(rep.line(launches))
     print(smi)
     print(json.dumps({"ok": True, "device": {

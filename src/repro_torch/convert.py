@@ -10,6 +10,11 @@ Both packages exchange it as numpy arrays.
   * ``cache_state_to_numpy`` — any ``CacheState`` (this port's or the JAX
     package's) at the logical extents, bf16 payloads widened to f32 — the
     form two states are compared in.
+  * ``shared_tier_to_numpy`` / ``shared_tier_from_numpy`` — a
+    ``SharedTier``'s whole state (the stacked shard cache at logical
+    extents, the wave clock, claim stamps, admission table, pending
+    admissions, result memo and counters) out of either package's tier,
+    and into this port's, so both tiers continue alike.
   * ``corpus_from_numpy`` — a (quantized) corpus payload with its scales and
     ids, padded to this port's feature width, on a device.
   * ``recsys_params_from_numpy`` / ``recsys_params_to_numpy`` — a DLRM or
@@ -30,6 +35,7 @@ from repro_torch.core.cache_ops import (CacheConfig, CacheState,
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
+           "shared_tier_to_numpy", "shared_tier_from_numpy",
            "corpus_from_numpy", "recsys_params_from_numpy",
            "recsys_params_to_numpy"]
 
@@ -76,6 +82,50 @@ def cache_state_from_numpy(leaves, cfg: CacheConfig, device=None) -> CacheState:
     for f in ("n_docs", "n_queries", "step"):
         put(getattr(state, f), getattr(logical, f))
     return state if batched else CacheState(*(x[0] for x in state))
+
+
+_TIER_HOST = ("wave", "_seen", "_memo_radius", "_memo_token", "_memo_wave",
+              "_memo_n", "n_promoted", "n_offered", "n_memo_served",
+              "n_stale_served", "total_dropped")
+_TIER_MEMO = ("_memo_psi", "_memo_ids", "_memo_scores")
+
+
+def shared_tier_to_numpy(tier) -> dict:
+    """A ``SharedTier``'s state (this port's or the JAX package's) as numpy
+    arrays and plain values; claim stamps at the logical ring length."""
+    import copy
+    q = tier.cfg.max_queries
+    out = {"state": cache_state_to_numpy(tier.state, tier.cfg),
+           "claim_wave": np.array(tier._claim_wave[:, :q]),
+           "claim_alive": np.array(tier._claim_alive[:, :q]),
+           "pending": [(p[0], np.array(p[1]), p[2], to_numpy(p[3]),
+                        np.array(p[4])) for p in tier._pending]}
+    for f in _TIER_HOST:
+        out[f] = copy.deepcopy(getattr(tier, f))
+    for f in _TIER_MEMO:
+        v = getattr(tier, f)
+        out[f] = None if v is None else np.array(v)
+    return out
+
+
+def shared_tier_from_numpy(tier, leaves: dict):
+    """Load ``shared_tier_to_numpy``'s output into this port's ``tier`` (same
+    configuration), in place; returns the tier."""
+    import copy
+    q = tier.cfg.max_queries
+    tier.state = cache_state_from_numpy(leaves["state"], tier.cfg,
+                                        tier.device)
+    tier._claim_wave[:, :q] = leaves["claim_wave"]
+    tier._claim_alive[:, :q] = leaves["claim_alive"]
+    tier._pending = [(int(p[0]), np.array(p[1]), float(p[2]),
+                      torch.as_tensor(np.array(p[3]), device=tier.device),
+                      np.array(p[4])) for p in leaves["pending"]]
+    for f in _TIER_HOST:
+        setattr(tier, f, copy.deepcopy(leaves[f]))
+    for f in _TIER_MEMO:
+        v = leaves[f]
+        setattr(tier, f, None if v is None else np.array(v))
+    return tier
 
 
 def corpus_from_numpy(data, scale, ids, device=None):

@@ -176,7 +176,9 @@ class BatchedMetricCache:
     def scatter(self, sessions, sub: CacheState, rows=None):
         """Write a wave's updated sub-state back, in place: its rows
         ``rows`` (all by default) to the given sessions.  A payload that
-        ``sub`` shares with the stacked state was written in place."""
+        ``sub`` shares with the stacked state was written in place.  The
+        sessions must be distinct: with a repeated index the card keeps an
+        unspecified one of its rows."""
         idx = self._idx(sessions)
         for full, part in zip(self.state, sub):
             if part is not full:

@@ -1,14 +1,14 @@
 """Exact nearest-neighbour metric index: the back end of the paper's Fig. 2.
 
-The port of ``repro.core.metric_index`` without the device-sharded and
-clustering paths.  ``scan_topk`` is the one corpus-scan contract — id -1
+The port of ``repro.core.metric_index`` without the device-sharded path.  ``scan_topk`` is the one corpus-scan contract — id -1
 rows never win, -inf result positions carry id -1, equal scores keep the
 lower corpus position — and runs the fused kNN wrapper
 (``kernels.knn.ops.knn_search``): the hand-written kernels on a CUDA
 corpus, the plain version on a CPU one.  ``streaming_topk`` is the plain
 chunked scan with a running top-k carry (peak memory O(B * chunk)) behind
 ``chunked_nn`` and ``masked_chunked_nn``, and ``exact_nn`` the one-shot
-full-matrix oracle.
+full-matrix oracle.  ``MetricIndex.cluster`` builds (and memoizes) the
+topical ``ClusterIndex`` of ``core.cluster``.
 """
 
 from __future__ import annotations
@@ -104,11 +104,14 @@ class MetricIndex:
     (l+1-dim, unit-norm) input is taken as is.  The corpus is stored at the
     padded width ``layout.phys_dim(dim)`` in ``dtype`` (None follows
     ``REPRO_CORPUS_DTYPE``); ``int8_dot`` pins the int8 scoring rule.
+    ``dim`` names the logical width of transformed rows that arrive
+    already zero-padded (None: their width): an fp32 corpus at
+    ``layout.phys_dim(dim)`` on the device is then used as is, not copied.
     """
 
     def __init__(self, doc_emb, doc_ids=None, *, transformed: bool = False,
                  dtype: str | None = None, int8_dot: bool | None = None,
-                 device=None):
+                 dim: int | None = None, device=None):
         self.device = resolve_device(device)
         doc_emb = torch.as_tensor(doc_emb, dtype=torch.float32,
                                   device=self.device)
@@ -121,7 +124,9 @@ class MetricIndex:
             emb_t = doc_emb
         else:
             emb_t, self.max_norm = emb.transform_documents(doc_emb)
-        self.dim = emb_t.shape[1]
+        self.dim = int(emb_t.shape[1] if dim is None else dim)
+        if dim is not None and not transformed:
+            raise ValueError("dim= names the width of transformed rows")
         self.n_docs = int(emb_t.shape[0])
         emb_t = pad_features(emb_t, layout.phys_dim(self.dim))
         self.dtype = quant.resolve_dtype(dtype)
@@ -129,6 +134,7 @@ class MetricIndex:
         self.doc_emb, self.doc_scale = qc.data, qc.scale
         self.int8_dot = quant.resolve_int8_dot(int8_dot, self.doc_emb.dtype)
         self._dequant = None
+        self._clusters: dict = {}
 
     def transform_queries(self, psi: torch.Tensor) -> torch.Tensor:
         return emb.transform_queries(psi)
@@ -143,6 +149,28 @@ class MetricIndex:
         return _as_result(*scan_topk(self.doc_emb, self.doc_ids, queries, k,
                                      scale=self.doc_scale,
                                      int8_dot=self.int8_dot))
+
+    def cluster(self, n_clusters: int = 64, *, iters: int = 10,
+                seed: int = 0, max_width: int = 256, path=None):
+        """Build (and memoize) a topical ``ClusterIndex`` over this corpus
+        (``core.cluster.build_cluster_index``'s arguments).  An existing
+        ``.npz`` at ``path`` is loaded instead of building; a fresh build is
+        saved there.  Memoized per argument tuple: the corpus is immutable,
+        so a rebuild can never differ."""
+        import os
+
+        from repro_torch.core.cluster import ClusterIndex, build_cluster_index
+        key = (int(n_clusters), int(iters), int(seed), int(max_width))
+        if key not in self._clusters:
+            if path is not None and os.path.exists(path):
+                self._clusters[key] = ClusterIndex.load(path)
+            else:
+                self._clusters[key] = build_cluster_index(
+                    self, n_clusters, iters=iters, seed=seed,
+                    max_width=max_width)
+                if path is not None:
+                    self._clusters[key].save(path)
+        return self._clusters[key]
 
     def dequantized(self) -> torch.Tensor:
         """f32 view (n, dim) of the transformed corpus — the values every

@@ -1,6 +1,9 @@
-"""Serving layer of the port: engines, router, scheduler, telemetry."""
+"""Serving layer of the port: engines, router, scheduler, telemetry and
+fault injection."""
 
 from repro_torch.serve.engine import ConversationalEngine, EngineTurn
+from repro_torch.serve.faults import (CORRUPT_MODES, FaultError, FaultPlan,
+                                     FaultSpec, FaultyShard, chaos_plan)
 from repro_torch.serve.router import (AnswerValidationError, CircuitBreaker,
                                       RouterStats, ShardAnswer, ShardedRouter,
                                       validate_answer)
@@ -11,4 +14,5 @@ from repro_torch.serve.telemetry import ServeTelemetry, TurnSpans
 __all__ = ["ConversationalEngine", "EngineTurn", "AnswerValidationError",
            "CircuitBreaker", "RouterStats", "ShardAnswer", "ShardedRouter", "validate_answer",
            "ContinuousScheduler", "BatchedEngine", "SessionManager",
-           "ServeTelemetry", "TurnSpans"]
+           "ServeTelemetry", "TurnSpans", "CORRUPT_MODES", "FaultError",
+           "FaultPlan", "FaultSpec", "FaultyShard", "chaos_plan"]

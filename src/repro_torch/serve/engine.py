@@ -35,13 +35,17 @@ class EngineTurn:
     hit: bool
     degraded: bool
     latency_s: float
-    # serving tier: "l1" (session cache) or "backend" (full retrieval);
-    # ``hit`` is the paper's notion — True iff no back-end query ran
+    # serving tier: "l1" (session cache), "l2" (shared shard cache),
+    # "l2_reuse" (the shared tier's result memo) or "backend" (full
+    # retrieval); ``hit`` is the paper's notion — True iff no back-end
+    # query ran
     tier: str = "l1"
     # admission -> wave start, and the wave-level span breakdown
     # (``repro_torch.serve.telemetry.TurnSpans``) for batched turns
     queue_wait_s: float = 0.0
     spans: Optional[object] = None
+    # returned docs that cluster prefetch brought into the session cache
+    prefetch_hits: int = 0
 
 
 def radius_from_scores(scores: np.ndarray) -> np.ndarray:

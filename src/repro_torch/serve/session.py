@@ -1,8 +1,8 @@
 """Session-batched serving: the paper's Algorithm 1 across concurrent sessions.
 
-The port of ``repro.serve.session`` for the L1 session tier.
-``BatchedEngine`` holds one stacked ``CacheState`` for S session slots on
-one device and answers a wave of concurrent turns with
+The port of ``repro.serve.session``.  ``BatchedEngine`` holds one stacked
+``CacheState`` for S session slots on one device and answers a wave of
+concurrent turns with
 
   * one ``probe_batched`` over the wave's cache rows       (launch 1),
   * one ``router.search`` for the whole miss subset, whose
@@ -13,17 +13,37 @@ one device and answers a wave of concurrent turns with
 a wave with no misses is probe -> ``query_batched``, two launches.  A wave
 runs in three phases so ``ContinuousScheduler`` can overlap wave t+1's
 probe with wave t's back-end search: ``probe_wave`` (touches cache state,
-never writes it), ``backend_wave`` (router and shards only) and
-``fill_wave`` (the fused insert+query, the scatter back, the turns).
-A wave gathers and scatters back its sessions' small leaves (ids, stamps,
-scales, the record ring, counters); the cache payload stays in the
-stacked state, which the wave kernel reads and writes through the wave's
-row index.
+never writes L1), ``backend_wave`` (router and shards only) and
+``fill_wave`` (the fused insert+query, the scatter back, the admission
+flush, the turns).  A wave gathers and scatters back its sessions' small
+leaves (ids, stamps, scales, the record ring, counters); the cache
+payload stays in the stacked state, which the wave kernel reads and
+writes through the wave's row index.
+
+**Cache hierarchy.**  With a ``core.shared.SharedTier`` attached the miss
+wave is tiered: L1 probe -> L2 memo (host) -> L2 probe over the gathered
+shard rows (launch 2) -> back-end kNN on the residual misses (launch 3)
+-> the fused insert+query (launch 4).  An L2 answer query adds a launch
+only when some row hits L2; the end-of-wave admission flush is one
+``wave_insert_scatter`` per sub-wave, only when answers were promoted.
+Tier-served answers warm L1 through the same fused launch, recording a
+claim only when it is sound (fresh un-degraded back-end radii, or the
+memo's triangle-corrected Eq. 3 claim).
+
+**Cluster prefetch.**  With a ``core.cluster.ClusterIndex`` and
+``prefetch_width`` m, each fresh back-end answer is widened by the m
+documents nearest its cluster's centroid inside the same fused insert
+(buffers k_c + m wide), and the recorded claim becomes ``max(r_a, d_m -
+||psi - c||)`` (triangle inequality).
+
+**Degradation ladder.**  A shed or failed back-end search serves a warm
+cache from its cache, an empty one stale-while-error from the L2 memo
+(claim never recorded), and fails only a row with neither.
+``validate_every`` N runs ``cache_ops.validate_state`` every N waves and
+resets (quarantines) any slot whose invariants are broken.
 
 The corpus embeddings the engine inserts stay on the engine's device: a
-wave gathers its k_c rows there, never through host memory.  The shared L2
-tier and the cluster prefetch of the JAX engine are not part of this port
-yet; passing ``shared=`` or ``cluster=`` raises.
+wave gathers its rows there, never through host memory.
 
 ``SessionManager`` is the asynchronous front door: session keys -> engine
 slots, turns admitted into continuously scheduled waves, a Future per turn.
@@ -32,6 +52,7 @@ slots, turns admitted into continuously scheduled waves, a Future per turn.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Optional, Sequence
 
@@ -42,7 +63,7 @@ from repro_torch.core import quant
 from repro_torch.core.cache import BatchedMetricCache
 from repro_torch.core.cache_ops import (CacheConfig, CacheState,
                                         insert_query_batched, probe_batched,
-                                        query_batched)
+                                        query_batched, validate_state)
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.serve.engine import EngineTurn, radius_from_scores
 from repro_torch.serve.router import ShardedRouter
@@ -73,15 +94,20 @@ class WaveState:
     rows: torch.Tensor               # (bucket,) int32 payload row per row
     need: np.ndarray                 # (bucket,) rows still needing backend
     tier: np.ndarray                 # (bucket,) serving tier per row
-    new_ids: np.ndarray              # (bucket, k_c) insert ids
-    new_emb: torch.Tensor            # (bucket, k_c, corpus width) on device
+    reuse: np.ndarray                # (bucket,) L2 memo reuse rows
+    l2hit: np.ndarray                # (bucket,) L2 shard-probe hit rows
+    new_ids: np.ndarray              # (bucket, k_c + prefetch_width)
+    new_emb: torch.Tensor            # (bucket, k_c + prefetch_width, corpus
+                                     # width) on the device
     rad: np.ndarray                  # (bucket,) claim radii
     rec_np: np.ndarray               # (bucket,) record the (psi, r_a) claim
     backend_ok: np.ndarray           # (bucket,) rows the backend answered
     failed: np.ndarray               # (bucket,) empty-cache outage rows
+    stale: np.ndarray                # (bucket,) stale-while-error memo rows
     admitted_at: np.ndarray          # (wave,) perf_counter admission stamps
     t_start: float                   # wave (probe-phase) start stamp
     degraded: bool = False
+    shed: bool = False               # back end fenced: load-shed wave
     outage: Optional[BaseException] = None
     probe_s: float = 0.0
     backend_s: float = 0.0
@@ -94,7 +120,9 @@ class BatchedEngine:
     engine inserts, moved to ``device`` once (None means ``cuda``; a tensor
     already there is used without a copy, so it can share storage with the
     shard's corpus).  ``dtype`` is the cache storage format (None follows
-    ``REPRO_CORPUS_DTYPE``).
+    ``REPRO_CORPUS_DTYPE``).  ``shared`` (a ``SharedTier`` on the same
+    device), ``cluster`` and ``prefetch_width``, and ``validate_every`` as
+    in the module docstring.
     """
 
     def __init__(self, router: ShardedRouter, doc_embeddings, *, dim: int,
@@ -102,11 +130,9 @@ class BatchedEngine:
                  epsilon: float = 0.04, capacity: Optional[int] = None,
                  encoder: Optional[Callable] = None,
                  dtype: Optional[str] = None,
-                 shared=None, cluster=None,
-                 telemetry: Optional[ServeTelemetry] = None, device=None):
-        if shared is not None or cluster is not None:
-            raise NotImplementedError(
-                "the shared L2 tier and cluster prefetch are not ported yet")
+                 shared=None, cluster=None, prefetch_width: int = 0,
+                 telemetry: Optional[ServeTelemetry] = None,
+                 validate_every: int = 0, device=None):
         self.device = resolve_device(device)
         self.router = router
         self.doc_embeddings = torch.as_tensor(doc_embeddings,
@@ -114,16 +140,66 @@ class BatchedEngine:
         self.n_sessions = n_sessions
         self.k, self.k_c, self.epsilon = k, k_c, epsilon
         self.encoder = encoder
+        self.cluster = cluster
+        self.prefetch_width = int(prefetch_width) if cluster is not None \
+            else 0
+        if cluster is not None and self.prefetch_width > cluster.max_width:
+            raise ValueError(
+                f"prefetch_width {self.prefetch_width} exceeds the cluster "
+                f"index's neighbor tables (max_width {cluster.max_width})")
+        self._prefetched: list[set] = [set() for _ in range(n_sessions)]
+        self.prefetch_issued = 0       # docs inserted via prefetch
+        self.prefetch_warm_hits = 0    # prefetched docs in cache-served turns
+        self.insert_traffic_docs = 0   # docs offered to the L1 insert launch
         self.cache = BatchedMetricCache(CacheConfig(
             capacity=capacity or 16 * k_c, dim=dim, epsilon=epsilon,
             store_dtype=quant.resolve_dtype(dtype)), n_sessions, self.device)
+        self.shared = shared
+        if shared is not None:
+            if shared.cfg.dim != dim:
+                raise ValueError("shared tier dim mismatch")
+            if shared.device != self.cache.device:
+                raise ValueError(f"shared tier on {shared.device}, engine "
+                                 f"on {self.cache.device}")
+        # the shared tier's host structures are touched from the probe and
+        # fill phases and the backend phase (a side thread when waves
+        # overlap): its sections serialize on this lock
+        self._shared_lock = threading.Lock()
         self.telemetry = telemetry if telemetry is not None \
             else ServeTelemetry()
+        self.validate_every = int(validate_every)
+        self.quarantined = 0
+        self._waves = 0
         self.turns: list[list[EngineTurn]] = [[] for _ in range(n_sessions)]
+        # admission identity (slot, generation): bumped by start_session so
+        # a recycled slot never inherits its predecessor's votes
+        self._gen = np.zeros((n_sessions,), np.int64)
 
     def start_session(self, session: int):
         self.cache.reset([session])
         self.turns[session] = []
+        self._prefetched[session].clear()
+        self._gen[session] += 1
+
+    def quarantine_invalid(self) -> np.ndarray:
+        """Run ``cache_ops.validate_state`` over the stacked session caches
+        and reset every slot whose invariants are broken (its next turn is
+        a compulsory miss).  Returns the reset slots."""
+        ok, _problems = validate_state(
+            self.cache.state, self.cache.cfg,
+            n_corpus=int(self.doc_embeddings.shape[0]))
+        bad = np.nonzero(~np.asarray(ok))[0]
+        if bad.size:
+            self.cache.reset(bad.tolist())
+            for s in bad:
+                self._prefetched[int(s)].clear()
+            self.quarantined += int(bad.size)
+            self.telemetry.record_fault("quarantined_slots", int(bad.size))
+        return bad
+
+    def _token(self, slot) -> tuple:
+        """The slot's current admission identity for the shared tier."""
+        return (int(slot), int(self._gen[int(slot)]))
 
     def _bucket(self, n: int) -> int:
         """Wave sizes padded to powers of two (capped at n_sessions), the
@@ -133,13 +209,29 @@ class BatchedEngine:
             b *= 2
         return min(b, self.n_sessions)
 
+    def _put_docs(self, new_emb: torch.Tensor, runs: list) -> None:
+        """``new_emb[row, col0:col0 + len(ids)] = doc_embeddings[ids]`` for
+        every (row, col0, ids) run: one gather on the device."""
+        if not runs:
+            return
+        rows = np.concatenate([np.full(len(i), r) for r, _, i in runs])
+        cols = np.concatenate([np.arange(c, c + len(i)) for _, c, i in runs])
+        ids = np.concatenate([i for _, _, i in runs])
+        t = lambda x: torch.as_tensor(x, dtype=torch.int64,  # noqa: E731
+                                      device=self.device)
+        new_emb[t(rows), t(cols)] = self.doc_embeddings[t(ids)]
+
     # ------------------------------------------------------- probe phase
     def probe_wave(self, sessions, queries,
                    admitted_at: Optional[Sequence[float]] = None
                    ) -> WaveState:
         """Phase 1: encoder + L1 probe over the wave's gathered cache rows
-        (every leaf but the payload).  Never writes the stacked state."""
+        (every leaf but the payload), then the tiered L2 lookups.  Never
+        writes L1."""
         t_start = time.perf_counter()
+        self._waves += 1
+        if self.validate_every and self._waves % self.validate_every == 0:
+            self.quarantine_invalid()
         sids = np.asarray(sessions, np.int32)
         if np.unique(sids).size != sids.size:
             raise ValueError("one turn per session per wave")
@@ -162,12 +254,14 @@ class BatchedEngine:
         need = np.logical_or(n_queries == 0, ~pr.hit.cpu().numpy())
         need[wave:] = False
         tier = np.where(need, "backend", "l1").astype(object)
+        width = self.k_c + self.prefetch_width
         ws = WaveState(
             sids=sids, pad_sids=pad_sids, wave=wave, bucket=bucket,
             psi=psi, psi_np=psi.cpu().numpy(), sub=sub,
             rows=self.cache.wave_rows(pad_sids), need=need, tier=tier,
-            new_ids=np.full((bucket, self.k_c), -1, np.int64),
-            new_emb=torch.zeros((bucket, self.k_c,
+            reuse=np.zeros((bucket,), bool), l2hit=np.zeros((bucket,), bool),
+            new_ids=np.full((bucket, width), -1, np.int64),
+            new_emb=torch.zeros((bucket, width,
                                  self.doc_embeddings.shape[1]),
                                 dtype=self.doc_embeddings.dtype,
                                 device=self.device),
@@ -175,22 +269,76 @@ class BatchedEngine:
             rec_np=np.zeros((bucket,), bool),
             backend_ok=np.zeros((bucket,), bool),
             failed=np.zeros((bucket,), bool),
+            stale=np.zeros((bucket,), bool),
             admitted_at=admitted, t_start=t_start)
+        if self.shared is not None:
+            with self._shared_lock:
+                self.shared.tick()
+                if need.any():
+                    ws.need = self._probe_shared(ws)
+            ws.tier[ws.reuse] = "l2_reuse"
+            ws.tier[ws.l2hit] = "l2"
         ws.probe_s = time.perf_counter() - t_start
         return ws
 
+    def _probe_shared(self, ws: WaveState) -> np.ndarray:
+        """Tiered lookups for the L1 misses (the caller holds the shared
+        lock).  Returns the residual miss mask after memo reuse and L2
+        hits."""
+        l2 = self.shared
+        runs: list = []
+        # L2a — the result memo (host, no launch): a near-duplicate of
+        # ANOTHER session's query reuses its k_c result set and records
+        # the triangle-corrected claim when it still clears epsilon
+        for i in np.nonzero(ws.need)[0]:
+            m = l2.memo_lookup(self._token(ws.pad_sids[i]), ws.psi_np[i])
+            if m is None:
+                continue
+            m_ids, _m_scores, claim = m
+            ws.reuse[i] = True
+            n = min(self.k_c, m_ids.shape[0])
+            ws.new_ids[i, :n] = m_ids[:n]
+            runs.append((i, 0, np.maximum(m_ids[:n], 0)))
+            if claim >= self.epsilon:
+                ws.rad[i] = claim
+                ws.rec_np[i] = True
+            # the reusing session is a distinct retriever of these docs
+            l2.offer(self._token(ws.pad_sids[i]), ws.psi_np[i], claim,
+                     ws.new_emb[i], ws.new_ids[i])
+        rem = np.logical_and(ws.need, ~ws.reuse)
+        if rem.any():
+            # L2b — launch 2: the same probe kernel over the gathered shard
+            # rows (the whole bucket; results masked to the residual misses)
+            shards = l2.route(ws.psi_np)
+            l2pr = l2.probe_rows(ws.psi, shards)
+            ws.l2hit[:] = np.logical_and(l2pr.hit.cpu().numpy(), rem)
+            if ws.l2hit.any():
+                # covered by a shared claim: the shard's top k (one
+                # wave-kernel launch, only when L2 serves someone)
+                _s2, _d2, i2, _sl2 = l2.query_rows(ws.psi, shards, self.k)
+                i2_np = i2.cpu().numpy()
+                for i in np.nonzero(ws.l2hit)[0]:
+                    row = i2_np[i][i2_np[i] >= 0]
+                    n = min(self.k_c, row.shape[0])
+                    ws.new_ids[i, :n] = row[:n]
+                    runs.append((i, 0, row[:n]))
+            rem = np.logical_and(rem, ~ws.l2hit)
+        self._put_docs(ws.new_emb, runs)
+        return rem
+
     # ----------------------------------------------------- backend phase
     def backend_wave(self, ws: WaveState) -> WaveState:
-        """Phase 2: ``router.search`` over the miss subset (launch 2 runs
-        inside the router's shards).  A total back-end failure marks the
-        empty-cache miss rows failed and raises only when every real row is
-        in that state; a fenced back end (every breaker open) load-sheds
-        the wave."""
+        """Phase 2: ``router.search`` over the residual miss subset (the
+        kNN launch runs inside the router's shards).  A total back-end
+        failure walks the degradation ladder and raises only when every
+        real row failed; a fenced back end (every breaker open) load-sheds
+        the wave without searching."""
         t0 = time.perf_counter()
         need, wave = ws.need, ws.wave
         try:
             if need.any():
                 if getattr(self.router, "backend_open", False):
+                    ws.shed = True
                     self.telemetry.record_fault("shed_waves")
                     self.telemetry.record_fault(
                         "shed_turns", int(need[:wave].sum()))
@@ -211,16 +359,28 @@ class BatchedEngine:
                     # r_a from the last VALID column of each row
                     radii = radius_from_scores(np.take_along_axis(
                         ans.scores, n_valid[:, None] - 1, axis=1)[:, 0])
-                    ws.new_ids[miss] = ans.ids
+                    ws.new_ids[miss, :self.k_c] = ans.ids
                     idx = torch.as_tensor(np.maximum(ans.ids, 0),
                                           device=self.device)
-                    ws.new_emb[torch.as_tensor(miss, device=self.device)] = \
-                        self.doc_embeddings[idx]
+                    ws.new_emb[torch.as_tensor(miss, device=self.device),
+                               :self.k_c] = self.doc_embeddings[idx]
                     ws.rad[miss] = radii
                     # a degraded merge misses shards: keep the docs, skip
                     # the (psi, r_a) record so no cache learns a false claim
                     ws.rec_np[miss] = not degraded
                     ws.backend_ok = need.copy()
+                    if self.shared is not None and not degraded:
+                        # fresh retrievals feed the shared tier: memoized
+                        # for reuse, offered toward admission
+                        with self._shared_lock:
+                            for j, i in enumerate(miss):
+                                tok = self._token(ws.pad_sids[i])
+                                self.shared.memo_record(
+                                    tok, ws.psi_np[i], ans.ids[j],
+                                    ans.scores[j], float(radii[j]))
+                                self.shared.offer(
+                                    tok, ws.psi_np[i], float(radii[j]),
+                                    ws.new_emb[i], ws.new_ids[i])
                 except TimeoutError as e:
                     self._outage_fallback(ws, e)
                     if ws.failed[:wave].all():
@@ -230,22 +390,66 @@ class BatchedEngine:
             ws.backend_s = time.perf_counter() - t0
 
     def _outage_fallback(self, ws: WaveState, e: BaseException) -> None:
-        """A shed or failed search: warm-cache rows answer from their caches
-        (the fill phase's query path), empty-cache rows fail."""
+        """The degradation ladder of a shed or failed search: warm-cache
+        rows answer from their caches (the fill phase's query path),
+        empty-cache rows try the L2 memo stale-while-error (TTL and
+        same-session gates waived; the docs warm L1, the claim is never
+        recorded), and only rows with neither fail."""
         ws.degraded = True
         ws.outage = e
-        ws.failed = np.logical_and(ws.need, ws.sub.n_docs.cpu().numpy() == 0)
+        failed = np.logical_and(ws.need, ws.sub.n_docs.cpu().numpy() == 0)
+        if self.shared is not None and failed.any():
+            runs: list = []
+            with self._shared_lock:
+                for i in np.nonzero(failed)[0]:
+                    m = self.shared.memo_lookup(
+                        self._token(ws.pad_sids[i]), ws.psi_np[i],
+                        allow_stale=True)
+                    if m is None:
+                        continue
+                    m_ids, _m_scores, _claim = m
+                    ws.reuse[i] = True
+                    ws.stale[i] = True
+                    ws.tier[i] = "l2_reuse"
+                    n = min(self.k_c, m_ids.shape[0])
+                    ws.new_ids[i, :n] = m_ids[:n]
+                    runs.append((i, 0, np.maximum(m_ids[:n], 0)))
+                    failed[i] = False        # rec_np stays False: no claim
+                    self.telemetry.record_fault("stale_served")
+            self._put_docs(ws.new_emb, runs)
+        ws.failed = failed
 
     # -------------------------------------------------------- fill phase
     def fill_wave(self, ws: WaveState) -> list:
-        """Phase 3: the fused insert+query launch (or the query launch of a
-        missless wave) on the stacked payload, the scatter back of the small
-        leaves, and one ``EngineTurn`` per real session in input order (a
+        """Phase 3: the cluster prefetch, the fused insert+query launch (or
+        the query launch of a wave with nothing to insert) on the stacked
+        payload, the scatter back of the small leaves, the admission flush,
+        and one ``EngineTurn`` per real session in input order (a
         ``TimeoutError`` for a failed one)."""
         t0 = time.perf_counter()
-        fill = ws.backend_ok
+        if self.prefetch_width:
+            # widen each fresh back-end answer by its cluster's nearest
+            # documents (the extra buffer columns, the same fused launch);
+            # ball(c, d_w) cached whole makes ball(psi, d_w - ||psi - c||)
+            # cached too, so the claim widens to max(r_a, that bound)
+            runs: list = []
+            for i in np.nonzero(ws.backend_ok)[0]:
+                extra, bound = self.cluster.prefetch(
+                    ws.psi_np[i], ws.new_ids[i, :self.k_c],
+                    self.prefetch_width)
+                if extra.size:
+                    ws.new_ids[i, self.k_c:self.k_c + extra.size] = extra
+                    runs.append((i, self.k_c, extra))
+                    self.prefetch_issued += int(extra.size)
+                    self._prefetched[int(ws.pad_sids[i])].update(
+                        extra.tolist())
+                if ws.rec_np[i] and bound > ws.rad[i]:
+                    ws.rad[i] = bound
+            self._put_docs(ws.new_emb, runs)
+        fill = ws.reuse | ws.l2hit | ws.backend_ok
         if fill.any():
-            # launch 3 of 3: insert + answer query, fused
+            self.insert_traffic_docs += int((ws.new_ids[fill] >= 0).sum())
+            # the last launch of the wave: insert + answer query, fused
             (scores, _dists, ids, _slots), sub, dropped = \
                 insert_query_batched(
                     ws.sub, self.cache.cfg, ws.psi, torch.as_tensor(ws.rad),
@@ -258,8 +462,11 @@ class BatchedEngine:
                 ws.sub, ws.psi, self.k, rows=ws.rows)
         able = np.nonzero(~ws.failed[:ws.wave])[0]
         # write back only real, answerable rows (padded rows shadow row 0)
-        self.cache.scatter(ws.sids[able], sub,
-                           rows=torch.as_tensor(able, device=self.device))
+        self.cache.scatter(ws.sids[able], sub, rows=able)
+        if self.shared is not None:
+            # end of wave: promote the admitted answers into their shards
+            with self._shared_lock:
+                self.shared.flush_admissions()
         ids_np, scores_np = ids.cpu().numpy(), scores.cpu().numpy()
 
         resolved = time.perf_counter()
@@ -273,18 +480,28 @@ class BatchedEngine:
                     f" ({ws.outage})"))
                 continue
             real = ids_np[i] >= 0
+            row_ids = ids_np[i][real]
             row_tier = str(ws.tier[i])
+            pre = self._prefetched[int(s)]
+            n_pre = (sum(1 for d in row_ids.tolist() if d in pre)
+                     if pre else 0)
+            if n_pre and row_tier != "backend":
+                self.prefetch_warm_hits += n_pre
             spans = TurnSpans(
                 queue_wait_s=max(ws.t_start - float(ws.admitted_at[i]), 0.0),
                 probe_s=ws.probe_s, backend_s=ws.backend_s,
                 insert_s=insert_s,
                 total_s=resolved - float(ws.admitted_at[i]), tier=row_tier)
-            turn = EngineTurn(ids=ids_np[i][real], scores=scores_np[i][real],
+            # a degraded wave degrades its backend rows and any row served
+            # stale-while-error (fresh tier hits stay first-class)
+            turn = EngineTurn(ids=row_ids, scores=scores_np[i][real],
                               hit=row_tier != "backend",
                               degraded=bool(ws.degraded
-                                            and row_tier == "backend"),
+                                            and (row_tier == "backend"
+                                                 or ws.stale[i])),
                               latency_s=spans.total_s, tier=row_tier,
-                              queue_wait_s=spans.queue_wait_s, spans=spans)
+                              queue_wait_s=spans.queue_wait_s, spans=spans,
+                              prefetch_hits=n_pre)
             if turn.degraded:
                 self.telemetry.record_fault("degraded_turns")
             self.telemetry.record_turn(spans)
@@ -311,12 +528,22 @@ class BatchedEngine:
         return float(np.mean(flags)) if flags else float("nan")
 
     def tier_counts(self, skip_first: bool = True) -> dict:
-        """Turns served per tier (``l1`` / ``backend``)."""
-        counts = {"l1": 0, "backend": 0}
+        """Turns served per tier (``l1`` / ``l2`` / ``l2_reuse`` /
+        ``backend``), each session's first turn excluded by default."""
+        counts = {"l1": 0, "l2": 0, "l2_reuse": 0, "backend": 0}
         for turns in self.turns:
             for t in (turns[1:] if skip_first else turns):
                 counts[t.tier] += 1
         return counts
+
+    def prefetch_stats(self) -> dict:
+        """Cluster-prefetch accounting: docs ``issued`` by prefetch, their
+        ``warm_hits`` in cache-served turns, the ``insert_traffic_docs``
+        offered to the L1 insert launch, and the ``width``."""
+        return {"issued": self.prefetch_issued,
+                "warm_hits": self.prefetch_warm_hits,
+                "insert_traffic_docs": self.insert_traffic_docs,
+                "width": self.prefetch_width}
 
 
 class SessionManager:

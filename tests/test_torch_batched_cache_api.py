@@ -245,9 +245,7 @@ def test_session_manager_batcher_is_the_scheduler():
 
 
 def test_core_exports_the_reference_names_it_has():
-    deferred = {"ClusterIndex", "build_cluster_index", "SharedTier"}
-    assert set(tcore.__all__) == set(jcore.__all__) - deferred
+    # every name of repro.core, and the assignment step beside the build
+    assert set(tcore.__all__) == set(jcore.__all__) | {"assign_clusters"}
     for name in tcore.__all__:
         assert getattr(tcore, name) is not None, name
-    for name in deferred:
-        assert name in tcore.__doc__

@@ -1114,3 +1114,209 @@ def test_embedding_bag_persistent_grid_walks_every_bag(card, d, dtype):
                         dtype=torch.int32)
     got = bag_ops.embedding_bag(table, idx)
     assert torch.equal(got, bag_ref.embedding_bag(table, idx))
+
+
+# ------------------------------------- the tiered wave's shapes (cluster, L2)
+@pytest.mark.parametrize("b", [1, 2048, 9000])
+def test_knn_assignment_shape_matches_plain(card, b):
+    """k-means assignment: 64 centroids zero-padded to the corpus width as
+    the corpus (less than one score tile), k = 1; equal scores keep the
+    lower centroid id."""
+    cents = tc.pad_features(_unit(64, DIM, gen=card), 800)
+    cents[40] = cents[7]                    # a tie: id 7 must win
+    ids = torch.arange(64, dtype=torch.int32, device="cuda")
+    q = _unit(b, DIM, gen=card)
+    q[0] = cents[7, :DIM]
+    dispatch.reset_counters()
+    v, i = knn_ops.knn_search(cents, ids, q, 1)
+    c = dispatch.counters()
+    assert c["knn_score"].launches == c["knn_select"].launches == 1
+    rv, ri = knn_ref.search(cents, ids, tc.pad_features(q, 800), 1)
+    assert_topk_agree(v, i, rv, ri, TOL, f"assignment b={b}")
+    assert int(i[0, 0]) == 7
+
+
+def test_knn_neighbour_table_shape_matches_plain(card):
+    """The cluster index's neighbour tables: 64 centroids as queries, k =
+    256, over a corpus of 1,000,003 documents."""
+    docs, ids = _knn_corpus(card, 1_000_003)
+    q = _unit(64, DIM, gen=card)
+    v, i = knn_ops.knn_search(docs, ids, q, 256)
+    rv, ri = knn_ref.search(docs, ids, tc.pad_features(q, 800), 256)
+    assert_topk_agree(v, i, rv, ri, TOL, "neighbour tables")
+
+
+def _l2_tier(gen, n_shards=4, capacity=8000):
+    from repro_torch.core.shared import SharedTier
+
+    tier = SharedTier(dim=DIM, n_shards=n_shards, capacity=capacity,
+                      admission_sessions=1, device="cuda")
+    tier.tick()
+    for i in range(12):                      # three answers a shard
+        psi = _unit(DIM, gen=gen).cpu().numpy()
+        tier.offer(("s", i), psi, 0.6, _unit(1128, 800, gen=gen),
+                   np.arange(1128) + 1128 * i)
+    tier.flush_admissions()
+    return tier
+
+
+def test_l2_probe_and_query_over_repeated_shard_rows(card):
+    """The L2 probe (S = 64 over 4 shard rows, 256-record rings) and the L2
+    query (capacity 8000, k = 10, through rows=) against the plain
+    versions on copies of the same state; the shard rows' stamps and step
+    are the last occurrence's."""
+    from repro_torch.core.cache_ops import probe_batched, query_batched
+
+    tier = _l2_tier(card)
+    psi = _unit(64, DIM, gen=card)
+    shards = tier.route(psi.cpu().numpy())
+    sub = tier.shards.gather(shards, payload=False)
+    dispatch.reset_counters()
+    got = tier.probe_rows(psi, shards)
+    assert dispatch.counters()["cache_probe"].launches == 1
+    cpu_sub = tc.CacheState(*(x.cpu() for x in sub))
+    want = probe_batched(cpu_sub, psi.cpu(), tier.cfg.epsilon,
+                         max_queries=256)
+    assert torch.equal(got.hit.cpu(), want.hit)
+    assert_close(got.r_hat, want.r_hat.cuda(), 1e-4, "L2 r_hat")
+    before = tc.CacheState(*(x.clone() for x in tier.state))
+    out = tier.query_rows(psi, shards, 10)
+    assert dispatch.counters()["wave_query_topk"].launches == 1
+    ref_sub = tc.CacheState(*(x[torch.as_tensor(shards)].cpu()
+                              for x in before))
+    (rv, _rd, ri, _rs), ref_sub = query_batched(ref_sub, psi.cpu(), 10)
+    assert_topk_agree(out[0], out[2], rv, ri, TOL, "L2 query")
+    last = {int(s): r for r, s in enumerate(shards)}
+    for s, r in last.items():
+        assert torch.equal(tier.state.step[s].cpu(), ref_sub.step[r])
+        assert torch.equal(tier.state.doc_stamp[s].cpu(),
+                           ref_sub.doc_stamp[r])
+
+
+def test_admission_flush_insert_matches_plain(card):
+    """The flush's insert (S <= 4 shard rows, 1128 rows each, LRU) writes
+    the stacked shard state as the plain version does, bit for bit."""
+    from repro_torch.core.shared import SharedTier
+
+    states = []
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        tier = SharedTier(dim=DIM, n_shards=4, capacity=3000,
+                          admission_sessions=1, device=dev)
+        tier.tick()
+        for i in range(6):
+            psi = _unit(DIM, gen=g).cpu().numpy()
+            tier.offer(("s", i), psi, 0.6,
+                       _unit(1128, 800, gen=g).to(dev),
+                       np.arange(1128) + 700 * i)
+        dispatch.reset_counters()
+        tier.flush_admissions()
+        if dev == "cuda":
+            assert dispatch.counters()["wave_insert_scatter"].launches >= 2
+        states.append([x.cpu() for x in tier.state])
+    for a, b, f in zip(*states, tc.CacheState._fields):
+        assert torch.equal(a, b), f
+
+
+def test_repeated_shard_query_keeps_the_last_rows_stamps(card):
+    """A wave that queries one shard from three rows writes back that
+    shard's LRU stamps and ``step`` from its last row, on the card as on
+    the CPU."""
+    from repro_torch.core.shared import SharedTier
+
+    emb = _unit(40, DIM, gen=card)
+    psi = _unit(DIM, gen=card).cpu().numpy()
+    states = []
+    for dev in ("cuda", "cpu"):
+        tier = SharedTier(dim=DIM, n_shards=2, capacity=64,
+                          admission_sessions=1, device=dev)
+        shard = int(tier.route(psi[None])[0])
+        tier.tick()
+        assert tier.offer(("a", 1), psi, 0.5, emb.to(dev), np.arange(40))
+        tier.flush_admissions()
+        q = emb[[0, 39, 17, 5]].to(dev)
+        out = tier.query_rows(q, np.array([shard, 1 - shard, shard, shard]),
+                              3)
+        states.append([x.cpu() for x in tier.state])
+        # stamped once (step 1), at the last row's slots only
+        want = np.zeros(40, np.int64)
+        want[out[3][3].cpu().numpy()] = 1
+        assert int(tier.state.step[shard]) == 2
+        np.testing.assert_array_equal(
+            tier.state.doc_stamp[shard, :40].cpu().numpy(), want)
+    for a, b, f in zip(*states, tc.CacheState._fields):
+        assert torch.equal(a, b), f
+
+
+def test_cluster_build_is_deterministic_and_equals_cpu(card):
+    """Two builds on the card are bit-identical, and equal the CPU build's
+    assignments and tables (centroids within 1e-5)."""
+    from repro_torch.core.cluster import build_cluster_index
+    from repro_torch.core.metric_index import MetricIndex
+
+    centres = _unit(16, DIM, gen=card)
+    labels = torch.randint(0, 16, (200_003,), generator=card, device="cuda")
+    docs = tc.pad_features(torch.nn.functional.normalize(
+        centres[labels] + 0.02 * torch.randn(200_003, DIM, generator=card,
+                                             device="cuda"), dim=1), 800)
+    idx = MetricIndex(docs, transformed=True, dim=DIM, device="cuda")
+    assert idx.doc_emb.data_ptr() == docs.data_ptr()      # no copy
+    a = build_cluster_index(idx, 16, iters=4, max_width=64)
+    b = build_cluster_index(idx, 16, iters=4, max_width=64)
+    for f in ("centroids", "assign", "member_ids", "near_ids", "near_d"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    c = build_cluster_index(MetricIndex(docs.cpu(), transformed=True,
+                                        dim=DIM, device="cpu"),
+                            16, iters=4, max_width=64)
+    assert a.n_iters == c.n_iters
+    np.testing.assert_allclose(a.centroids, c.centroids, atol=1e-5)
+    assert np.array_equal(a.assign, c.assign)
+    np.testing.assert_allclose(a.near_d, c.near_d, atol=1e-5)
+
+
+def test_tiered_engine_on_card_matches_cpu(card):
+    """The tiered engine (SharedTier with a cluster index, prefetch) on
+    the card answers wave for wave as the CPU path does, with the same
+    counters."""
+    from repro_torch.core.embedding import transform_documents
+    from repro_torch.core.embedding import transform_queries
+    from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.core.shared import SharedTier
+    from repro_torch.data.conversations import WorldConfig, make_world
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.serve.router import ShardedRouter
+    from repro_torch.serve.session import BatchedEngine
+
+    w = make_world(WorldConfig(n_topics=4, docs_per_topic=500,
+                               n_background=1000, dim=64, turns=5,
+                               n_conversations=3, seed=4))
+    docs = transform_documents(torch.as_tensor(w.doc_emb,
+                                               dtype=torch.float32))[0]
+    qs = [transform_queries(torch.as_tensor(c.queries, dtype=torch.float32))
+          for c in w.conversations * 2]        # two sessions a conversation
+    ci = MetricIndex(docs, transformed=True, device="cuda").cluster(
+        8, max_width=32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ids = np.arange(docs.shape[0], dtype=np.int32)
+        with ShardedRouter([DeviceShard(docs, ids, device=dev)],
+                           deadline_s=60) as router:
+            tier = SharedTier(dim=docs.shape[1], n_shards=2, capacity=1024,
+                              cluster=ci, device=dev)
+            eng = BatchedEngine(router, docs, dim=docs.shape[1],
+                                n_sessions=6, k=10, k_c=100, capacity=1200,
+                                shared=tier, cluster=ci, prefetch_width=32,
+                                validate_every=2, device=dev)
+            # sessions 3-5 replay 0-2's conversations afterwards: L2 serves
+            turns = [eng.answer_batch(list(g), [qs[s][t] for s in g])
+                     for g in (range(3), range(3, 6)) for t in range(5)]
+            out[dev] = (turns, (tier.n_promoted, tier.n_memo_served,
+                                eng.prefetch_stats(), eng.tier_counts()))
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][1][3]["l2"] + out["cuda"][1][3]["l2_reuse"] > 0
+    for wa, wb in zip(out["cuda"][0], out["cpu"][0]):
+        for a, b in zip(wa, wb):
+            assert a.tier == b.tier
+            assert_topk_agree(a.scores[None], a.ids[None], b.scores[None],
+                              b.ids[None], TOL, "tiered engine turn")

@@ -61,7 +61,9 @@ def no_card(monkeypatch):
 def test_default_device_raises_without_a_card(no_card):
     from repro_torch.core.cache import BatchedMetricCache, MetricCache
     from repro_torch.core.cache_ops import CacheConfig, init_batched_cache
+    from repro_torch.core.cluster import assign_clusters
     from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.core.shared import SharedTier
     from repro_torch.dist.retrieval import DeviceShard
     from repro_torch.kernels.dispatch import resolve_device
     from repro_torch.serve.engine import ConversationalEngine
@@ -76,6 +78,8 @@ def test_default_device_raises_without_a_card(no_card):
                  lambda: DeviceShard(docs, np.arange(6)),
                  lambda: BatchedEngine(None, docs, dim=5, n_sessions=2),
                  lambda: MetricCache(cfg),
+                 lambda: SharedTier(dim=5),
+                 lambda: assign_clusters(docs, docs[:2]),
                  lambda: ConversationalEngine(None, docs, dim=5)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
