@@ -64,7 +64,31 @@ Run from the repository root.  Phases, each fatal on failure:
      dim 768) plus background distractors drawn on the card from a seeded
      generator fill the corpus to N = 8,841,823 (the MS MARCO passage
      collection of TREC CAsT 2019); one Eq. 1 M over the whole corpus.
-  6. ab      — the two-stage A/B baseline over that corpus:
+  6. encoder — the paper's query encoder (``make_lm_query_encoder`` over
+     the dense transformer, plain PyTorch: the JAX package has no
+     attention kernel).  The four smoke configs (star-encoder,
+     chatglm3-6b, gemma2-9b, mistral-large-123b) with the same parameters
+     on the card and on the CPU path (hidden states within 1e-5); then
+     ``star_encoder.full_config()`` (12 layers, d 768, 12 heads, d_ff
+     3072, vocab 30,522, f32) with seeded random weights (no STAR weights
+     offline) and a (768, 768) ``proj``: psi of 8 rows (lengths 8-64, -1
+     pads) card against CPU within 1e-4, unit norm within 1e-5; encode
+     timed at B = 1 and B = 64 rows of 64 tokens (device and back to
+     back) beside its bound (2 x 113.26 M x tokens + attention
+     operations; the 453 MB of layer weights), one ``torch.profiler``
+     forward at each (device activities, and device ms by part: products,
+     attention, norms, RoPE, the rest).  Then token turns (a 16-token
+     prefix from ``data.lm.TokenStream`` + an 8-48-token suffix; turns 4
+     and 8 repeat turns 1 and 5): ``ConversationalEngine(encoder=lambda
+     t: encode(t[None])[0])`` over 8 conversations x 10 turns ([engine]'s
+     launches per turn; hits and misses; turn p50 of each and the
+     encoder's share), and ``SessionManager`` -> ``BatchedEngine(64
+     sessions, ..., encoder=encode)`` over 64 conversations x 10 turns
+     (rows padded to 64 tokens; one encoder call a wave, [main]'s
+     launches per wave; probe and fill span p50, peak memory above the
+     corpus).  Every miss turn of both equals the exact top-k of the psi
+     it probed with.
+  7. ab      — the two-stage A/B baseline over that corpus:
      ``knn_search(two_stage=True)`` for the 64 first turns at k = k_c =
      1000 (one launch of the fused tile kernel, one of the merge's
      select), against the fused search and the plain two-stage version;
@@ -72,7 +96,7 @@ Run from the repository root.  Phases, each fatal on failure:
      the merge (beside its plain sort and ``torch.topk``), the kept pair
      (``knn_score`` + ``knn_tile_select``) on the same queries, and the
      whole two-stage search beside the fused one.
-  7. main    — the batched serving path: ``SessionManager`` ->
+  8. main    — the batched serving path: ``SessionManager`` ->
      ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity=
      16000)`` -> ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns
      of every conversation, then one round that re-asks each last turn.  3
@@ -81,7 +105,7 @@ Run from the repository root.  Phases, each fatal on failure:
      the whole corpus, and the same engine on a small input answers as the
      CPU path does.  Prints each wave's bucket, the p50 of the probe and
      fill spans, and the serve's own peak device memory.
-  8. tiered  — the tiered wave on the same corpus.  First, on the 60,000
+  9. tiered  — the tiered wave on the same corpus.  First, on the 60,000
      world docs (one 16-cluster index built on the card), the tiered
      engine on the card and on the CPU path answers alike: tiers, ids and
      counters (promotions, memo serves, prefetch accounting).  Then the
@@ -108,7 +132,7 @@ Run from the repository root.  Phases, each fatal on failure:
      admission insert, the widened fill) against their plain versions,
      timed beside ``torch.max(q @ C.T, 1)`` / ``torch.topk(q @ D.T,
      256)`` where one call computes the same function.
-  9. paper   — Algorithm 1 for one session: ``ConversationalSearcher(
+  10. paper  — Algorithm 1 for one session: ``ConversationalSearcher(
      MetricIndex(corpus), k=200, k_c=1000, epsilon=0.04, capacity=12000)``
      under the ``none``, ``static`` and ``dynamic`` policies over the 64
      conversations, with Table 1's columns (hit rate over turns 2-10,
@@ -118,20 +142,21 @@ Run from the repository root.  Phases, each fatal on failure:
      turn one probe and one cache query, per miss one kNN search and one
      insert.  First, on 8 conversations x 4 turns over the 60,000 world
      docs (k_c=100), the card answers as the CPU path does.
-  10. engine — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
+  11. engine — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
      (corpus)])`` serves 8 conversations x 10 turns (k=10, k_c=1000) and
      agrees turn for turn with the dynamic searcher.
 
 ``--phases`` runs a subset (``probe,recsys,paper`` also drives the
 parent package, whose entries these phases share, for a comparison in one
-call).  Every path (recsys, ab, main, the cluster build, tiered, chaos,
-the three paper runs, engine) runs
+call).  Every path (recsys, the encoder's two engines, ab, main, the
+cluster build, tiered, chaos, the three paper runs, engine) runs
 with the kernel
 counters zeroed just before it and read just after; each checks its own
 launch accounting, and the ``launches`` of the kernels line are their sums.
 The line also holds ``knn_score_b1`` and ``knn_select_b1``: the same two
 kernels timed at the single-query shape, with the launches of [paper] and
-[engine], where every kNN search is a single query; and
+[engine] (and of [encoder]'s one session), where every kNN search is a
+single query; and
 ``wave_query_topk_s1`` and ``wave_insert_scatter_s1``: the wave kernel at
 one session (every cache query and insert of [paper] and [engine]), timed
 with the stream's queue filled ahead so that the wrapper's host time
@@ -204,8 +229,8 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 P99_CALLS = 51                     # the first is a warm-up, not in the stats
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
-PHASES = ("kernels", "probe", "recsys", "ab", "main", "tiered", "paper",
-          "engine")
+PHASES = ("kernels", "probe", "recsys", "encoder", "ab", "main", "tiered",
+          "paper", "engine")
 XDEEPFM_CHUNK = 16_384
 # [tiered]: the L2 tier, the cluster index and the traffic of
 # serve_bench.bench_zipf; [chaos]: bench_chaos at 8 sessions x 10 rounds
@@ -215,6 +240,14 @@ ASSIGN_CHUNK = 16_384         # corpus rows a k-means assignment scan
 GENERATIONS, ZIPF_ALPHA, ZIPF_JITTER = 3, 1.1, 0.005
 CHAOS_SESSIONS, CHAOS_ROUNDS, CHAOS_SEED = 8, 10, 23
 SEED = 0                      # --seed
+# [encoder]: token turns of ENC_PREFIX + ENC_SUFFIX tokens (at most ENC_SEQ)
+# through the STAR encoder at full width; the ENC_REPEATS turns repeat an
+# earlier turn verbatim.  Hidden states of the smoke configs, card against
+# CPU, within ENC_SMOKE_TOL; psi at full width within ENC_PSI_TOL (unit
+# norm, 12 layers of f32 sums in other orders)
+ENC_SEQ, ENC_PREFIX, ENC_SUFFIX, ENC_TURNS = 64, 16, (8, 48), 10
+ENC_REPEATS = {4: 1, 8: 5}
+ENC_SMOKE_TOL, ENC_PSI_TOL = 1e-5, 1e-4
 # the kernels again at the tiered path's shapes; their launches are those
 # of [tiered] (the assignment's and tables' those of the cluster build)
 TIER_ROWS = {"knn_score_assign": "knn_score", "knn_select_assign":
@@ -1541,11 +1574,12 @@ def ab_phase(torch, rep: Report, corpus, streams):
 
 # ------------------------------------------------------------ main path
 def serve(torch, corpus, streams, *, n_sessions, k_c, capacity, device,
-          waves_seen=None):
+          waves_seen=None, encoder=None, reask=True):
     """Serve every session's turns through SessionManager, round by round,
-    then one round re-asking each last turn.  Returns the engine.  Each
-    wave appends (misses, bucket, probe span s, fill span s) to
-    ``waves_seen`` when given."""
+    then (``reask``) one round re-asking each last turn.  Returns the
+    engine.  Each wave appends (misses, bucket, probe span s, fill span s)
+    to ``waves_seen`` when given.  With an ``encoder`` the turns are token
+    rows of one width."""
     import numpy as np
 
     from repro_torch.dist.retrieval import DeviceShard
@@ -1558,7 +1592,7 @@ def serve(torch, corpus, streams, *, n_sessions, k_c, capacity, device,
         engine = BatchedEngine(router, corpus, dim=DIM_RAW + 1,
                                n_sessions=n_sessions, k=K, k_c=k_c,
                                epsilon=EPS, capacity=capacity, dtype="fp32",
-                               device=device)
+                               device=device, encoder=encoder)
         if waves_seen is not None:
             fill_wave = engine.fill_wave
 
@@ -1572,7 +1606,8 @@ def serve(torch, corpus, streams, *, n_sessions, k_c, capacity, device,
             engine.fill_wave = logged
         rounds = [[s[t] for s in streams[:n_sessions]]
                   for t in range(streams[0].shape[0])]
-        rounds.append([s[-1] for s in streams[:n_sessions]])
+        if reask:
+            rounds.append([s[-1] for s in streams[:n_sessions]])
         with SessionManager(engine) as mgr:
             for key in range(n_sessions):
                 mgr.open(key)
@@ -1583,9 +1618,10 @@ def serve(torch, corpus, streams, *, n_sessions, k_c, capacity, device,
     return engine
 
 
-def check_turns(engine, n_turns):
+def check_turns(sessions, n_turns):
+    """Every session's turns (lists of ``EngineTurn``) are well formed."""
     import numpy as np
-    for s, turns in enumerate(engine.turns):
+    for s, turns in enumerate(sessions):
         if len(turns) != n_turns:
             raise AssertionError(f"session {s}: {len(turns)} turns")
         for t in turns:
@@ -1660,7 +1696,7 @@ def main_phase(torch, corpus, streams):
         f"{np.percentile(fill, 50):.3f} ms (waves with misses "
         f"{np.percentile(fill[missed], 50):.3f}, without "
         f"{np.percentile(fill[~missed], 50):.3f})")
-    check_turns(engine, n_turns)
+    check_turns(engine.turns, n_turns)
     # every miss turn answers the exact top-k of the whole corpus
     miss_q, miss_t = [], []
     for s, turns in enumerate(engine.turns):
@@ -2477,6 +2513,370 @@ def engine_phase(torch, corpus, streams, dynamic):
     return launches
 
 
+# ------------------------------------------------------------ query encoder
+def token_conversations(n_conv, vocab, seed):
+    """``n_conv`` token conversations of ENC_TURNS turns: an ENC_PREFIX-token
+    topic prefix drawn from ``data.lm.TokenStream`` plus a per-turn suffix
+    of ENC_SUFFIX tokens; the ENC_REPEATS turns repeat an earlier turn of
+    the conversation verbatim.  Lists of int32 numpy rows."""
+    import numpy as np
+
+    from repro_torch.data.lm import LMBatchSpec, TokenStream
+
+    stream = TokenStream(LMBatchSpec(n_conv, ENC_SEQ, vocab, seed=seed),
+                         device="cpu")
+    steps = [stream.batch_numpy(t)["tokens"] for t in range(ENC_TURNS + 1)]
+    rng = np.random.default_rng(seed)
+    convs = []
+    for c in range(n_conv):
+        turns = []
+        for t in range(ENC_TURNS):
+            if t in ENC_REPEATS:
+                turns.append(turns[ENC_REPEATS[t]].copy())
+                continue
+            n = int(rng.integers(ENC_SUFFIX[0], ENC_SUFFIX[1] + 1))
+            turns.append(np.concatenate([steps[0][c, :ENC_PREFIX],
+                                         steps[1 + t][c, :n]]))
+        convs.append(turns)
+    return convs
+
+
+def pad_rows(rows, width):
+    """Token rows right-padded with -1 to ``width`` (an int32 array)."""
+    import numpy as np
+    out = np.full((len(rows), width), -1, np.int32)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    return out
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev)
+
+
+class Recorder:
+    """An encoder wrapper: counts calls, keeps each row's psi by its tokens
+    (the exact check reads the psi the engine probed with) and, with
+    ``sync``, the host seconds of each call up to the device's finish."""
+
+    def __init__(self, torch, encode, sync=False):
+        self.torch, self.encode, self.sync = torch, encode, sync
+        self.calls, self.seconds, self.psi = 0, [], {}
+
+    def __call__(self, tokens):
+        t0 = time.perf_counter()
+        psi = self.encode(tokens)
+        if self.sync:
+            self.torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+        self.calls += 1
+        tok = self.torch.as_tensor(tokens).cpu().numpy()
+        for row, p in zip(tok.reshape(-1, tok.shape[-1]),
+                          psi.reshape(-1, psi.shape[-1])):
+            self.psi[row[row >= 0].tobytes()] = p
+        return psi
+
+
+def encoder_ops(cfg, b, s):
+    """(operations, weight bytes) of one ``hidden_states`` + pool at (b, s):
+    2 x layer parameters x tokens for the products, plus QK^T and PV over
+    the whole (s, s) block as the blockwise attention computes it."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import init_params
+    layers = tf.param_count(init_params(cfg, device="meta")["group0_dense"])
+    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    return 2 * layers * b * s + attn, 4 * layers
+
+
+def profile_split(torch, encode, tokens):
+    """One forward under ``torch.profiler``: device ms by part (matrix
+    products outside attention, attention, RMSNorms, RoPE, the rest) and
+    the device activities launched (kernels, copies, fills).  None when the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import common as cm
+
+    parts = {"attention": "blockwise_attention", "norm": "rms_norm",
+             "rope": "rotate"}
+    saved = {name: getattr(cm, name) for name in parts.values()}
+
+    def annotated(label, fn):
+        def call(*a, **kw):
+            with record_function("encoder." + label):
+                return fn(*a, **kw)
+        return call
+
+    encode(tokens)
+    torch.cuda.synchronize()
+    try:
+        for label, name in parts.items():
+            setattr(cm, name, annotated(label, saved[name]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            encode(tokens)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(cm, name, fn)
+    events = prof.events()
+    n_device = sum(e.device_type == DeviceType.CUDA for e in events)
+    if n_device == 0:
+        return None
+    split = dict.fromkeys(["matmul", *parts, "other"], 0.0)
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        part, p = None, e
+        while p is not None and part is None:
+            if p.name.startswith("encoder."):
+                part = p.name.removeprefix("encoder.")
+            p = p.cpu_parent
+        if part is None:
+            part = "matmul" if e.name in ("aten::mm", "aten::addmm",
+                                          "aten::bmm") else "other"
+        split[part] += sum(k.duration for k in e.kernels) / 1e3
+    return n_device, split
+
+
+def encoder_phase(torch, corpus):
+    """The paper's query encoder at the STAR encoder's full width, then
+    both engines driven by token turns through it.  Returns {path:
+    launches}."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import registry, star_encoder
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_close, assert_topk_agree
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ConversationalEngine, ShardedRouter
+    from repro_torch.serve.engine import make_lm_query_encoder
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("[encoder] f32 products must run in full f32")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+
+    def rows(b, s, vocab, lengths):
+        tok = rng.integers(0, vocab, (b, s)).astype(np.int32)
+        tok[np.arange(s)[None, :] >= np.asarray(lengths)[:, None]] = -1
+        return torch.as_tensor(tok)
+
+    # 1. card against CPU, the four smoke configs, the same parameters
+    errs = {}
+    for arch in ("star-encoder", "chatglm3-6b", "gemma2-9b",
+                 "mistral-large-123b"):
+        small = registry.get(arch).smoke_config()
+        params = tf.init_params(small, device="cpu", generator=torch
+                                .Generator().manual_seed(SEED))
+        tok = rows(4, 32, small.vocab_size, [32, 25, 16, 3])
+        errs[arch] = assert_close(
+            tf.hidden_states(tree_to(params, DEV), tok.to(DEV), small),
+            tf.hidden_states(params, tok, small), ENC_SMOKE_TOL,
+            f"[encoder] {arch} smoke hidden states")
+    log(f"[encoder] smoke configs, card == CPU path (hidden states within "
+        f"{ENC_SMOKE_TOL}): " + json.dumps({a: float(f"{e:.3g}")
+                                            for a, e in errs.items()}))
+
+    # 2. full width: seeded random weights (no STAR weights offline)
+    cfg = star_encoder.full_config()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 2)
+    model = tf.Transformer(cfg, device=DEV, generator=gen)
+    d = cfg.d_model
+    proj = torch.randn(d, d, generator=gen, device=DEV) * d ** -0.5
+    encode = make_lm_query_encoder(model.params, cfg, proj, device=DEV)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cpu_encode = make_lm_query_encoder(tree_to(model.params, "cpu"), cfg,
+                                       proj.cpu(), device="cpu")
+    tok8 = rows(8, ENC_SEQ, cfg.vocab_size,
+                np.linspace(8, ENC_SEQ, 8).astype(int))
+    psi8 = encode(tok8.to(DEV))
+    err = assert_close(psi8, cpu_encode(tok8), ENC_PSI_TOL,
+                       "[encoder] full-width psi, card against CPU")
+    norms = torch.linalg.vector_norm(psi8[:, :d], dim=1)
+    if not torch.isfinite(psi8).all() or psi8.shape != (8, d + 1) or \
+            float((norms - 1).abs().max()) > 1e-5 or (psi8[:, d] != 0).any():
+        raise AssertionError(f"[encoder] malformed psi: norms {norms}")
+    del cpu_encode
+    gc.collect()
+    log(f"[encoder] {cfg.name} ({cfg.n_layers} layers, d {d}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+        f"{tf.param_count(model.params)} parameters ({weights / 1e9:.3f} "
+        f"GB); psi of 8 rows (lengths 8..{ENC_SEQ}, -1 pads) card == CPU "
+        f"path, max_abs_err={err:.3g} (tolerance {ENC_PSI_TOL}); norms 1 "
+        f"within {float((norms - 1).abs().max()):.2g}")
+
+    # 3. time one turn (B = 1) and one wave (B = 64) of 64-token rows
+    for b, reps in ((1, 20), (S, 10)):
+        tok = rows(b, ENC_SEQ, cfg.vocab_size, [ENC_SEQ] * b).to(DEV)
+        ops, nbytes = encoder_ops(cfg, b, ENC_SEQ)
+        bms, by = bound(nbytes, ops, F32_OPS)
+        # one forward a reading: its ~700 launches fit the launch queue
+        # behind the sleep, where 50 fill it and the enqueue blocks
+        got = [timed_device(torch, lambda: encode(tok), 1, strict=False)
+               for _ in range(reps)]
+        got = [ms for ms in got if ms is not None]
+        dev_ms = sum(got) / len(got) if got else float("nan")
+        b2b_ms = timed(torch, lambda: encode(tok), reps)
+        log(f"[encoder] encode B={b} x S={ENC_SEQ}: {dev_ms:.4f} ms on the "
+            f"device (queue filled ahead; {len(got)} of {reps} readings "
+            f"kept), {b2b_ms:.4f} ms back to back; "
+            f"bound {bms:.4f} ms ({by}: {ops / 1e9:.2f} GFLOP at "
+            f"{F32_OPS / 1e12:.0f} TFLOP/s f32, {nbytes / 1e6:.0f} MB of "
+            f"layer weights at {HBM_BPS / 1e12:.2f} TB/s)")
+    split = profile_split(torch, encode, tok)
+    if split is None:
+        log("[encoder] profiler split: the profiler saw no device activity "
+            "(not measured)")
+    else:
+        log(f"[encoder] profiler, one B={S} forward: {split[0]} "
+            f"device activities (kernels, copies, fills); device ms by part "
+            + json.dumps({k: round(v, 4) for k, v in split[1].items()}))
+        b1 = profile_split(torch, encode, tok[:1])
+        log(f"[encoder] profiler, one B=1 forward: "
+            f"{b1[0] if b1 else 'not measured'} device activities; device "
+            f"ms by part " + (json.dumps({k: round(v, 4) for k, v in
+                                          b1[1].items()}) if b1 else "—"))
+    del tok
+    torch.cuda.empty_cache()
+
+    convs = token_conversations(S, cfg.vocab_size, SEED)
+    n, dp = corpus.shape
+    ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    paths = {}
+
+    def exact(turns, rec, what):
+        """Every miss turn's ids are the exact top-k of the psi it probed
+        with (a plain search over the whole corpus)."""
+        miss = [(t, rec.psi[tok[tok >= 0].tobytes()]) for t, tok in turns
+                if t.tier == "backend"]
+        for lo in range(0, len(miss), 64):
+            q = torch.nn.functional.pad(torch.stack(
+                [p for _, p in miss[lo:lo + 64]]).to(DEV),
+                (0, dp - d - 1))
+            v, i = knn_ref.search(corpus, ids, q, K)
+            assert_topk_agree(np.stack([t.scores for t, _ in miss[lo:lo + 64]]),
+                              np.stack([t.ids for t, _ in miss[lo:lo + 64]]),
+                              v, i, SCORE_TOL, what)
+            torch.cuda.empty_cache()
+        return len(miss)
+
+    # 4. one session: ConversationalEngine, B = 1 encodes of each turn
+    n_conv = 8
+    rec1 = Recorder(torch, lambda t: encode(t[None])[0], sync=True)
+
+    def one_session():
+        with ShardedRouter([DeviceShard(corpus, ids, device=DEV,
+                                        dtype="fp32")],
+                           deadline_s=300) as router:
+            eng = ConversationalEngine(router, corpus, dim=d + 1, k=K,
+                                       k_c=KC, epsilon=EPS,
+                                       capacity=PAPER_CAP, dtype="fp32",
+                                       device=DEV, encoder=rec1)
+            out_ = []
+            for conv in convs[:n_conv]:
+                eng.start_session()
+                out_.append([eng.answer(tok) for tok in conv])
+            return out_
+
+    sessions, launches = counted(torch, one_session)
+    turns = [t for c in sessions for t in c]
+    misses = sum(not t.hit for t in turns)
+    want = {name: 0 for name in launches}
+    want.update(probe_rhat=len(turns), wave_query_topk=len(turns),
+                knn_score=misses, knn_select=misses,
+                wave_insert_scatter=misses)
+    if launches != want or misses in (0, len(turns)):
+        raise AssertionError(f"[encoder] one session: launches {launches} "
+                             f"!= {want} for {misses} misses of "
+                             f"{len(turns)} turns")
+    if rec1.calls != len(turns):
+        raise AssertionError(f"[encoder] {rec1.calls} encoder calls for "
+                             f"{len(turns)} turns")
+    check_turns(sessions, ENC_TURNS)
+    checked = exact([(t, tok) for c, conv in enumerate(sessions)
+                     for t, tok in zip(conv, convs[c])], rec1,
+                    "[encoder] one-session miss turns")
+    lat = np.array([t.latency_s for t in turns]) * 1e3
+    enc = np.array(rec1.seconds) * 1e3
+    hit = np.array([t.hit for t in turns])
+    log(f"[encoder] one session: {n_conv} conversations x {ENC_TURNS} "
+        f"token turns ({ENC_PREFIX}-token prefix + {ENC_SUFFIX[0]}-"
+        f"{ENC_SUFFIX[1]}-token suffix; turns {sorted(ENC_REPEATS)} repeat "
+        f"turns {[ENC_REPEATS[t] for t in sorted(ENC_REPEATS)]}): "
+        f"{int(hit.sum())} hits, {misses} misses, {checked} miss turns "
+        f"equal the exact top-{K} over {n} docs; launches {launches}")
+    p50 = {kind: (np.percentile(lat[m], 50), np.percentile(enc[m], 50))
+           for kind, m in (("hit", hit), ("miss", ~hit))}
+    log("[encoder] one session: turn p50 " + ", ".join(
+        f"{kind} {t:.3f} ms (encoder {e:.3f} ms of it, {e / t:.0%})"
+        for kind, (t, e) in p50.items())
+        + "; host clock, the encoder timed to the device's finish")
+    paths["encoder_session"] = launches
+    del sessions, turns
+    gc.collect()
+
+    # 5. the wave engine: every turn a row padded to ENC_SEQ tokens, so
+    # that every wave the scheduler forms has one width
+    streams = [pad_rows(conv, ENC_SEQ) for conv in convs]
+    recb = Recorder(torch, encode)
+    waves: list = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine, launches = counted(torch, lambda: serve(
+        torch, corpus, streams, n_sessions=S, k_c=KC,
+        capacity=CAPACITY, device=DEV, waves_seen=waves, encoder=recb,
+        reask=False))
+    peak = torch.cuda.max_memory_allocated()
+    miss = sum(1 for w in waves if w[0])
+    clean = len(waves) - miss
+    got = {name: launches.get(name, 0) for name in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(cache_probe=len(waves), knn_score=miss, knn_select=miss,
+                wave_insert_query=miss, wave_query_topk=clean)
+    if got != want or miss == 0 or clean == 0:
+        raise AssertionError(f"[encoder] waves: launches {got} != {want} "
+                             f"({miss} waves with misses, {clean} without)")
+    if recb.calls != len(waves):
+        raise AssertionError(f"[encoder] {recb.calls} encoder calls for "
+                             f"{len(waves)} waves")
+    check_turns(engine.turns, ENC_TURNS)
+    checked = exact([(t, tok) for s_, ts in enumerate(engine.turns)
+                     for t, tok in zip(ts, convs[s_])], recb,
+                    "[encoder] wave miss turns")
+    probe = np.array([w[2] for w in waves]) * 1e3
+    fill = np.array([w[3] for w in waves]) * 1e3
+    state = sum(x.numel() * x.element_size() for x in engine.cache.state)
+    log(f"[encoder] waves: {S} sessions x {ENC_TURNS} token turns in "
+        f"{len(waves)} waves ({miss} with misses at 3 launches, {clean} "
+        f"without at 2), one encoder call a wave; {checked} miss turns "
+        f"equal the exact top-{K}; hit rate {engine.hit_rate():.4f}; "
+        f"buckets {[w[1] for w in waves]}; launches {got}")
+    log(f"[encoder] waves: probe span (encoder + L1 probe) p50 "
+        f"{np.percentile(probe, 50):.3f} ms, fill span p50 "
+        f"{np.percentile(fill, 50):.3f} ms; peak device memory above the "
+        f"corpus {(peak - corpus.numel() * 4) / 1e9:.3f} GB (encoder weights "
+        f"{weights / 1e9:.3f}, L1 state {state / 1e9:.3f}; allocated before "
+        f"the serve {(base - corpus.numel() * 4) / 1e9:.3f} GB above the "
+        f"corpus)")
+    paths["encoder_wave"] = launches
+    del engine, model, encode, recb, rec1
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[encoder] phase in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2534,8 +2934,10 @@ def main() -> int:
     global SEED
     SEED = args.seed
     tier_rows = {}
-    if phases & {"kernels", "ab", "main", "tiered", "paper"}:
+    if phases & {"kernels", "encoder", "ab", "main", "tiered", "paper"}:
         world, corpus, streams = build_corpus(torch, args.seed)
+        if "encoder" in phases:
+            paths.update(encoder_phase(torch, corpus))
         if "kernels" in phases:
             knn_phase(torch, rep, corpus, streams)
         if "ab" in phases:
@@ -2559,7 +2961,8 @@ def main() -> int:
         print(smi)
         return 0
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in KERNELS}
-    launches.update({n: paths["paper"].get(k, 0) + paths["engine"].get(k, 0)
+    launches.update({n: sum(paths[p].get(k, 0) for p in
+                            ("paper", "engine", "encoder_session"))
                      for n, k in {**B1_ROWS, **S1_ROWS}.items()})
     launches.update(tier_rows)
     print(rep.line(launches))

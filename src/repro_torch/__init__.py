@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the conversational-search metric cache.
 
 The JAX package ``repro`` is the reference; this package mirrors its module
-layout (``core``, ``kernels``, ``dist``, ``serve``, ``data``) with PyTorch
+layout (``core``, ``kernels``, ``dist``, ``serve``, ``data``, ``models``,
+``configs``) with PyTorch
 idiom and hand-written CUDA kernels for an NVIDIA H100 (``csrc/``).  It
 imports neither ``jax`` nor any ``repro`` module.
 
@@ -15,7 +16,10 @@ beside it.
 from repro_torch.core.cache import MetricCache
 from repro_torch.core.conversation import ConversationalSearcher, TurnRecord
 from repro_torch.core.metric_index import MetricIndex
-from repro_torch.serve.engine import ConversationalEngine
+from repro_torch.models.transformer import Transformer
+from repro_torch.serve.engine import (ConversationalEngine,
+                                      make_lm_query_encoder)
 
 __all__ = ["MetricCache", "ConversationalSearcher", "TurnRecord",
-           "MetricIndex", "ConversationalEngine"]
+           "MetricIndex", "ConversationalEngine", "Transformer",
+           "make_lm_query_encoder"]

@@ -16,16 +16,20 @@ __all__ = ["PORTED", "RECSYS_SHAPES", "get"]
 PORTED = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
     "xdeepfm": "repro_torch.configs.xdeepfm",
+    # the dense transformer (the paper's own encoder backbone first)
+    "star-encoder": "repro_torch.configs.star_encoder",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
 }
-_SEQREC = "ROADMAP.md queue 1, item 13 (seqrec: SASRec, BERT4Rec)"
-_LM = "ROADMAP.md queue 1, item 13 (the transformer, moe)"
+_MLA_MOE = "ROADMAP.md queue 1, item 13a (MLA and MoE)"
+_SEQREC = "ROADMAP.md queue 1, item 13c (seqrec: SASRec, BERT4Rec)"
 _WAITING = {
+    "deepseek-v3-671b": _MLA_MOE,
+    "llama4-scout-17b-16e": _MLA_MOE,
     "sasrec": _SEQREC,
     "bert4rec": _SEQREC,
-    "egnn": "ROADMAP.md queue 1, item 13 (egnn)",
-    "star-encoder": "ROADMAP.md queue 1, item 13 (the transformer)",
-    **dict.fromkeys(("deepseek-v3-671b", "llama4-scout-17b-16e",
-                     "chatglm3-6b", "mistral-large-123b", "gemma2-9b"), _LM),
+    "egnn": "ROADMAP.md queue 1, item 13d (egnn)",
 }
 
 RECSYS_SHAPES = {

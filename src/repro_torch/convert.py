@@ -21,6 +21,11 @@ Both packages exchange it as numpy arrays.
     xDeepFM parameter tree (nested dicts and lists of arrays, the JAX
     package's layout: MLP weights (in, out), tables (F, V, D)) carried to
     this port's tensors and back, so both packages compute the same logits.
+  * ``transformer_params_from_numpy`` / ``transformer_params_to_numpy`` — a
+    ``models.transformer`` parameter tree (``embed``, ``final_norm``,
+    ``lm_head``, the stacked ``group{i}_{kind}`` layers; weights (d_in,
+    d_out)) carried across and back, bf16 leaves included; a bare array
+    (the query encoder's ``proj``) goes through the same calls.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from repro_torch.kernels.dispatch import resolve_device
 __all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
            "shared_tier_to_numpy", "shared_tier_from_numpy",
            "corpus_from_numpy", "recsys_params_from_numpy",
-           "recsys_params_to_numpy"]
+           "recsys_params_to_numpy", "transformer_params_from_numpy",
+           "transformer_params_to_numpy"]
 
 
 def _fields(leaves) -> dict:
@@ -128,17 +134,22 @@ def shared_tier_from_numpy(tier, leaves: dict):
     return tier
 
 
+def _tensor(a, dev) -> torch.Tensor:
+    """An array numpy can read as a tensor on ``dev``; a numpy bfloat16
+    array (the JAX package's bf16) arrives as torch.bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=dev) \
+            .to(torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
 def corpus_from_numpy(data, scale, ids, device=None):
     """(docs (N, phys_dim(D)) in the payload's dtype, scale (N,) f32 or
     None, ids (N,) int32) on ``device``.  A bf16 payload arrives as the
     numpy bfloat16 array the JAX package hands out."""
     dev = resolve_device(device)
-    raw = np.asarray(data)
-    if raw.dtype.name == "bfloat16":
-        docs = torch.as_tensor(raw.astype(np.float32), device=dev) \
-            .to(torch.bfloat16)
-    else:
-        docs = torch.as_tensor(np.array(raw), device=dev)
+    docs = _tensor(data, dev)
     docs = pad_features(docs, layout.phys_dim(docs.shape[1]))
     sc = None if scale is None else torch.as_tensor(
         np.asarray(scale, np.float32), device=dev)
@@ -157,11 +168,24 @@ def recsys_params_from_numpy(params, device=None) -> dict:
     """The JAX package's DLRM / xDeepFM parameter tree (arrays of any kind
     numpy can read) as this port's tensors on ``device``."""
     dev = resolve_device(device)
-    return _map_tree(lambda a: torch.as_tensor(np.array(a), device=dev),
-                     params)
+    return _map_tree(lambda a: _tensor(a, dev), params)
 
 
 def recsys_params_to_numpy(params) -> dict:
     """A parameter tree of tensors (``DLRM(...).params`` or the functions'
     dicts) as numpy arrays in the JAX package's layout."""
+    return _map_tree(to_numpy, params)
+
+
+def transformer_params_from_numpy(params, device=None):
+    """The JAX package's transformer parameter tree (or one array, e.g. the
+    encoder's ``proj``) as this port's tensors on ``device``: the same
+    nested dicts, stacked leaves and orientation."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: _tensor(a, dev), params)
+
+
+def transformer_params_to_numpy(params):
+    """A transformer tree of tensors (or one tensor) as numpy arrays in the
+    JAX package's layout; bf16 widened to f32 (exact)."""
     return _map_tree(to_numpy, params)

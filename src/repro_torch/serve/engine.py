@@ -1,7 +1,8 @@
 """End-to-end conversational search engine (Fig. 2 of the paper).
 
-The port of ``repro.serve.engine`` without ``make_lm_query_encoder`` (it
-waits for the models slice).  Client side: an optional query encoder and
+The port of ``repro.serve.engine``.  Client side: a query encoder
+(``make_lm_query_encoder``: any dense LM backbone -> pooled, projected,
+Eq. 1-transformed embedding; or none, when the caller hands in psi) and
 one session's ``MetricCache``.  Server side: the sharded metric index
 behind the straggler-hedging ``ShardedRouter``.  ``answer()`` is
 Algorithm 1 with one resilience extension: a *degraded* back-end answer
@@ -22,10 +23,46 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.cache import MetricCache
 from repro_torch.core.cache_ops import CacheConfig
+from repro_torch.core.embedding import transform_queries
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import transformer as tf
 
-__all__ = ["EngineTurn", "ConversationalEngine", "radius_and_docs",
-           "radius_from_scores"]
+__all__ = ["make_lm_query_encoder", "EngineTurn", "ConversationalEngine",
+           "radius_and_docs", "radius_from_scores"]
+
+
+def make_lm_query_encoder(params: dict, cfg, proj, *,
+                          device=None) -> Callable:
+    """Mean-pooled final hidden states -> R^l -> Eq. 1 transform.
+
+    ``params`` is a ``models.transformer`` tree (``Transformer.params``, or
+    ``convert.transformer_params_from_numpy``'s), ``proj`` the (d_model, l)
+    projection to the retrieval space; both are moved to ``device`` (None
+    means ``cuda``) once.  ``encode(tokens)`` takes (B, S) token ids,
+    right-padded with -1 (masked out of the pool; S up to ``cfg.q_chunk``,
+    or a multiple of it), and returns psi (B, l + 1) f32 on the device.
+    It runs ``hidden_states``, never the head: no logits.  One session's
+    engine takes ``lambda t: encode(t[None])[0]``.
+    """
+    dev = resolve_device(device)
+    params = _to_device(params, dev)
+    proj = torch.as_tensor(proj, device=dev)
+
+    @torch.inference_mode()
+    def encode(tokens) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=dev)
+        hidden = tf.hidden_states(params, tokens, cfg)
+        mask = (tokens >= 0)[..., None]
+        pooled = (hidden * mask).sum(1) / torch.clamp(mask.sum(1), min=1)
+        return transform_queries(pooled @ proj)
+
+    return encode
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return torch.as_tensor(tree, device=dev)
 
 
 @dataclasses.dataclass

@@ -1320,3 +1320,115 @@ def test_tiered_engine_on_card_matches_cpu(card):
             assert a.tier == b.tier
             assert_topk_agree(a.scores[None], a.ids[None], b.scores[None],
                               b.ids[None], TOL, "tiered engine turn")
+
+
+def _lm_rows(rng, b, s, vocab, lengths):
+    tok = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    tok[np.arange(s)[None, :] >= np.asarray(lengths)[:, None]] = -1
+    return tok
+
+
+@pytest.mark.parametrize("arch", ["star-encoder", "chatglm3-6b",
+                                  "gemma2-9b", "mistral-large-123b"])
+def test_transformer_smoke_on_card_matches_cpu(card, arch):
+    """The smoke configs with the same parameters on the card and on the
+    CPU: hidden states and logits within 1e-5 (f32 sums in other orders;
+    TF32 off), psi within 1e-5."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import make_lm_query_encoder
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg = registry.get(arch).smoke_config()
+    params = tf.init_params(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    m = tf.Transformer(cfg, params, device="cpu")
+    tok = torch.as_tensor(_lm_rows(np.random.default_rng(1), 3, 32,
+                                   cfg.vocab_size, [32, 20, 7]))
+    want_h, want_l = m.hidden_states(tok), m(tok)
+    m.to("cuda")
+    assert_close(m.hidden_states(tok.cuda()), want_h, 1e-5, f"{arch} hidden")
+    assert_close(m(tok.cuda()), want_l, 1e-5, f"{arch} logits")
+    proj = torch.randn(cfg.d_model, 24, generator=torch.Generator()
+                       .manual_seed(2)) * cfg.d_model ** -0.5
+    want = make_lm_query_encoder(params, cfg, proj, device="cpu")(tok)
+    got = make_lm_query_encoder(params, cfg, proj)(tok)
+    assert got.is_cuda and got.shape == (3, 25)
+    assert_close(got, want, 1e-5, f"{arch} psi")
+
+
+def test_full_width_star_two_layers_on_card_matches_cpu(card):
+    """STAR at full width (d 768, 12 heads, d_ff 3072, vocab 30,522) cut to
+    two layers: hidden states within 1e-4 (sums over 768 and 3,072 terms
+    in other orders), psi within 1e-5 (unit norm)."""
+    import dataclasses
+
+    from repro_torch.configs import star_encoder
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import make_lm_query_encoder
+
+    cfg = dataclasses.replace(star_encoder.full_config(), n_layers=2)
+    params = tf.init_params(cfg, generator=card)
+    cpu = _tree_to(params, "cpu")
+    tok = torch.as_tensor(_lm_rows(np.random.default_rng(3), 4, 64,
+                                   cfg.vocab_size, [64, 40, 9, 1]))
+    assert_close(tf.hidden_states(params, tok.cuda(), cfg),
+                 tf.hidden_states(cpu, tok, cfg), 1e-4, "full-width hidden")
+    proj = torch.randn(768, 768, generator=card, device="cuda") / 768 ** 0.5
+    got = make_lm_query_encoder(params, cfg, proj)(tok)
+    want = make_lm_query_encoder(cpu, cfg, proj.cpu(), device="cpu")(tok)
+    assert_close(got, want, 1e-5, "full-width psi")
+    norms = torch.linalg.vector_norm(got[:, :768], dim=1)
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_batched_engine_with_encoder_on_card_matches_cpu(card):
+    """Token turns through the smoke STAR encoder into the wave engine: the
+    card answers as the CPU path does, one encoder call a wave."""
+    from repro_torch.configs import star_encoder
+    from repro_torch.core.embedding import transform_documents
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import make_lm_query_encoder
+    from repro_torch.serve.router import ShardedRouter
+    from repro_torch.serve.session import BatchedEngine
+
+    cfg = star_encoder.smoke_config()
+    rng = np.random.default_rng(5)
+    params = tf.init_params(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(5))
+    proj = torch.as_tensor(rng.standard_normal((32, 16)).astype(np.float32))
+    cpu_enc = make_lm_query_encoder(params, cfg, proj, device="cpu")
+    rows = _lm_rows(rng, 4000, 16, cfg.vocab_size, rng.integers(4, 17, 4000))
+    docs = transform_documents(cpu_enc(rows)[:, :16])[0]
+    prefix = rng.integers(0, cfg.vocab_size, (6, 2))
+    waves = []
+    for t in range(5):
+        sfx = rng.integers(0, cfg.vocab_size, (6, 8))
+        waves.append(np.concatenate([prefix, sfx], 1).astype(np.int32))
+    waves.append(waves[1].copy())                 # a repeated turn: hits
+    out = {}
+    for dev in ("cuda", "cpu"):
+        enc = make_lm_query_encoder(params, cfg, proj, device=dev)
+        calls = []
+        ids = np.arange(docs.shape[0], dtype=np.int32)
+        with ShardedRouter([DeviceShard(docs, ids, device=dev)],
+                           deadline_s=60) as router:
+            eng = BatchedEngine(router, docs, dim=17, n_sessions=6, k=10,
+                                k_c=60, capacity=600, device=dev,
+                                encoder=lambda q: calls.append(1) or enc(q))
+            out[dev] = [eng.answer_batch(range(6), list(w)) for w in waves]
+        assert len(calls) == len(waves)
+    assert all(t.tier == "l1" for t in out["cuda"][-1])
+    for wa, wb in zip(out["cuda"], out["cpu"]):
+        for a, b in zip(wa, wb):
+            assert a.tier == b.tier
+            assert_topk_agree(a.scores[None], a.ids[None], b.scores[None],
+                              b.ids[None], TOL, "encoder engine turn")

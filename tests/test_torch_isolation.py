@@ -63,10 +63,14 @@ def test_default_device_raises_without_a_card(no_card):
     from repro_torch.core.cache_ops import CacheConfig, init_batched_cache
     from repro_torch.core.cluster import assign_clusters
     from repro_torch.core.metric_index import MetricIndex
+    from repro_torch.configs import star_encoder
     from repro_torch.core.shared import SharedTier
+    from repro_torch.data.lm import LMBatchSpec, TokenStream
     from repro_torch.dist.retrieval import DeviceShard
     from repro_torch.kernels.dispatch import resolve_device
-    from repro_torch.serve.engine import ConversationalEngine
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.serve.engine import (ConversationalEngine,
+                                          make_lm_query_encoder)
     from repro_torch.serve.session import BatchedEngine
 
     cfg = CacheConfig(capacity=8, dim=5)
@@ -80,7 +84,13 @@ def test_default_device_raises_without_a_card(no_card):
                  lambda: MetricCache(cfg),
                  lambda: SharedTier(dim=5),
                  lambda: assign_clusters(docs, docs[:2]),
-                 lambda: ConversationalEngine(None, docs, dim=5)):
+                 lambda: ConversationalEngine(None, docs, dim=5),
+                 lambda: Transformer(star_encoder.smoke_config()),
+                 lambda: init_params(star_encoder.smoke_config()),
+                 lambda: make_lm_query_encoder(
+                     init_params(star_encoder.smoke_config(), device="cpu"),
+                     star_encoder.smoke_config(), np.eye(32, 8)),
+                 lambda: TokenStream(LMBatchSpec(2, 8, 100))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"
