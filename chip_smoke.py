@@ -60,11 +60,32 @@ Run from the repository root.  Phases, each fatal on failure:
      forward.  Logits are finite and equal the interaction fed the plain
      pooled rows (rtol 1e-4, atol 1e-5); the pool reads the (F*V, D) view of
      the tables, and the peak memory shows no copy of them.
-  5. corpus  — ``make_world`` (60,000 docs, 64 conversations of 10 turns,
+  5. lm      — the LM family with MLA, MoE and MTP and the decode path,
+     before the corpus so its weights never meet the 28 GB corpus (plain
+     PyTorch, as the JAX package computes them in plain ``jnp``; bf16
+     products accumulate in f32, asserted).  The deepseek-v3-671b and
+     llama4-scout-17b-16e smoke configs with the same parameters on the
+     card and on the CPU path (f32: a padded prefill's logits and aux
+     loss, MTP logits, three decode steps, within 1e-5); then both at full
+     width cut to 4 layers (deepseek: its 3 dense layers and 1 MoE layer,
+     MTP; 31.60 / 21.76 GB of seeded random bf16 weights): ``moe_ffn`` over
+     8 x 512 tokens against a plain f32 loop with the routing computed
+     apart (equal ids, positions and kept mask; the RMS of the error
+     within 2e-2 of the output's), 8 tokens prefilled against the same 8
+     through ``decode_step`` (logits within 0.25, argmax equal where the
+     top two lie further apart), a prefill of 8 x 512 into caches of 544
+     positions and 32 greedy decode steps, twice, bit for bit (prefill
+     and decode step timed on the device and back to back beside their
+     bounds, a profiler split, peak memory); deepseek's MTP logits, and
+     its ``make_lm_query_encoder`` with a (7168, 768) ``proj`` in front
+     of ``ConversationalEngine`` for 2 conversations x 10 token turns
+     over ``make_world``'s 60,000 documents (every miss the exact top-k of
+     its psi).
+  6. corpus  — ``make_world`` (60,000 docs, 64 conversations of 10 turns,
      dim 768) plus background distractors drawn on the card from a seeded
      generator fill the corpus to N = 8,841,823 (the MS MARCO passage
      collection of TREC CAsT 2019); one Eq. 1 M over the whole corpus.
-  6. encoder — the paper's query encoder (``make_lm_query_encoder`` over
+  7. encoder — the paper's query encoder (``make_lm_query_encoder`` over
      the dense transformer, plain PyTorch: the JAX package has no
      attention kernel).  The four smoke configs (star-encoder,
      chatglm3-6b, gemma2-9b, mistral-large-123b) with the same parameters
@@ -88,7 +109,7 @@ Run from the repository root.  Phases, each fatal on failure:
      launches per wave; probe and fill span p50, peak memory above the
      corpus).  Every miss turn of both equals the exact top-k of the psi
      it probed with.
-  7. ab      — the two-stage A/B baseline over that corpus:
+  8. ab      — the two-stage A/B baseline over that corpus:
      ``knn_search(two_stage=True)`` for the 64 first turns at k = k_c =
      1000 (one launch of the fused tile kernel, one of the merge's
      select), against the fused search and the plain two-stage version;
@@ -96,7 +117,7 @@ Run from the repository root.  Phases, each fatal on failure:
      the merge (beside its plain sort and ``torch.topk``), the kept pair
      (``knn_score`` + ``knn_tile_select``) on the same queries, and the
      whole two-stage search beside the fused one.
-  8. main    — the batched serving path: ``SessionManager`` ->
+  9. main    — the batched serving path: ``SessionManager`` ->
      ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity=
      16000)`` -> ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns
      of every conversation, then one round that re-asks each last turn.  3
@@ -105,7 +126,7 @@ Run from the repository root.  Phases, each fatal on failure:
      the whole corpus, and the same engine on a small input answers as the
      CPU path does.  Prints each wave's bucket, the p50 of the probe and
      fill spans, and the serve's own peak device memory.
-  9. tiered  — the tiered wave on the same corpus.  First, on the 60,000
+  10. tiered  — the tiered wave on the same corpus.  First, on the 60,000
      world docs (one 16-cluster index built on the card), the tiered
      engine on the card and on the CPU path answers alike: tiers, ids and
      counters (promotions, memo serves, prefetch accounting).  Then the
@@ -132,7 +153,7 @@ Run from the repository root.  Phases, each fatal on failure:
      admission insert, the widened fill) against their plain versions,
      timed beside ``torch.max(q @ C.T, 1)`` / ``torch.topk(q @ D.T,
      256)`` where one call computes the same function.
-  10. paper  — Algorithm 1 for one session: ``ConversationalSearcher(
+  11. paper  — Algorithm 1 for one session: ``ConversationalSearcher(
      MetricIndex(corpus), k=200, k_c=1000, epsilon=0.04, capacity=12000)``
      under the ``none``, ``static`` and ``dynamic`` policies over the 64
      conversations, with Table 1's columns (hit rate over turns 2-10,
@@ -142,13 +163,14 @@ Run from the repository root.  Phases, each fatal on failure:
      turn one probe and one cache query, per miss one kNN search and one
      insert.  First, on 8 conversations x 4 turns over the 60,000 world
      docs (k_c=100), the card answers as the CPU path does.
-  11. engine — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
+  12. engine — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
      (corpus)])`` serves 8 conversations x 10 turns (k=10, k_c=1000) and
      agrees turn for turn with the dynamic searcher.
 
 ``--phases`` runs a subset (``probe,recsys,paper`` also drives the
 parent package, whose entries these phases share, for a comparison in one
-call).  Every path (recsys, the encoder's two engines, ab, main, the
+call).  Every path (recsys, lm's encoder session, the encoder's two
+engines, ab, main, the
 cluster build, tiered, chaos, the three paper runs, engine) runs
 with the kernel
 counters zeroed just before it and read just after; each checks its own
@@ -201,6 +223,7 @@ DEV = "cuda"
 # H100 SXM data sheet, dense: HBM bytes/s; f32 (CUDA cores) and int8
 # (tensor cores) operations/s
 HBM_BPS, F32_OPS, I8_OPS = 3.35e12, 67e12, 1979e12
+BF16_OPS = 989e12             # bf16 on the tensor cores
 
 SRC = "src/repro_torch/csrc/"
 TPU = "src/repro/kernels/"
@@ -229,8 +252,8 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 P99_CALLS = 51                     # the first is a warm-up, not in the stats
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
-PHASES = ("kernels", "probe", "recsys", "encoder", "ab", "main", "tiered",
-          "paper", "engine")
+PHASES = ("kernels", "probe", "recsys", "lm", "encoder", "ab", "main",
+          "tiered", "paper", "engine")
 XDEEPFM_CHUNK = 16_384
 # [tiered]: the L2 tier, the cluster index and the traffic of
 # serve_bench.bench_zipf; [chaos]: bench_chaos at 8 sessions x 10 rounds
@@ -248,6 +271,18 @@ SEED = 0                      # --seed
 ENC_SEQ, ENC_PREFIX, ENC_SUFFIX, ENC_TURNS = 64, 16, (8, 48), 10
 ENC_REPEATS = {4: 1, 8: 5}
 ENC_SMOKE_TOL, ENC_PSI_TOL = 1e-5, 1e-4
+# [lm]: the MoE / MLA models at full width, cut to LM_LAYERS layers
+# (deepseek: its 3 dense layers and 1 MoE layer); a served prefill of LM_B
+# x LM_S tokens into caches of LM_KV positions, then LM_STEPS greedy decode
+# steps; LM_CONVS conversations through the encoder (deepseek).  The smoke
+# configs' logits card against CPU within LM_SMOKE_TOL (f32, as
+# ENC_SMOKE_TOL); moe_ffn (bf16) against a plain f32 loop: the RMS of
+# the error within LM_MOE_TOL of the output's RMS (bf16 rounding gives
+# about 5e-3; a product accumulated in bf16 about 0.1); prefill against
+# decode (bf16 logits of RMS about 1) within LM_PD_TOL
+LM_ARCHS = ("deepseek-v3-671b", "llama4-scout-17b-16e")
+LM_LAYERS, LM_B, LM_S, LM_KV, LM_STEPS, LM_CONVS = 4, 8, 512, 544, 32, 2
+LM_SMOKE_TOL, LM_MOE_TOL, LM_PD_TOL = 1e-5, 2e-2, 0.25
 # the kernels again at the tiered path's shapes; their launches are those
 # of [tiered] (the assignment's and tables' those of the cluster build)
 TIER_ROWS = {"knn_score_assign": "knn_score", "knn_select_assign":
@@ -2590,38 +2625,42 @@ def encoder_ops(cfg, b, s):
     return 2 * layers * b * s + attn, 4 * layers
 
 
-def profile_split(torch, encode, tokens):
-    """One forward under ``torch.profiler``: device ms by part (matrix
-    products outside attention, attention, RMSNorms, RoPE, the rest) and
-    the device activities launched (kernels, copies, fills).  None when the
+def profile_split(torch, encode, tokens, parts=None):
+    """One call ``encode(tokens)`` under ``torch.profiler``: device ms by
+    part and the device activities launched (kernels, copies, fills).  The
+    parts are {label: (module, function name)}, each function wrapped for
+    the call (the innermost wrapped caller names a kernel's part); by
+    default the encoder's attention, RMSNorms and RoPE; products outside
+    every part count as ``matmul``, the rest as ``other``.  None when the
     profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.models import common as cm
 
-    parts = {"attention": "blockwise_attention", "norm": "rms_norm",
-             "rope": "rotate"}
-    saved = {name: getattr(cm, name) for name in parts.values()}
+    parts = parts or {"attention": (cm, "blockwise_attention"),
+                      "norm": (cm, "rms_norm"), "rope": (cm, "rotate")}
+    saved = {label: getattr(mod, name) for label, (mod, name) in
+             parts.items()}
 
     def annotated(label, fn):
         def call(*a, **kw):
-            with record_function("encoder." + label):
+            with record_function("part." + label):
                 return fn(*a, **kw)
         return call
 
     encode(tokens)
     torch.cuda.synchronize()
     try:
-        for label, name in parts.items():
-            setattr(cm, name, annotated(label, saved[name]))
+        for label, (mod, name) in parts.items():
+            setattr(mod, name, annotated(label, saved[label]))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             encode(tokens)
             torch.cuda.synchronize()
     finally:
-        for name, fn in saved.items():
-            setattr(cm, name, fn)
+        for label, (mod, name) in parts.items():
+            setattr(mod, name, saved[label])
     events = prof.events()
     n_device = sum(e.device_type == DeviceType.CUDA for e in events)
     if n_device == 0:
@@ -2632,8 +2671,8 @@ def profile_split(torch, encode, tokens):
             continue
         part, p = None, e
         while p is not None and part is None:
-            if p.name.startswith("encoder."):
-                part = p.name.removeprefix("encoder.")
+            if p.name.startswith("part."):
+                part = p.name.removeprefix("part.")
             p = p.cpu_parent
         if part is None:
             part = "matmul" if e.name in ("aten::mm", "aten::addmm",
@@ -2877,6 +2916,477 @@ def encoder_phase(torch, corpus):
     return paths
 
 
+# ------------------------------------------------------------- LM serving
+def lm_costs(cfg, params, b, s, ctx, kept):
+    """(bf16 operations, f32 operations, bytes) of one forward of ``s`` new
+    tokens a row over ``ctx`` positions (a prefill: s = ctx; a decode step:
+    s = 1) with ``kept`` routed (token, choice) pairs over its MoE layers.  The
+    products count at their operand dtype (attention and the router in f32,
+    as the reference computes them), attention over the causal pairs it
+    needs.  The bytes: every layer weight and the head read once (every
+    expert, as the reference's expert product over all E reads them), the
+    embedding rows, the caches read or written, the logits written."""
+    from repro_torch.models import transformer as tf
+
+    t, d, h = b * s, cfg.d_model, cfg.n_heads
+    pairs = b * (s * (s + 1) // 2 if s == ctx else ctx)
+    bf, f32 = 0, 0
+    if cfg.attention == "mla":
+        m = cfg.mla
+        dn, dr, dv, r = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                         m.kv_lora_rank)
+        bf += 2 * t * (d * m.q_lora_rank + m.q_lora_rank * h * (dn + dr)
+                       + d * (r + dr) + h * dv * d)
+        if s == ctx:        # up-projected keys and values, f32 attention
+            bf += 2 * t * r * h * (dn + dv)
+            f32 += 2 * pairs * h * (dn + dr + dv)
+        else:               # absorbed: q_lat in bf16, the rest in f32
+            bf += 2 * t * h * dn * r
+            f32 += 2 * pairs * h * (2 * r + dr) + 2 * t * h * r * dv
+        cache_row = r + dr
+    else:
+        dh, kv = cfg.head_dim, cfg.n_kv_heads
+        bf += 2 * t * d * (h + 2 * kv) * dh + 2 * t * h * dh * d
+        f32 += 2 * pairs * h * 2 * dh
+        cache_row = 2 * kv * dh
+    bf, f32 = bf * cfg.n_layers, f32 * cfg.n_layers
+    for kind, count in cfg.layer_groups():
+        if kind == "moe":
+            mo = cfg.moe
+            fs = mo.d_ff_shared or mo.d_ff * mo.n_shared
+            bf += 2 * 3 * d * (kept * mo.d_ff
+                               + (count * t * fs if mo.n_shared else 0))
+            f32 += count * 2 * t * d * mo.n_experts
+        else:
+            bf += count * 2 * t * 3 * d * cfg.d_ff
+    bf += 2 * t * d * cfg.vocab_size
+    el = cfg.dtype.itemsize
+    weights = sum(v.numel() * v.element_size() for k, tree in params.items()
+                  if k not in ("embed", "mtp") for v in tf._leaves(tree))
+    nbytes = (weights + t * d * el + b * ctx * cache_row * el * cfg.n_layers
+              + t * cfg.vocab_size * el)
+    return bf, f32, nbytes
+
+
+def lm_bound(bf, f32, nbytes):
+    """(ms, what bounds it): the bytes at HBM_BPS against the bf16
+    operations at BF16_OPS plus the f32 ones at F32_OPS."""
+    tb = nbytes / HBM_BPS * 1e3
+    to = (bf / BF16_OPS + f32 / F32_OPS) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def plain_moe(torch, params, x, cfg, capacity):
+    """The MoE rule computed apart, for ``moe_ffn``'s check: routing from the
+    router's f32 probabilities by a stable numpy argsort and a queue
+    counter walked over the (token, choice) pairs in token-major order;
+    then a plain loop over the experts that runs each kept pair through
+    its expert in f32 (the bf16 weights widened), gated in f32, plus the
+    shared expert.  Returns (expert ids, positions, kept mask, y f32)."""
+    import numpy as np
+
+    from repro_torch.models.moe import _swiglu
+
+    t, k = x.shape[0], cfg.top_k
+    probs = torch.softmax(x.float() @ params["router"], dim=-1).cpu().numpy()
+    ids = np.argsort(-probs, axis=1, kind="stable")[:, :k]
+    gates = np.take_along_axis(probs, ids, axis=1)
+    if cfg.norm_topk:
+        gates = gates / np.maximum(gates.sum(1, keepdims=True), 1e-9)
+    ids, gates = ids.reshape(-1), gates.reshape(-1)
+    count = np.zeros(cfg.n_experts, np.int64)
+    pos = np.empty(t * k, np.int64)
+    for i, e in enumerate(ids.tolist()):
+        pos[i] = count[e]
+        count[e] += 1
+    keep = pos < capacity
+    tok = np.repeat(np.arange(t), k)
+    y = _swiglu(x.float(), params["shared_wi"].float(),
+                params["shared_wo"].float())
+    for e in np.unique(ids[keep]).tolist():
+        sel = np.flatnonzero((ids == e) & keep)
+        rows = torch.as_tensor(tok[sel], device=x.device)
+        out = _swiglu(x[rows].float(), params["wi"][e].float(),
+                      params["wo"][e].float())
+        g = torch.as_tensor(gates[sel], device=x.device)
+        y[rows] += out * g[:, None]      # rows distinct: a token, one expert
+    return ids, pos, keep, y
+
+
+def route_recorder(torch):
+    """Wrap ``models.moe.route`` (``moe_ffn`` calls it through the module)
+    to record each call's expert ids; returns (record list, restore)."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe.route
+
+    def recording(*a, **kw):
+        r = route(*a, **kw)
+        seen.append((r.expert_ids.view(a[1].shape[0], -1).cpu(),
+                     int(r.keep.sum())))
+        return r
+
+    moe.route = recording
+    return seen, lambda: setattr(moe, "route", route)
+
+
+def lm_smoke(torch):
+    """The MoE / MLA smoke configs, the same parameters on the card and on
+    the CPU path: a padded prefill's logits and aux loss, MTP logits and
+    three decode steps (the CPU's argmax fed to both)."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.parity import assert_close
+    from repro_torch.models import transformer as tf
+
+    errs = {}
+    rng = np.random.default_rng(SEED)
+    for arch in LM_ARCHS:
+        small = registry.get(arch).smoke_config()
+        params = tf.init_params(small, device="cpu", generator=torch
+                                .Generator().manual_seed(SEED))
+        gpu = tree_to(params, DEV)
+        tok = rng.integers(0, small.vocab_size, (4, 32)).astype(np.int32)
+        tok[np.arange(32)[None] >= np.array([32, 25, 16, 3])[:, None]] = -1
+        tok = torch.as_tensor(tok)
+        want = tf.forward(params, tok, small, return_kv=True, kv_len=36)
+        got = tf.forward(gpu, tok.to(DEV), small, return_kv=True, kv_len=36)
+        e = {"logits": assert_close(got[0], want[0], LM_SMOKE_TOL,
+                                    f"[lm] {arch} smoke logits"),
+             "aux": abs(float(got[1]) - float(want[1]))}
+        if e["aux"] > 1e-6:
+            raise AssertionError(f"[lm] {arch} smoke aux {e['aux']}")
+        if small.mtp:
+            e["mtp"] = assert_close(
+                tf.mtp_logits(gpu, tok.to(DEV), got[2], small),
+                tf.mtp_logits(params, tok, want[2], small), LM_SMOKE_TOL,
+                f"[lm] {arch} smoke mtp")
+        kc, kg = want[3], got[3]
+        nxt = want[0][:, -1].argmax(-1)
+        for t in range(3):
+            lc, kc = tf.decode_step(params, nxt, kc, 33 + t, small)
+            lg, kg = tf.decode_step(gpu, nxt.to(DEV), kg, 33 + t, small)
+            e[f"decode{t}"] = assert_close(lg, lc, LM_SMOKE_TOL,
+                                           f"[lm] {arch} decode {t}")
+            nxt = lc.argmax(-1)
+        errs[arch] = {k: float(f"{v:.3g}") for k, v in e.items()}
+    log(f"[lm] smoke configs, card == CPU path (f32, within {LM_SMOKE_TOL};"
+        f" aux within 1e-6): " + json.dumps(errs))
+
+
+def lm_moe_check(torch, params, cfg, gen):
+    """``moe_ffn`` of the model's MoE layer over LM_B x LM_S tokens against
+    ``plain_moe``."""
+    import numpy as np
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _layer
+
+    layer = _layer(params[[k for k in params if k.endswith("_moe")][0]],
+                   0)["ffn"]
+    # the layer's input is an RMSNorm's output (unit scale): rows of RMS 1
+    x = torch.randn(LM_B * LM_S, cfg.d_model, generator=gen,
+                    device=DEV).to(cfg.dtype)
+    y = moe.moe_ffn(layer, x, cfg.moe).y
+    r = moe.route(layer, x, cfg.moe)
+    ids, pos, keep, want = plain_moe(torch, layer, x, cfg.moe, r.capacity)
+    for name, a, b in (("expert ids", r.expert_ids, ids),
+                       ("positions", r.pos, pos), ("kept", r.keep, keep)):
+        if not np.array_equal(a.cpu().numpy(), b):
+            raise AssertionError(f"[lm] {cfg.name} MoE {name} differ from "
+                                 f"the plain rule")
+    rms = float(want.pow(2).mean().sqrt())
+    diff = (y.float() - want)
+    err, rms_err = float(diff.abs().max()) / rms, \
+        float(diff.pow(2).mean().sqrt()) / rms
+    dropped = int((~keep).sum())
+    tokens = int((~keep).reshape(-1, cfg.moe.top_k).any(1).sum())
+    if not torch.isfinite(y).all() or rms_err > LM_MOE_TOL:
+        raise AssertionError(f"[lm] {cfg.name} MoE RMS error {rms_err:.3g} "
+                             f"of the output's RMS > {LM_MOE_TOL}")
+    log(f"[lm] {cfg.name} moe_ffn over {LM_B} x {LM_S} tokens "
+        f"({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, capacity "
+        f"{r.capacity}): "
+        f"routing, positions and kept mask equal the plain rule's; "
+        f"{dropped} (token, choice) pairs dropped ({tokens} tokens lost a "
+        f"choice); against the plain f32 loop the RMS of the error is "
+        f"{rms_err:.3g} of the output's RMS {rms:.4g} (bound {LM_MOE_TOL}); "
+        f"max |diff| {err:.3g} of it (bf16 rounds each of {cfg.moe.top_k} "
+        f"+ 1 sums and products at up to 2^-9 of values several times the "
+        f"RMS)")
+
+
+def lm_prefill_decode(torch, params, cfg, gen):
+    """8 tokens prefilled against the same 8 through ``decode_step``: the
+    logits within LM_PD_TOL, equal argmax where the top two logits lie
+    further apart; the router's choices of both paths compared."""
+    from repro_torch.models import transformer as tf
+
+    tok = torch.randint(0, cfg.vocab_size, (1, 8), generator=gen,
+                        device=DEV)
+    seen, restore = route_recorder(torch)
+    try:
+        pre = tf.forward(params, tok, cfg)[0][0].float()
+        n_pre = len(seen)
+        caches = tf.init_kv_caches(cfg, 1, 8, device=DEV)
+        steps = []
+        for t in range(8):
+            lg, caches = tf.decode_step(params, tok[:, t], caches, t + 1, cfg)
+            steps.append(lg[0].float())
+    finally:
+        restore()
+    dec = torch.stack(steps)
+    # the router's choices as sets (their order only orders the combine's
+    # sum): prefill layer l against decode step t, layer l
+    layers = n_pre
+    same = sum(int(torch.equal(
+        seen[l][0][t].sort().values,
+        seen[n_pre + t * layers + l][0][0].sort().values))
+        for l in range(layers) for t in range(8))
+    err = float((pre - dec).abs().max())
+    top2 = pre.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > LM_PD_TOL
+    agree = (pre.argmax(-1) == dec.argmax(-1))
+    ok = err <= LM_PD_TOL and bool(agree[clear].all())
+    log(f"[lm] {cfg.name} prefill against decode, 8 tokens (bf16 logits of "
+        f"RMS {float(pre.pow(2).mean().sqrt()):.3f}): max |diff| {err:.4g} "
+        f"(tolerance {LM_PD_TOL}); argmax equal at {int(agree.sum())} of 8 "
+        f"positions ({int(clear.sum())} with the top two further apart "
+        f"than the tolerance); the router's chosen experts equal at {same} "
+        f"of {8 * layers} (token, MoE layer)")
+    if not ok:
+        raise AssertionError(f"[lm] {cfg.name} prefill and decode differ")
+
+
+def lm_serve(torch, params, cfg, gen):
+    """Prefill LM_B x LM_S with ``return_kv``, then LM_STEPS greedy decode
+    steps, twice (the same tokens bit for bit); times, bounds, a profiler
+    split and peak memory.  Returns the prefill's (tokens, hidden)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+
+    tok = torch.randint(0, cfg.vocab_size, (LM_B, LM_S), generator=gen,
+                        device=DEV)
+    n_moe = sum(c for kind, c in cfg.layer_groups() if kind == "moe")
+
+    def run():
+        logits, _aux, hidden, caches = tf.forward(
+            params, tok, cfg, return_kv=True, kv_len=LM_KV)
+        nxt, out = logits[:, -1].argmax(-1), []
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for t in range(LM_STEPS):
+            lg, caches = tf.decode_step(params, nxt, caches, LM_S + 1 + t,
+                                        cfg)
+            nxt = lg.argmax(-1)
+            out.append(nxt)
+        b.record()
+        b.synchronize()
+        return (torch.stack(out, 1), lg, hidden, caches,
+                a.elapsed_time(b) / LM_STEPS)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    seen, restore = route_recorder(torch)
+    try:
+        toks1, last1, hidden, caches, _ = run()
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    kept = sum(n for _ids, n in seen[:n_moe])       # the prefill's layers
+    # the second run unrecorded: the recorder waits for the card each call
+    toks2, last2, _, _, step_b2b = run()
+    if not (torch.equal(toks1, toks2) and torch.equal(last1, last2)):
+        raise AssertionError(f"[lm] {cfg.name}: two runs decoded apart")
+    if not torch.isfinite(last1).all():
+        raise AssertionError(f"[lm] {cfg.name}: non-finite decode logits")
+
+    def prefill():
+        return tf.forward(params, tok, cfg, return_kv=True, kv_len=LM_KV)
+
+    def step():
+        return tf.decode_step(params, toks1[:, -1], caches, LM_KV, cfg)
+
+    pre_dev = [timed_device(torch, prefill, 1, strict=False)
+               for _ in range(3)]
+    pre_b2b = timed(torch, prefill, 3)
+    dec_dev = [timed_device(torch, step, 1, strict=False) for _ in range(5)]
+    for what, dev, b2b, s, ctx, k in (
+            ("prefill", pre_dev, pre_b2b, LM_S, LM_S, kept),
+            ("decode step", dec_dev, step_b2b, 1, LM_KV,
+             n_moe * LM_B * cfg.moe.top_k)):
+        dev = [ms for ms in dev if ms is not None]
+        dev_ms = sum(dev) / len(dev) if dev else float("nan")
+        bf, f32, nbytes = lm_costs(cfg, params, LM_B, s, ctx, k)
+        bms, by = lm_bound(bf, f32, nbytes)
+        log(f"[lm] {cfg.name} {what} (B={LM_B}, "
+            + (f"S={LM_S}, kv_len {LM_KV}" if s > 1 else
+               f"over {ctx} cache positions") + f"): {dev_ms:.3f} ms on the "
+            f"device ({len(dev)} readings kept), {b2b:.3f} ms back to back; "
+            f"bound {bms:.3f} ms ({by}: {bf / 1e12:.3f} TFLOP bf16 at "
+            f"{BF16_OPS / 1e12:.0f} TFLOP/s + {f32 / 1e9:.1f} GFLOP f32 at "
+            f"{F32_OPS / 1e12:.0f}, attention in f32 as in the reference; "
+            f"{nbytes / 1e9:.2f} GB at {HBM_BPS / 1e12:.2f} TB/s)")
+    parts = {"attention": (tf, "_attn_mla" if cfg.attention == "mla"
+                           else "_attn_gqa"),
+             "moe": (tf, "moe_ffn"), "dense_ffn": (tf, "_dense_ffn"),
+             "head": (tf, "_head"), "norm": (cm, "rms_norm")}
+    for what, fn in (("prefill", prefill), ("decode step", step)):
+        split = profile_split(torch, lambda _: fn(), None, parts)
+        log(f"[lm] {cfg.name} profiler, one {what}: " + (
+            "the profiler saw no device activity (not measured)" if split
+            is None else f"{split[0]} device activities; device ms by "
+            f"part " + json.dumps({k: round(v, 3)
+                                   for k, v in split[1].items()})))
+    log(f"[lm] {cfg.name} serve: {LM_STEPS} greedy steps after the prefill, "
+        f"twice, the same tokens and last logits bit for bit; peak device "
+        f"memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} above the "
+        f"{base / 1e9:.2f} GB held before)")
+    return tok, hidden
+
+
+def lm_encoder(torch, params, cfg, gen):
+    """``make_lm_query_encoder`` over the model in front of
+    ``ConversationalEngine`` for LM_CONVS conversations x ENC_TURNS token
+    turns over ``make_world``'s documents; every miss turn is the exact
+    top-k of its psi.  Returns the path's launches."""
+    import numpy as np
+
+    from repro_torch.core import embedding as temb
+    from repro_torch.core import layout
+    from repro_torch.data.conversations import WorldConfig, make_world
+    from repro_torch.dist.retrieval import DeviceShard
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_topk_agree
+    from repro_torch.serve import ConversationalEngine, ShardedRouter
+    from repro_torch.serve.engine import make_lm_query_encoder
+
+    world = make_world(WorldConfig(n_conversations=S, seed=SEED))
+    emb = torch.as_tensor(world.doc_emb, dtype=torch.float32, device=DEV)
+    dim = DIM_RAW + 1
+    docs = torch.zeros((world.n_docs, layout.phys_dim(dim)),
+                       dtype=torch.float32, device=DEV)
+    docs[:, :dim] = temb.transform_documents(emb)[0]
+    ids = torch.arange(world.n_docs, dtype=torch.int32, device=DEV)
+    proj = torch.randn(cfg.d_model, DIM_RAW, generator=gen, device=DEV) \
+        * cfg.d_model ** -0.5
+    encode = make_lm_query_encoder(params, cfg, proj, device=DEV)
+    convs = token_conversations(LM_CONVS, cfg.vocab_size, SEED)
+    rec = Recorder(torch, lambda t: encode(t[None])[0], sync=True)
+
+    def one_session():
+        with ShardedRouter([DeviceShard(docs, ids, device=DEV,
+                                        dtype="fp32")],
+                           deadline_s=300) as router:
+            eng = ConversationalEngine(router, docs, dim=dim, k=K, k_c=KC,
+                                       epsilon=EPS, capacity=PAPER_CAP,
+                                       dtype="fp32", device=DEV,
+                                       encoder=rec)
+            out = []
+            for conv in convs:
+                eng.start_session()
+                out.append([eng.answer(t) for t in conv])
+            return out
+
+    sessions, launches = counted(torch, one_session)
+    turns = [t for c in sessions for t in c]
+    misses = sum(not t.hit for t in turns)
+    want = {name: 0 for name in launches}
+    want.update(probe_rhat=len(turns), wave_query_topk=len(turns),
+                knn_score=misses, knn_select=misses,
+                wave_insert_scatter=misses)
+    if launches != want or rec.calls != len(turns):
+        raise AssertionError(f"[lm] encoder session: launches {launches} != "
+                             f"{want}, {rec.calls} encoder calls")
+    check_turns(sessions, ENC_TURNS)
+    psi = torch.stack(list(rec.psi.values()))
+    if not torch.isfinite(psi).all() or psi.shape[1] != dim:
+        raise AssertionError("[lm] encoder: malformed psi")
+    miss = [(t, rec.psi[tok[tok >= 0].tobytes()]) for c, conv in
+            enumerate(sessions) for t, tok in zip(conv, convs[c])
+            if t.tier == "backend"]
+    q = torch.nn.functional.pad(torch.stack([p for _, p in miss]),
+                                (0, docs.shape[1] - dim))
+    v, i = knn_ref.search(docs, ids, q, K)
+    assert_topk_agree(np.stack([t.scores for t, _ in miss]),
+                      np.stack([t.ids for t, _ in miss]), v, i, SCORE_TOL,
+                      "[lm] encoder miss turns")
+    row = torch.as_tensor(pad_rows([convs[0][0]], len(convs[0][0])),
+                          device=DEV)
+    enc_ms = timed(torch, lambda: encode(row), 5)
+    lat = np.array([t.latency_s for t in turns]) * 1e3
+    log(f"[lm] {cfg.name} encoder: {LM_CONVS} conversations x {ENC_TURNS} "
+        f"token turns through ConversationalEngine over {world.n_docs} "
+        f"docs: {len(turns) - misses} hits, {misses} misses, every miss the "
+        f"exact top-{K} of its psi (finite); turn p50 "
+        f"{np.percentile(lat, 50):.2f} ms (host clock; encoder p50 "
+        f"{np.percentile(np.array(rec.seconds) * 1e3, 50):.2f} ms); encode "
+        f"B=1 x S={row.shape[1]} {enc_ms:.2f} ms back to back; launches "
+        f"{launches}")
+    return launches
+
+
+def lm_phase(torch):
+    """[lm]: the MoE / MLA smoke configs card against CPU, then
+    deepseek-v3-671b and llama4-scout-17b-16e at full width cut to
+    LM_LAYERS layers, with seeded random weights: the MoE layer against a
+    plain f32 loop, prefill against decode, a served prefill + greedy
+    decode, MTP (deepseek) and the query encoder in front of the one-
+    session engine (deepseek).  Returns {path: launches}."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("[lm] products must accumulate in f32")
+    t_phase = time.perf_counter()
+    lm_smoke(torch)
+    paths = {}
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(registry.get(arch).full_config(),
+                                  n_layers=LM_LAYERS)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED + 3)
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, device=DEV, generator=gen)
+        torch.cuda.synchronize()
+        weights = sum(v.numel() * v.element_size()
+                      for v in tf._leaves(params))
+        m = cfg.moe
+        log(f"[lm] {arch} at full width, {LM_LAYERS} of "
+            f"{registry.get(arch).full_config().n_layers} layers "
+            f"({cfg.layer_groups()}; d {cfg.d_model}, {cfg.n_heads} heads"
+            + (" MLA" if cfg.attention == "mla" else
+               f", {cfg.n_kv_heads} KV") + f", {m.n_experts} experts top-"
+            f"{m.top_k} + {m.n_shared} shared, vocab {cfg.vocab_size}, "
+            f"{'MTP, ' if cfg.mtp else ''}bf16): {tf.param_count(params)} "
+            f"parameters ({weights / 1e9:.2f} GB), seeded random weights "
+            f"in {time.perf_counter() - t0:.1f} s")
+        lm_moe_check(torch, params, cfg, gen)
+        lm_prefill_decode(torch, params, cfg, gen)
+        tok, hidden = lm_serve(torch, params, cfg, gen)
+        if cfg.mtp:
+            out = tf.mtp_logits(params, tok.roll(-1, 1), hidden, cfg)
+            if out.shape != (LM_B, LM_S, cfg.vocab_size) or \
+                    not torch.isfinite(out).all():
+                raise AssertionError(f"[lm] {arch} MTP logits malformed")
+            log(f"[lm] {arch} MTP logits {tuple(out.shape)} on the "
+                f"prefill's hidden states, finite")
+            del out
+            paths["lm"] = lm_encoder(torch, params, cfg, gen)
+        del params, tok, hidden
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[lm] phase in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2904,6 +3414,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2933,6 +3445,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     global SEED
     SEED = args.seed
+    if "lm" in phases:         # before the corpus: 31.6 GB of weights
+        paths.update(lm_phase(torch))
+        torch.cuda.empty_cache()
     tier_rows = {}
     if phases & {"kernels", "encoder", "ab", "main", "tiered", "paper"}:
         world, corpus, streams = build_corpus(torch, args.seed)

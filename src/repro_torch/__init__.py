@@ -16,10 +16,14 @@ beside it.
 from repro_torch.core.cache import MetricCache
 from repro_torch.core.conversation import ConversationalSearcher, TurnRecord
 from repro_torch.core.metric_index import MetricIndex
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.transformer import (MLAConfig, Transformer,
+                                            TransformerConfig, decode_step,
+                                            init_kv_caches)
 from repro_torch.serve.engine import (ConversationalEngine,
                                       make_lm_query_encoder)
 
 __all__ = ["MetricCache", "ConversationalSearcher", "TurnRecord",
            "MetricIndex", "ConversationalEngine", "Transformer",
-           "make_lm_query_encoder"]
+           "TransformerConfig", "MLAConfig", "MoEConfig", "init_kv_caches",
+           "decode_step", "make_lm_query_encoder"]

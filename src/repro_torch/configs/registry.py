@@ -21,12 +21,12 @@ PORTED = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    # MLA / MoE / MTP (and every LM's decode path)
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "llama4-scout-17b-16e": "repro_torch.configs.llama4_scout_17b_a16e",
 }
-_MLA_MOE = "ROADMAP.md queue 1, item 13a (MLA and MoE)"
 _SEQREC = "ROADMAP.md queue 1, item 13c (seqrec: SASRec, BERT4Rec)"
 _WAITING = {
-    "deepseek-v3-671b": _MLA_MOE,
-    "llama4-scout-17b-16e": _MLA_MOE,
     "sasrec": _SEQREC,
     "bert4rec": _SEQREC,
     "egnn": "ROADMAP.md queue 1, item 13d (egnn)",

@@ -25,7 +25,13 @@ Both packages exchange it as numpy arrays.
     ``models.transformer`` parameter tree (``embed``, ``final_norm``,
     ``lm_head``, the stacked ``group{i}_{kind}`` layers; weights (d_in,
     d_out)) carried across and back, bf16 leaves included; a bare array
-    (the query encoder's ``proj``) goes through the same calls.
+    (the query encoder's ``proj``) goes through the same calls; MoE
+    (``ffn/{router,wi,wo,shared_wi,shared_wo}``), MLA and MTP trees
+    included.
+  * ``kv_caches_from_numpy`` / ``kv_caches_to_numpy`` — the per-group list
+    of cache tuples that ``init_kv_caches`` and ``forward(return_kv=True)``
+    return ((k, v), or (c_kv, k_rope) for MLA; each (count, B, S, ...)),
+    carried across and back.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ __all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
            "shared_tier_to_numpy", "shared_tier_from_numpy",
            "corpus_from_numpy", "recsys_params_from_numpy",
            "recsys_params_to_numpy", "transformer_params_from_numpy",
-           "transformer_params_to_numpy"]
+           "transformer_params_to_numpy", "kv_caches_from_numpy",
+           "kv_caches_to_numpy"]
 
 
 def _fields(leaves) -> dict:
@@ -189,3 +196,17 @@ def transformer_params_to_numpy(params):
     """A transformer tree of tensors (or one tensor) as numpy arrays in the
     JAX package's layout; bf16 widened to f32 (exact)."""
     return _map_tree(to_numpy, params)
+
+
+def kv_caches_from_numpy(caches, device=None) -> list:
+    """The JAX package's decode caches (a list, one tuple of arrays per
+    layer group) as this port's: a list of tuples of tensors on
+    ``device``, bf16 kept."""
+    dev = resolve_device(device)
+    return [tuple(_tensor(c, dev) for c in group) for group in caches]
+
+
+def kv_caches_to_numpy(caches) -> list:
+    """Decode caches of either package as a list of tuples of numpy
+    arrays; bf16 widened to f32 (exact)."""
+    return [tuple(to_numpy(c) for c in group) for group in caches]

@@ -5,10 +5,10 @@ same *blockwise online softmax* over (q_chunk, kv_chunk) blocks with f32
 accumulators, written as two Python loops over the chunks (the JAX
 package's two ``lax.scan``s): peak memory O(B*H*q_chunk*kv_chunk).  The
 JAX package has no attention kernel (plain ``jnp`` under XLA), so neither
-has the port: every step is a plain ``torch`` call.
+has the port: every step is a plain ``torch`` call.  ``decode_attention``
+is one token's attention against a KV cache (the decode path).
 
-``decode_attention`` and ``cross_entropy`` are not ported yet (the decode
-path and training, ROADMAP queue 1, items 13b and 13e).
+``cross_entropy`` is not ported yet (training, ROADMAP queue 1, item 13e).
 """
 
 from __future__ import annotations
@@ -17,10 +17,19 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "rms_norm", "softcap", "rope_frequencies",
-           "rope_angles", "apply_rope", "rotate", "blockwise_attention"]
+__all__ = ["NEG_INF", "normal", "rms_norm", "softcap", "rope_frequencies",
+           "rope_angles", "apply_rope", "rotate", "blockwise_attention",
+           "decode_attention"]
 
 NEG_INF = -1e30
+
+
+def normal(shape, scale, *, dtype, device, generator) -> torch.Tensor:
+    """Parameters drawn from N(0, scale^2) in ``dtype`` (the JAX package's
+    ``jax.random.normal(key, shape, dtype) * scale``: its distribution,
+    not its values)."""
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=device).mul_(scale)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
@@ -169,3 +178,37 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(o.transpose(1, 2))                     # (B, qc, H, Dv)
     out = outs[0] if nq == 1 else torch.cat(outs, dim=1)
     return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_len, *,
+                     window: Optional[int] = None,
+                     logit_cap: Optional[float] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention against a (B, Smax, KV, Dh) cache.
+
+    ``cur_len`` (an int, or a (B,) tensor) counts the valid cache entries,
+    the new token's already written at cur_len - 1.  Query head h reads KV
+    head h // (H / KV), as in ``blockwise_attention``.  A window w > 0
+    keeps the entries at positions >= cur_len - w; None or w <= 0 keeps
+    all.  f32 scores, softmax and values, as the JAX package computes them.
+    """
+    b, _one, h, dh = q.shape
+    kv = k_cache.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.reshape(b, kv, g, dh).to(torch.float32)
+    s = torch.einsum("bkgd,bpkd->bkgp", qg,
+                     k_cache.to(torch.float32)) * scale
+    s = softcap(s, logit_cap)
+    pos = torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    # an int bound is a host scalar: no copy to the card, no wait for it
+    cur = cur_len if isinstance(cur_len, int) else \
+        torch.as_tensor(cur_len, device=q.device).reshape(-1, 1)
+    valid = pos < cur
+    if window is not None and window > 0:
+        valid &= pos >= cur - window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgp,bpkd->bkgd", p, v_cache.to(torch.float32))
+    return o.reshape(b, 1, h, dh).to(q.dtype)

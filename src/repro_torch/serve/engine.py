@@ -1,8 +1,9 @@
 """End-to-end conversational search engine (Fig. 2 of the paper).
 
 The port of ``repro.serve.engine``.  Client side: a query encoder
-(``make_lm_query_encoder``: any dense LM backbone -> pooled, projected,
-Eq. 1-transformed embedding; or none, when the caller hands in psi) and
+(``make_lm_query_encoder``: any LM backbone of ``models.transformer``,
+dense, MoE or MLA -> pooled, projected, Eq. 1-transformed embedding; or
+none, when the caller hands in psi) and
 one session's ``MetricCache``.  Server side: the sharded metric index
 behind the straggler-hedging ``ShardedRouter``.  ``answer()`` is
 Algorithm 1 with one resilience extension: a *degraded* back-end answer
@@ -54,7 +55,9 @@ def make_lm_query_encoder(params: dict, cfg, proj, *,
         hidden = tf.hidden_states(params, tokens, cfg)
         mask = (tokens >= 0)[..., None]
         pooled = (hidden * mask).sum(1) / torch.clamp(mask.sum(1), min=1)
-        return transform_queries(pooled @ proj)
+        # a bf16 backbone's pool meets an f32 proj in f32, as jnp promotes
+        dt = torch.promote_types(pooled.dtype, proj.dtype)
+        return transform_queries(pooled.to(dt) @ proj.to(dt))
 
     return encode
 

@@ -44,6 +44,8 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products accumulate in f32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     return gen
@@ -1432,3 +1434,89 @@ def test_batched_engine_with_encoder_on_card_matches_cpu(card):
             assert a.tier == b.tier
             assert_topk_agree(a.scores[None], a.ids[None], b.scores[None],
                               b.ids[None], TOL, "encoder engine turn")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "llama4-scout-17b-16e"])
+def test_moe_mla_smoke_on_card_matches_cpu(card, arch):
+    """The MoE / MLA smoke configs with the same parameters on the card and
+    on the CPU (f32, TF32 off): logits and aux loss of a padded prefill,
+    MTP logits, three decode steps from its caches (the CPU's argmax fed
+    to both) within 1e-5, and psi within 1e-5."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import make_lm_query_encoder
+
+    cfg = registry.get(arch).smoke_config()
+    params = tf.init_params(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    gpu = _tree_to(params, "cuda")
+    tok = torch.as_tensor(_lm_rows(np.random.default_rng(4), 3, 32,
+                                   cfg.vocab_size, [32, 20, 7]))
+    want = tf.forward(params, tok, cfg, return_kv=True, kv_len=36)
+    got = tf.forward(gpu, tok.cuda(), cfg, return_kv=True, kv_len=36)
+    assert_close(got[0], want[0], 1e-5, f"{arch} logits")
+    assert abs(float(got[1]) - float(want[1])) <= 1e-6
+    if cfg.mtp:
+        assert_close(tf.mtp_logits(gpu, tok.cuda(), got[2], cfg),
+                     tf.mtp_logits(params, tok, want[2], cfg), 1e-5,
+                     f"{arch} mtp")
+    kv_c, kv_g = want[3], got[3]
+    nxt = want[0][:, -1].argmax(-1)
+    for t in range(3):
+        lc, kv_c = tf.decode_step(params, nxt, kv_c, 33 + t, cfg)
+        lg, kv_g = tf.decode_step(gpu, nxt.cuda(), kv_g, 33 + t, cfg)
+        assert_close(lg, lc, 1e-5, f"{arch} decode step {t}")
+        nxt = lc.argmax(-1)
+    proj = torch.randn(cfg.d_model, 16, generator=torch.Generator()
+                       .manual_seed(1)) * cfg.d_model ** -0.5
+    assert_close(make_lm_query_encoder(gpu, cfg, proj.cuda())(tok.cuda()),
+                 make_lm_query_encoder(params, cfg, proj, device="cpu")(tok),
+                 1e-5, f"{arch} psi")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "llama4-scout-17b-16e"])
+def test_prefill_equals_decode_on_card(card, arch):
+    """8 tokens prefilled against the same 8 fed through ``decode_step``
+    one at a time (the capacity of 8 cannot bind), on the card, f32."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tf
+
+    cfg = registry.get(arch).smoke_config()
+    params = tf.init_params(cfg, generator=card)
+    tok = torch.randint(0, cfg.vocab_size, (1, 8), generator=card,
+                        device="cuda")
+    logits = tf.forward(params, tok, cfg)[0]
+    caches = tf.init_kv_caches(cfg, 1, 8)
+    for t in range(8):
+        step, caches = tf.decode_step(params, tok[:, t], caches, t + 1, cfg)
+        assert_close(step, logits[:, t], 1e-4, f"{arch} position {t}")
+
+
+def test_moe_ffn_bf16_on_card_is_deterministic_and_near_f32(card):
+    """bf16 MoE at deepseek's routing (256 experts of 7168 -> 2048, top-8,
+    norm_topk, a shared expert; 512 tokens): two calls agree bit for bit
+    (the combine sums choices in order, no atomics), and the RMS of its
+    difference from the same routing computed in f32 is within 2e-2 of the
+    output's RMS (bf16 rounding gives about 5e-3; an element several
+    times the RMS may differ by 4e-2 of it)."""
+    from repro_torch.models import moe
+
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    cfg = moe.MoEConfig(n_experts=256, top_k=8, d_ff=2048, n_shared=1,
+                        d_ff_shared=2048)
+    p = moe.init_moe(cfg, 7168, torch.bfloat16, device="cuda", generator=card)
+    x = torch.randn(512, 7168, generator=card, device="cuda").bfloat16()
+    a, b = moe.moe_ffn(p, x, cfg), moe.moe_ffn(p, x, cfg)
+    assert torch.equal(a.y, b.y) and torch.equal(a.aux_loss, b.aux_loss)
+    r = moe.route(p, x, cfg)
+    t = x.shape[0]
+    want = moe._swiglu(x.float(), p["shared_wi"].float(),
+                       p["shared_wo"].float())
+    tok = torch.arange(t, device="cuda").repeat_interleave(cfg.top_k)
+    for e in torch.unique(r.expert_ids[r.keep]).tolist():
+        sel = (r.expert_ids == e) & r.keep
+        out = moe._swiglu(x[tok[sel]].float(), p["wi"][e].float(),
+                          p["wo"][e].float())
+        want.index_add_(0, tok[sel], out * r.gates[sel, None])
+    rms = float(want.pow(2).mean().sqrt())
+    assert float((a.y.float() - want).pow(2).mean().sqrt()) <= 2e-2 * rms

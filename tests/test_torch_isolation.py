@@ -68,7 +68,9 @@ def test_default_device_raises_without_a_card(no_card):
     from repro_torch.data.lm import LMBatchSpec, TokenStream
     from repro_torch.dist.retrieval import DeviceShard
     from repro_torch.kernels.dispatch import resolve_device
-    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.convert import kv_caches_from_numpy
+    from repro_torch.models.transformer import (Transformer, init_kv_caches,
+                                                init_params)
     from repro_torch.serve.engine import (ConversationalEngine,
                                           make_lm_query_encoder)
     from repro_torch.serve.session import BatchedEngine
@@ -87,6 +89,8 @@ def test_default_device_raises_without_a_card(no_card):
                  lambda: ConversationalEngine(None, docs, dim=5),
                  lambda: Transformer(star_encoder.smoke_config()),
                  lambda: init_params(star_encoder.smoke_config()),
+                 lambda: init_kv_caches(star_encoder.smoke_config(), 1, 4),
+                 lambda: kv_caches_from_numpy([(np.zeros(2),)]),
                  lambda: make_lm_query_encoder(
                      init_params(star_encoder.smoke_config(), device="cpu"),
                      star_encoder.smoke_config(), np.eye(32, 8)),

@@ -24,7 +24,9 @@ import pytest
 import torch
 
 from repro.configs import chatglm3_6b as j_chatglm
+from repro.configs import deepseek_v3_671b as j_deepseek
 from repro.configs import gemma2_9b as j_gemma
+from repro.configs import llama4_scout_17b_a16e as j_llama4
 from repro.configs import mistral_large_123b as j_mistral
 from repro.configs import star_encoder as j_star
 from repro.core.embedding import transform_documents
@@ -36,7 +38,8 @@ from repro.serve.engine import make_lm_query_encoder as j_make_encoder
 from repro.serve.router import ShardedRouter as JRouter
 from repro.serve.session import BatchedEngine as JBatchedEngine
 from repro_torch import convert
-from repro_torch.configs import (chatglm3_6b, gemma2_9b, mistral_large_123b,
+from repro_torch.configs import (chatglm3_6b, deepseek_v3_671b, gemma2_9b,
+                                 llama4_scout_17b_a16e, mistral_large_123b,
                                  star_encoder)
 from repro_torch.dist.retrieval import DeviceShard
 from repro_torch.kernels import dispatch
@@ -81,7 +84,9 @@ def _rows(seed, b, s, vocab, lengths):
 @pytest.mark.parametrize("jmod,tmod", [(j_star, star_encoder),
                                        (j_chatglm, chatglm3_6b),
                                        (j_gemma, gemma2_9b),
-                                       (j_mistral, mistral_large_123b)])
+                                       (j_mistral, mistral_large_123b),
+                                       (j_deepseek, deepseek_v3_671b),
+                                       (j_llama4, llama4_scout_17b_a16e)])
 @pytest.mark.parametrize("s,lengths", [(16, [16, 12, 5, 1]),
                                        (32, [32, 17, 16, 3])])
 def test_psi_matches_jax(jmod, tmod, s, lengths):
@@ -139,18 +144,34 @@ def _pad(rows, width=None):
     return out
 
 
-@pytest.fixture(scope="module")
-def corpus(star):
+def _spread_corpus(jenc, cfg):
     """3,000 documents spread as the encoder's outputs are (the JAX
     encoder over random token rows, norms jittered by 5%), so that a
     k_c = 60 radius is near the distance between turns: hits and misses."""
-    jenc, _tenc, cfg = star
     rng = np.random.default_rng(9)
     rows = _rows(9, 3000, 16, cfg.vocab_size, rng.integers(4, 17, 3000))
     base = np.asarray(jenc(jnp.asarray(rows)))[:, :L] \
         * (1 + 0.05 * rng.random((3000, 1))).astype(np.float32)
     docs, _ = transform_documents(jnp.asarray(base))
     return np.array(docs)
+
+
+@pytest.fixture(scope="module")
+def corpus(star):
+    jenc, _tenc, cfg = star
+    return _spread_corpus(jenc, cfg)
+
+
+@pytest.fixture(scope="module", params=["deepseek-v3-671b",
+                                        "llama4-scout-17b-16e"])
+def moe_backbone(request):
+    """A MoE backbone's encoders (deepseek's MLA + MTP tree, llama4's GQA)
+    and a corpus spread as its outputs are."""
+    jmod, tmod = {"deepseek-v3-671b": (j_deepseek, deepseek_v3_671b),
+                  "llama4-scout-17b-16e": (j_llama4, llama4_scout_17b_a16e)
+                  }[request.param]
+    jenc, tenc, cfg = _encoders(jmod, tmod, seed=13)
+    return jenc, tenc, cfg, _spread_corpus(jenc, cfg)
 
 
 def _routers(docs):
@@ -176,8 +197,7 @@ def _same_slots(jcache, tcache, what):
                                       err_msg=f"{what}: {f}")
 
 
-def test_conversational_engine_with_encoder_matches_jax(star, corpus):
-    jenc, tenc, cfg = star
+def _one_session_matches_jax(jenc, tenc, cfg, corpus):
     convs = _conversations(cfg.vocab_size)
     jr, tr = _routers(corpus)
     kw = dict(dim=L + 1, k=K, k_c=KC, epsilon=0.04, capacity=CAP,
@@ -206,6 +226,16 @@ def test_conversational_engine_with_encoder_matches_jax(star, corpus):
                     assert b.hit, f"conversation {c}: a repeated turn missed"
             _same_slots(je.cache, te.cache, f"conversation {c}")
         assert any(hits) and not all(hits)     # misses after the first turn
+
+
+def test_conversational_engine_with_encoder_matches_jax(star, corpus):
+    _one_session_matches_jax(*star, corpus)
+
+
+def test_moe_backbone_engine_matches_jax(moe_backbone):
+    """The one-session engine behind a MoE / MLA encoder answers turn by
+    turn as the JAX engine does (pads never reach a B = 1 row)."""
+    _one_session_matches_jax(*moe_backbone)
 
 
 def test_batched_engine_with_encoder_matches_jax(star, corpus):

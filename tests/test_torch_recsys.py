@@ -257,7 +257,7 @@ def test_models_default_to_the_card(monkeypatch):
 def test_registry_serves_ported_archs_and_names_the_rest():
     assert registry.get("dlrm-rm2") is dlrm_rm2
     assert registry.get("xdeepfm") is xdeepfm
-    for arch in ("sasrec", "deepseek-v3-671b", "egnn"):
+    for arch in ("sasrec", "bert4rec", "egnn"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             registry.get(arch)
     with pytest.raises(KeyError):
