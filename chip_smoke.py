@@ -59,7 +59,14 @@ Run from the repository root.  Phases, each fatal on failure:
      (CIN's (B, H*m, D) product is 81.8 GB at 262,144 rows), 2 launches per
      forward.  Logits are finite and equal the interaction fed the plain
      pooled rows (rtol 1e-4, atol 1e-5); the pool reads the (F*V, D) view of
-     the tables, and the peak memory shows no copy of them.
+     the tables, and the peak memory shows no copy of them.  Then
+     ``retrieval_cand`` for each: 51 one-row requests through the user
+     tower and the top 1,000 of ``candidate_index(tables[0], n_valid=
+     1,000,000)`` (the kNN kernels; DLRM's table taken as is, xDeepFM's
+     padded 10 -> 32 once), latency p50 / p99, the last answer's ids equal
+     the plain search's on the card, none >= 1,000,000; the kNN pair and
+     the embedding bag at that shape timed beside their plain versions
+     and library calls.
   5. lm      — the LM family with MLA, MoE and MTP and the decode path,
      before the corpus so its weights never meet the 28 GB corpus (plain
      PyTorch, as the JAX package computes them in plain ``jnp``; bf16
@@ -81,6 +88,36 @@ Run from the repository root.  Phases, each fatal on failure:
      of ``ConversationalEngine`` for 2 conversations x 10 token turns
      over ``make_world``'s 60,000 documents (every miss the exact top-k of
      its psi).
+  5b. seqrec — SASRec and BERT4Rec (plain PyTorch encode, as the JAX
+     package's ``jnp``), before the corpus.  The smoke configs with the same
+     parameters on the card and on the CPU path over ``SessionStream`` rows
+     (most with pads, one all pads): encode, session repr, BCE and the
+     top-25 scores within 1e-5, ids equal.  Then each at full width
+     (1,048,576 items; seeded random weights) through ``SeqRec.retrieve``:
+     the encode in row chunks (``models/recsys.encode_rows``), then
+     ``MetricIndex.search`` over the item table (BERT4Rec's taken as is,
+     SASRec's padded 50 -> 64 once): ``serve_p99`` (51 requests of 512
+     sessions, top 100: latency p50 / p99, every row of the last against
+     the plain search, encode and scan timed apart), ``serve_bulk``
+     (262,144 sessions, served twice: rows/s, the encode's and the kNN
+     search's chunks, 1,024 sampled rows against the plain search, peak
+     memory) and ``retrieval_cand`` (51 one-session requests over the
+     first 1,000,000 items, top 1,000).  The kNN pair at ``serve_p99``'s
+     shape timed beside its plain versions and library calls.
+  5c. egnn  — the equivariant GNN (plain PyTorch, as the JAX package's
+     ``jnp``; no kernel).  The smoke config card against CPU (node and
+     graph readout, within 1e-4) and, on the card, a rotation and
+     translation (logits equal, coordinates rotated, within 2e-4).  Then
+     the four shapes of ``configs/egnn.SHAPES`` at full width (4 layers,
+     d 64): ``molecule`` (128 graphs x 30 nodes x 64 edges, graph
+     readout), ``full_graph_sm`` (2,708 nodes, 10,556 edges, d_feat
+     1,433), ``minibatch_lg`` (a 1,024-seed block of fanout (15, 10) from
+     ``NeighborSampler`` over a 232,965-node, 114,615,892-edge host graph,
+     d_feat 602) and ``ogb_products`` (2,449,029 nodes, 61,859,140 edges,
+     d_feat 100), each made on the host from the seed: the forward timed
+     on the device and back to back beside its bound, its edge chunks
+     (``models/egnn.EDGE_CHUNK``), two forwards equal bit for bit, its
+     peak memory, and the host seconds apart.
   6. corpus  — ``make_world`` (60,000 docs, 64 conversations of 10 turns,
      dim 768) plus background distractors drawn on the card from a seeded
      generator fill the corpus to N = 8,841,823 (the MS MARCO passage
@@ -187,7 +224,11 @@ beside it).  The two probe rows (``cache_probe``, ``probe_rhat``) are the
 decision ops, one launch each, timed the same way.  The ``*_assign``,
 ``*_tables``, ``*_l2`` and ``wave_insert_query_wide`` rows are the kernels
 at the tiered path's shapes, with the launches of the cluster build and of
-``[tiered]`` made at those shapes.
+``[tiered]`` made at those shapes.  The ``*_seqrec`` rows are the kNN pair
+at seqrec's ``serve_p99`` shape (launches of ``serve_p99`` and
+``serve_bulk``), the ``*_cand`` rows the kNN pair and the embedding bag at
+``retrieval_cand``'s (launches of all four archs there, and of the two
+user towers), each timed with the queue filled ahead.
 
 Tolerances (the kernels and the plain versions sum f32 dot products in
 different orders): scores and r_hat within 1e-5 and 1e-4 (r_hat takes a
@@ -250,10 +291,11 @@ S1_ROWS = {"wave_query_topk_s1": "wave_query_topk",
 BAG_TOL, HALF_TOL = 1e-5, 1e-3     # pooled rows: f32 tables, f16 / bf16
 LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-5
 P99_CALLS = 51                     # the first is a warm-up, not in the stats
+SPREAD_READINGS = 5                # readings of the B = 1 select's time
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
-PHASES = ("kernels", "probe", "recsys", "lm", "encoder", "ab", "main",
-          "tiered", "paper", "engine")
+PHASES = ("kernels", "probe", "recsys", "lm", "seqrec", "egnn", "encoder",
+          "ab", "main", "tiered", "paper", "engine")
 XDEEPFM_CHUNK = 16_384
 # [tiered]: the L2 tier, the cluster index and the traffic of
 # serve_bench.bench_zipf; [chaos]: bench_chaos at 8 sessions x 10 rounds
@@ -283,6 +325,29 @@ ENC_SMOKE_TOL, ENC_PSI_TOL = 1e-5, 1e-4
 LM_ARCHS = ("deepseek-v3-671b", "llama4-scout-17b-16e")
 LM_LAYERS, LM_B, LM_S, LM_KV, LM_STEPS, LM_CONVS = 4, 8, 512, 544, 32, 2
 LM_SMOKE_TOL, LM_MOE_TOL, LM_PD_TOL = 1e-5, 2e-2, 0.25
+# [recsys] retrieval_cand and [seqrec]: the paper's index scan over an item
+# table (cells.py: the top SERVE_K at serve_p99 / serve_bulk, the top CAND_K
+# of retrieval_cand's candidates); BULK_SAMPLE serve_bulk rows checked
+# against the plain search; the smoke configs card against CPU within
+# SEQREC_TOL.  [egnn]: the smoke config card against CPU within
+# EGNN_SMOKE_TOL, a rotation and translation within EGNN_EQUI_TOL (the JAX
+# package's test bound); EGNN_SHAPES in order, with EGNN_REPS timed
+# forwards each
+SEQREC_ARCHS = ("sasrec", "bert4rec")
+SERVE_K, CAND_K, BULK_SAMPLE, SEQREC_TOL = 100, 1000, 1024, 1e-5
+EGNN_SMOKE_TOL, EGNN_EQUI_TOL = 1e-4, 2e-4
+EGNN_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg", "ogb_products")
+EGNN_REPS = {"molecule": 10, "full_graph_sm": 10, "minibatch_lg": 5,
+             "ogb_products": 2}
+# the kernels again at this slice's shapes: the kNN pair at seqrec's
+# serve_p99 (B = 512 over the 1,048,576-item table, k = SERVE_K; launches
+# of serve_p99 and serve_bulk) and at retrieval_cand (B = 1, k = CAND_K;
+# launches of all four archs), the embedding bag at the DLRM user tower's
+# retrieval_cand request (launches of both towers)
+SLICE_ROWS = {"knn_score_seqrec": "knn_score",
+              "knn_select_seqrec": "knn_select",
+              "knn_score_cand": "knn_score", "knn_select_cand": "knn_select",
+              "embedding_bag_cand": "embedding_bag"}
 # the kernels again at the tiered path's shapes; their launches are those
 # of [tiered] (the assignment's and tables' those of the cluster build)
 TIER_ROWS = {"knn_score_assign": "knn_score", "knn_select_assign":
@@ -372,7 +437,7 @@ class Report:
 
     def line(self, launches):
         out = []
-        again = {**B1_ROWS, **S1_ROWS, **TIER_ROWS}
+        again = {**B1_ROWS, **S1_ROWS, **TIER_ROWS, **SLICE_ROWS}
         for name in (*KERNELS, *again):
             src, tpu = KERNELS[again.get(name, name)]
             out.append({"name": name, "route": "cuda", "source": SRC + src,
@@ -916,6 +981,178 @@ def bag_row(torch, what, table, idx, w=None, mode="sum", reps=20):
     return row
 
 
+def plain_search(torch, index, q, k):
+    """The plain search (``knn/ref.search``) over an index's payload, on
+    the card."""
+    from repro_torch.kernels.knn import ref as knn_ref
+    dp = index.doc_emb.shape[1]
+    return knn_ref.search(index.doc_emb, index.doc_ids,
+                          torch.nn.functional.pad(q, (0, dp - q.shape[1])), k)
+
+
+def check_answers(torch, what, index, q, scores, ids, k, n_valid) -> float:
+    """Served (scores, ids) of queries ``q`` against the plain search on the
+    card (``assert_topk_agree``, scores within SCORE_TOL of the largest
+    score's magnitude, at least 1), every id a row in [0, n_valid)."""
+    from repro_torch.kernels.parity import assert_topk_agree
+    rv, ri = plain_search(torch, index, q, k)
+    tol = SCORE_TOL * max(1.0, float(rv[:, 0].abs().max()))
+    err = assert_topk_agree(scores, ids, rv, ri, tol, what)
+    if int(ids.min()) < 0 or int(ids.max()) >= n_valid:
+        raise AssertionError(f"{what}: ids outside [0, {n_valid}): "
+                             f"{int(ids.min())}..{int(ids.max())}")
+    return err
+
+
+def p50_p99(lat):
+    """(p50, p99) in ms of per-call seconds, the first call a warm-up."""
+    import numpy as np
+    lat = np.array(lat[1:]) * 1e3
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def serve_retrieval(torch, what, call, requests, per_call):
+    """Serve ``requests`` one ``call(*args) -> (scores, ids)`` each, counted,
+    the host clock around call + synchronize.  Every call must launch
+    ``per_call`` (kernel: launches).  Returns (launches, per-call seconds,
+    the last answer)."""
+    def run():
+        lat, out = [], None
+        for args in requests:
+            t0 = time.perf_counter()
+            out = call(*args)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        return lat, out
+
+    (lat, out), launches = counted(torch, run)
+    want = {name: 0 for name in launches}
+    want.update({n: c * len(requests) for n, c in per_call.items()})
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} != {want}")
+    return {n: c for n, c in launches.items() if c}, lat, out
+
+
+def knn_rows(torch, what, index, q, k):
+    """``knn_score`` and ``knn_select`` on an index's payload at one shape,
+    each held against its plain version on the card and timed beside it
+    and its library call (``torch.mm``, ``torch.topk``), on the device
+    (the queue filled ahead) and back to back; and the whole op
+    (``MetricIndex.search``) beside ``topk(q @ T.T)``, back to back.  Logs
+    the lines and returns the two rows' numbers."""
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.parity import assert_close, assert_topk_agree
+
+    docs, ids = index.doc_emb, index.doc_ids
+    n, dp = docs.shape
+    b = q.shape[0]
+    qp = torch.nn.functional.pad(q, (0, dp - q.shape[1])).contiguous()
+    def both(fn, reps):
+        """(device ms, back-to-back ms): the device reading where the
+        stream's sleep outlasts the enqueue, else the back-to-back one."""
+        b2b = timed(torch, fn, reps)
+        dev = timed_device(torch, fn, reps, strict=False)
+        return (b2b if dev is None else dev), b2b
+
+    sk = knn_ops.knn_score(docs, ids, qp)
+    tol = SCORE_TOL * max(1.0, float(sk.abs().max()))
+    score = {"err": assert_close(sk, knn_ref.score(docs, ids, qp), tol,
+                                 f"{what} knn_score"),
+             "nbytes": n * (dp * 4 + 4) + b * dp * 4 + b * n * 4,
+             "ops": 2 * b * n * dp}
+    score["ms"], score["b2b_ms"] = both(
+        lambda: knn_ops.knn_score(docs, ids, qp), 10)
+    score["plain_ms"] = both(lambda: knn_ref.score(docs, ids, qp), 5)[0]
+    score["library_ms"] = both(lambda: torch.mm(qp, docs.T), 10)[0]
+    vk, ik = knn_ops.knn_select(sk, ids, k)
+    vr, ir = knn_ref.select(sk, ids, k)
+    select = {"err": assert_topk_agree(vk, ik, vr, ir, 0.0,
+                                       f"{what} knn_select"),
+              "nbytes": b * n * 4 + b * k * 8, "ops": 0}
+    select["ms"], select["b2b_ms"] = both(
+        lambda: knn_ops.knn_select(sk, ids, k), 10)
+    select["plain_ms"] = both(lambda: knn_ref.select(sk, ids, k), 3)[0]
+    select["library_ms"] = both(lambda: torch.topk(sk, k, dim=1), 10)[0]
+    del sk, vk, ik, vr, ir
+    op_ms = timed(torch, lambda: index.search(q, k), 10)
+    op_lib = timed(torch, lambda: torch.topk(qp @ docs.T, k, dim=1), 10)
+    op_bound = bound(n * (dp * 4 + 4) + b * dp * 4 + b * k * 8,
+                     2 * b * n * dp, F32_OPS)
+    for name, row in (("knn_score", score), ("knn_select", select)):
+        row["bound_ms"], row["bound_by"] = bound(row["nbytes"], row["ops"],
+                                                 F32_OPS)
+        log(f"[kernels] {name} {what} (B={b}, N={n}, Dp={dp}, k={k}): "
+            f"max_abs_err={row['err']:.3g} ms={row['ms']:.4f} (back to back "
+            f"{row['b2b_ms']:.4f}) plain_ms={row['plain_ms']:.4f} library_ms="
+            f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
+    log(f"[kernels] MetricIndex.search {what}: op ms={op_ms:.4f} "
+        f"(knn_score + knn_select) library_ms={op_lib:.4f} (topk(q @ T.T)) "
+        f"bound_ms={op_bound[0]:.4f} ({op_bound[1]})")
+    torch.cuda.empty_cache()
+    return {"knn_score": score, "knn_select": select}
+
+
+def add_rows(rep, rows: dict, suffix: str) -> None:
+    for name, r in rows.items():
+        rep.add(f"{name}_{suffix}", err=r["err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], nbytes=r["nbytes"], ops=r["ops"],
+                rate=F32_OPS, library_ms=r["library_ms"])
+
+
+def recsys_cand(torch, rep, model, requests, what):
+    """retrieval_cand for a DLRM / xDeepFM model: its user tower, then the
+    top CAND_K of the candidate index over ``tables[0]`` (rows past
+    n_candidates masked), one request at a time.  Returns the path's
+    launches."""
+    from repro_torch.configs import registry
+    from repro_torch.models import recsys as rs
+
+    n_valid = registry.RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    table = model.tables[0]
+    before = torch.cuda.memory_allocated()
+    index = rs.candidate_index(table, n_valid, device=DEV)
+    copied = torch.cuda.memory_allocated() - before
+    aligned = table.shape[1] % 32 == 0
+    if aligned != (index.doc_emb.data_ptr() == table.data_ptr()):
+        raise AssertionError(f"[recsys] {what}: the index's payload is "
+                             f"not what the table's width asks for")
+
+    def call(*args):
+        res = index.search(model.user_tower(*args), CAND_K)
+        return res.scores, res.ids
+
+    launches, lat, (scores, ids) = serve_retrieval(
+        torch, f"[recsys] {what} retrieval_cand", call, requests,
+        {"embedding_bag": 1, "knn_score": 1, "knn_select": 1})
+    err = check_answers(torch, f"[recsys] {what} retrieval_cand", index,
+                        model.user_tower(*requests[-1]), scores, ids, CAND_K,
+                        n_valid)
+    p50, p99 = p50_p99(lat)
+    payload = ("takes tables[0] as is" if aligned else
+               f"pads tables[0] to width {index.doc_emb.shape[1]} "
+               f"({copied / 1e6:.1f} MB copied once)")
+    log(f"[recsys] {what} retrieval_cand (1 request x {table.shape[0]} "
+        f"candidates, {n_valid} valid, top {CAND_K}): {len(lat) - 1} calls "
+        f"after a warm-up, latency p50 {p50:.4f} ms, p99 {p99:.4f} ms; ids "
+        f"equal the plain search's (max err {err:.3g}), none >= {n_valid}; "
+        f"the index {payload}")
+    rows = knn_rows(torch, f"{what} retrieval_cand", index,
+                    model.user_tower(*requests[-1]), CAND_K)
+    if what == "dlrm-rm2":          # the kernels line's rows at this shape
+        add_rows(rep, rows, "cand")
+        r = bag_row(torch, "dlrm retrieval_cand",
+                    *rs.flatten_fields(model.tables, requests[-1][1]),
+                    reps=200)
+        rep.add("embedding_bag_cand", err=r["err"], ms=r["device_ms"],
+                plain_ms=r["plain_ms"], nbytes=r["nbytes"], ops=r["ops"],
+                rate=F32_OPS, library_ms=r["library_ms"])
+    del index
+    torch.cuda.empty_cache()
+    return launches
+
+
 def recsys_cpu_check(torch, seed):
     """The smoke configs on the CPU path, then moved to the card: logits
     within 1e-5, 1 / 2 launches per forward."""
@@ -948,8 +1185,9 @@ def recsys_cpu_check(torch, seed):
 
 def recsys_phase(torch, rep: Report, gen, seed):
     """DLRM-RM2 and xDeepFM at full width: the embedding-bag kernel against
-    its plain version and ``F.embedding_bag``, then the served forwards.
-    Returns the launches of the served runs."""
+    its plain version and ``F.embedding_bag``, then the served forwards,
+    then retrieval_cand through each user tower.  Returns {path:
+    launches} of the served runs."""
     import numpy as np
 
     from repro_torch.configs import dlrm_rm2, registry, xdeepfm
@@ -1073,6 +1311,9 @@ def recsys_phase(torch, rep: Report, gen, seed):
         f"{peak / 1e9:.3f} GB = tables {tab_bytes / 1e9:.3f} GB + "
         f"{(peak - tab_bytes) / 1e9:.3f} GB (forward "
         f"{(peak - before) / 1e9:.3f} GB: no copy of the tables)")
+    cand = {"dlrm-rm2": recsys_cand(
+        torch, rep, model, batches(cfg, range(100, 100 + P99_CALLS), 1),
+        cfg.name)}
     del model, params, tables, dense_b, sparse_b, p99, out
     torch.cuda.empty_cache()
 
@@ -1133,10 +1374,425 @@ def recsys_phase(torch, rep: Report, gen, seed):
         f"logits finite, the last chunk equals the plain pool's (max rel err "
         f"{err:.3g}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    cand[cfg.name] = recsys_cand(
+        torch, rep, model,
+        batches(cfg, range(100, 100 + P99_CALLS), 1, dense=False), cfg.name)
     del model, params, sparse_b, p99, chunks, out
     torch.cuda.empty_cache()
-    log(f"[recsys] served with {launches} embedding_bag launches")
-    return {"embedding_bag": launches}
+    log(f"[recsys] served with {launches} embedding_bag launches; "
+        f"retrieval_cand with {json.dumps(cand)}")
+    return {"recsys": {"embedding_bag": launches},
+            "recsys_cand": {n: sum(c.get(n, 0) for c in cand.values())
+                            for n in ("embedding_bag", "knn_score",
+                                      "knn_select")}}
+
+
+# ---------------------------------------------------------------- seqrec
+def seqrec_encode_ops(cfg) -> float:
+    """Operations of one row's encode (``launch/cells.py``'s
+    ``_recsys_flops`` for the sequential models)."""
+    d, s = cfg.embed_dim, cfg.max_len
+    per_tok = 4 * d * d + 2 * cfg.d_ff_mult * d * d + 2 * s * d
+    return 2.0 * s * cfg.n_blocks * per_tok
+
+
+def session_batches(torch, cfg, steps, size):
+    """``SessionStream`` item rows (S/2..S items, -1 pads) on the card."""
+    from repro_torch.data.recsys import SessionStream
+    stream = SessionStream(cfg.vocab, cfg.max_len, seed=SEED)
+    return [(torch.as_tensor(stream.batch(step, size)["items"],
+                             device=DEV),) for step in steps]
+
+
+def seqrec_smoke(torch):
+    """The smoke configs with the same parameters on the CPU path and on
+    the card, over ``SessionStream`` rows (most with pads) and an all-pad
+    row: encode, session repr, BCE within SEQREC_TOL, retrieval ids equal
+    (one knn_score and one knn_select launch)."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import SessionStream
+    from repro_torch.kernels.parity import assert_close
+    from repro_torch.models import recsys as rs
+
+    for arch in SEQREC_ARCHS:
+        cfg = registry.get(arch).smoke_config()
+        m = rs.SeqRec(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(SEED))
+        b = SessionStream(cfg.vocab, cfg.max_len, seed=SEED).batch(0, 64)
+        b["items"][0] = -1
+        pads = int((b["items"] < 0).any(axis=1).sum())
+        args = (b["items"], b["pos"], b["neg"])
+        n_valid, k = cfg.vocab - 20, 25
+
+        def run():
+            return (m.encode(args[0]), m.session_repr(args[0]),
+                    m.bce_loss(*args), m.retrieve(args[0], k, n_valid))
+
+        want = run()
+        m.to(DEV)
+        got, launches = counted(torch, run)
+        if launches["knn_score"] != 1 or launches["knn_select"] != 1:
+            raise AssertionError(f"[seqrec] {arch} smoke: {launches}")
+        errs = [assert_close(g, w, SEQREC_TOL, f"[seqrec] {arch} {n}")
+                for g, w, n in zip(got[:3], want[:3],
+                                   ("encode", "repr", "bce"))]
+        (gs, gi), (ws, wi) = got[3], want[3]
+        errs.append(assert_close(gs, ws, SEQREC_TOL, f"[seqrec] {arch} "
+                                 f"retrieve scores"))
+        if not np.array_equal(gi.cpu().numpy(), wi.numpy()):
+            raise AssertionError(f"[seqrec] {arch} smoke: retrieved ids "
+                                 f"differ from the CPU path's")
+        log(f"[seqrec] {cfg.name}: card == CPU path on the same parameters "
+            f"(64 rows, {pads} with pads, one all pads; encode / repr / bce "
+            f"/ top-{k} scores max_abs_err "
+            f"{' / '.join(f'{e:.3g}' for e in errs)}, ids equal)")
+
+
+def seqrec_arch(torch, rep, arch, gen):
+    """One arch at full width: serve_p99, serve_bulk and retrieval_cand,
+    each through ``SeqRec.retrieve`` (the encode in row chunks, then the
+    index scan of the kNN kernels).  Returns {path: launches}."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.models import recsys as rs
+
+    cfg = registry.get(arch).full_config()
+    t0 = time.perf_counter()
+    m = rs.SeqRec(cfg, device=DEV, generator=gen)
+    torch.cuda.synchronize()
+    table = m.item_emb
+    before = torch.cuda.memory_allocated()
+    index = m.index()
+    copied = torch.cuda.memory_allocated() - before
+    aligned = cfg.embed_dim % 32 == 0
+    if aligned != (index.doc_emb.data_ptr() == table.data_ptr()):
+        raise AssertionError(f"[seqrec] {arch}: the index's payload is not "
+                             f"what the table's width asks for")
+    n, dp = index.doc_emb.shape
+    rows = rs.encode_rows(cfg)
+    log(f"[seqrec] {arch} (vocab {cfg.vocab}, d {cfg.embed_dim}, "
+        f"{cfg.n_blocks} blocks, {cfg.n_heads} head(s), S {cfg.max_len}, "
+        f"{'causal' if cfg.causal else 'bidirectional'}): item table "
+        f"{table.numel() * 4 / 1e6:.1f} MB drawn in "
+        f"{time.perf_counter() - t0:.2f} s; the index "
+        + ("takes it as is" if aligned else
+           f"pads it to width {dp} ({copied / 1e6:.1f} MB copied once)")
+        + f"; encode chunks of {rows} rows")
+    paths = {}
+    ops_row = seqrec_encode_ops(cfg)
+    # serve_p99: 51 requests of 512 sessions
+    b_p99 = registry.RECSYS_SHAPES["serve_p99"]["batch"]
+    p99 = session_batches(torch, cfg, range(1, P99_CALLS + 1), b_p99)
+    launches, lat, (scores, ids) = serve_retrieval(
+        torch, f"[seqrec] {arch} serve_p99",
+        lambda it: m.retrieve(it, SERVE_K), p99,
+        {"knn_score": 1, "knn_select": 1})
+    p50, p99ms = p50_p99(lat)
+    q = m.session_repr(p99[-1][0])
+    err = check_answers(torch, f"[seqrec] {arch} serve_p99", index, q,
+                        scores, ids, SERVE_K, n)
+    del scores, ids
+    enc_ms = timed(torch, lambda: m.session_repr(p99[-1][0]), 10)
+    scan_ms = timed(torch, lambda: index.search(q, SERVE_K), 10)
+    enc_bound = bound(0, ops_row * b_p99, F32_OPS)[0]
+    log(f"[seqrec] {arch} serve_p99 ({b_p99} sessions, top {SERVE_K}): "
+        f"{len(lat) - 1} calls after a warm-up, latency p50 {p50:.4f} ms, "
+        f"p99 {p99ms:.4f} ms; all {b_p99} rows equal the plain search "
+        f"(max err {err:.3g}); device time apart (CUDA events): encode "
+        f"{enc_ms:.4f} ms (bound {enc_bound:.4f}), scan {scan_ms:.4f} ms")
+    if arch == "bert4rec":          # the kernels line's rows at this shape
+        add_rows(rep, knn_rows(torch, f"{arch} serve_p99", index, q,
+                               SERVE_K), "seqrec")
+    paths["seqrec"] = launches
+    del p99, q
+    torch.cuda.empty_cache()
+    # serve_bulk: one batch of 262,144 sessions, served twice
+    b_bulk = registry.RECSYS_SHAPES["serve_bulk"]["batch"]
+    (items,), = session_batches(torch, cfg, [0], b_bulk)
+    knn_chunk = knn_ops.chunk_rows(n, 4 * knn_ops._select_words(
+        n, SERVE_K)[2])
+    chunks = -(-b_bulk // knn_chunk)
+    per_call = chunks if DEV == "cuda" else 1   # a rehearsal counts calls
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches, lat, (scores, ids) = serve_retrieval(
+        torch, f"[seqrec] {arch} serve_bulk",
+        lambda it: m.retrieve(it, SERVE_K), [(items,)] * 2,
+        {"knn_score": per_call, "knn_select": per_call})
+    peak = torch.cuda.max_memory_allocated() - base
+    sample = torch.linspace(0, b_bulk - 1, BULK_SAMPLE, device=DEV).long()
+    err = check_answers(torch, f"[seqrec] {arch} serve_bulk sample", index,
+                        m.session_repr(items[sample]), scores[sample],
+                        ids[sample], SERVE_K, n)
+    del scores, ids
+    t_enc = time.perf_counter()
+    q = m.session_repr(items)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter()
+    index.search(q, SERVE_K)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    log(f"[seqrec] {arch} serve_bulk ({b_bulk} sessions, top {SERVE_K}): "
+        f"{b_bulk / lat[-1]:.1f} rows/s ({lat[-1] * 1e3:.3f} ms a call, "
+        f"the second of 2); encode {(t_scan - t_enc) * 1e3:.3f} ms in "
+        f"{-(-b_bulk // rows)} chunks of {rows} rows (bound "
+        f"{bound(0, ops_row * b_bulk, F32_OPS)[0]:.3f} ms), scan "
+        f"{(t_end - t_scan) * 1e3:.3f} ms in {chunks} kNN chunks of "
+        f"{knn_chunk} queries (score bound "
+        f"{bound(0, 2 * b_bulk * n * dp, F32_OPS)[0]:.3f} ms); "
+        f"{BULK_SAMPLE} sampled rows equal the plain search (max err "
+        f"{err:.3g}); peak device memory above the item table and index "
+        f"{peak / 1e9:.3f} GB")
+    paths["seqrec"] = {k: paths["seqrec"][k] + launches[k]
+                       for k in paths["seqrec"]}
+    del items, q
+    torch.cuda.empty_cache()
+    # retrieval_cand: one session against the first 1,000,000 items
+    n_valid = registry.RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    cand = m.index(n_valid)
+    if cand.doc_emb.data_ptr() != index.doc_emb.data_ptr():
+        raise AssertionError(f"[seqrec] {arch}: retrieval_cand's index "
+                             f"copied the payload again")
+    requests = session_batches(torch, cfg, range(100, 100 + P99_CALLS), 1)
+    launches, lat, (scores, ids) = serve_retrieval(
+        torch, f"[seqrec] {arch} retrieval_cand",
+        lambda it: m.retrieve(it, CAND_K, n_valid), requests,
+        {"knn_score": 1, "knn_select": 1})
+    err = check_answers(torch, f"[seqrec] {arch} retrieval_cand", cand,
+                        m.session_repr(requests[-1][0]), scores, ids, CAND_K,
+                        n_valid)
+    p50, p99ms = p50_p99(lat)
+    log(f"[seqrec] {arch} retrieval_cand (1 session x {n} candidates, "
+        f"{n_valid} valid, top {CAND_K}): {len(lat) - 1} calls after a "
+        f"warm-up, latency p50 {p50:.4f} ms, p99 {p99ms:.4f} ms; ids equal "
+        f"the plain search's (max err {err:.3g}), none >= {n_valid}")
+    paths["seqrec_cand"] = launches
+    del m, index, cand
+    torch.cuda.empty_cache()
+    return paths
+
+
+def seqrec_phase(torch, rep: Report):
+    """[seqrec]: the smoke configs card against CPU, then SASRec and
+    BERT4Rec at full width through the index scan.  Returns {path:
+    launches}."""
+    t_phase = time.perf_counter()
+    seqrec_smoke(torch)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 5)
+    paths = {}
+    for arch in SEQREC_ARCHS:
+        for name, counts in seqrec_arch(torch, rep, arch, gen).items():
+            mine = paths.setdefault(name, {})
+            for k, v in counts.items():
+                mine[k] = mine.get(k, 0) + v
+    log(f"[seqrec] phase in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# ------------------------------------------------------------------ egnn
+def egnn_costs(cfg, n_nodes, n_edges, n_out, d_feat):
+    """(bytes, operations) of one forward: ``launch/cells.py``'s message
+    passing count over the edges and nodes this run holds (valid edges
+    only), plus the encoder and the head; the inputs read once (features,
+    coordinates, edge ids) and the outputs written once."""
+    dh = cfg.d_hidden
+    per_edge = 2 * ((2 * dh + 1) * dh + dh * dh + dh * dh + dh)
+    per_node = 2 * (2 * dh * dh + dh * dh)
+    ops = (cfg.n_layers * (n_edges * per_edge + n_nodes * per_node)
+           + 2 * n_nodes * d_feat * dh
+           + 2 * n_out * (dh * dh + dh * cfg.n_classes))
+    nbytes = (n_nodes * (d_feat + 3) * 4 + n_edges * 8
+              + n_out * cfg.n_classes * 4 + n_nodes * 12)
+    return nbytes, ops
+
+
+def egnn_graph(geom, seed):
+    """One shape's input on the host: (node_feat, coords, edge_index,
+    graph_ids or None, n_graphs or None, host seconds, sampler seconds or
+    None), from the port's copies of the JAX package's generators."""
+    import numpy as np
+
+    from repro_torch.data import graph
+
+    t0 = time.perf_counter()
+    if geom["kind"] == "batched":
+        feat, coords, edges, gids, _ = graph.batched_molecules(
+            seed, geom["batch"], geom["n_nodes"], geom["n_edges"],
+            geom["d_feat"])
+        return (feat, coords, edges, gids, geom["batch"],
+                time.perf_counter() - t0, None)
+    g = graph.random_graph(seed, geom["n_nodes"], geom["n_edges"],
+                           geom["d_feat"])
+    made = time.perf_counter() - t0
+    if geom["kind"] == "full":
+        return g.node_feat, g.coords, g.edge_index, None, None, made, None
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    sampler = graph.NeighborSampler(g.edge_index, geom["n_nodes"])
+    seeds = rng.choice(geom["n_nodes"], geom["batch_nodes"], replace=False)
+    block = sampler.sample(seeds, geom["fanout"], rng)
+    return (g.node_feat, g.coords, block, None, None, made,
+            time.perf_counter() - t0)
+
+
+def egnn_smoke(torch):
+    """The smoke config card against CPU (node readout on a random graph,
+    graph readout on molecules; logits and coordinates within
+    EGNN_SMOKE_TOL), and equivariance on the card: a rotation and
+    translation leave the logits and move the coordinates alike within
+    EGNN_EQUI_TOL."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import egnn as egnn_cfg
+    from repro_torch.data import graph
+    from repro_torch.kernels.parity import assert_close
+    from repro_torch.models import egnn
+
+    base = egnn_cfg.smoke_config()
+    g = graph.random_graph(SEED, 500, 6000, base.d_feat_in)
+    mol = graph.batched_molecules(SEED, 8, 30, 64, base.d_feat_in)
+    cases = {"node": ((g.node_feat, g.coords, g.edge_index), {}),
+             "graph": (mol[:3], dict(graph_ids=mol[3], n_graphs=8))}
+    errs = []
+    for readout, (args, kw) in cases.items():
+        cfg = dataclasses.replace(base, readout=readout)
+        params = egnn.init_params(cfg, device="cpu",
+                                  generator=torch.Generator().manual_seed(
+                                      SEED))
+        want = egnn.forward(params, *args, cfg, **kw)
+        card = tree_to(params, DEV)
+        kw_card = {k: (torch.as_tensor(v, device=DEV)
+                       if k == "graph_ids" else v) for k, v in kw.items()}
+        got = egnn.forward(card, *args, cfg, **kw_card)
+        errs += [assert_close(a, b, EGNN_SMOKE_TOL,
+                              f"[egnn] smoke {readout} {what}")
+                 for a, b, what in zip(got, want, ("logits", "coords"))]
+    rng = np.random.default_rng(SEED)
+    rot, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    shift = rng.standard_normal(3)
+    moved = (args[1] @ rot.T + shift).astype(np.float32)
+    l2, x2 = egnn.forward(card, args[0], moved, args[2], cfg, **kw_card)
+    rot_t = torch.as_tensor(rot, dtype=torch.float32, device=DEV)
+    e_l = assert_close(l2, got[0], EGNN_EQUI_TOL, "[egnn] invariant logits")
+    e_x = assert_close(x2, got[1] @ rot_t.T + torch.as_tensor(
+        shift, dtype=torch.float32, device=DEV), EGNN_EQUI_TOL,
+        "[egnn] equivariant coords")
+    log(f"[egnn] smoke config: card == CPU path (node readout on 500 nodes "
+        f"x 6000 edges, graph readout on 8 molecules; logits / coords "
+        f"max_abs_err {' / '.join(f'{e:.3g}' for e in errs)}); rotated and "
+        f"translated on the card: logits within {e_l:.3g}, coords within "
+        f"{e_x:.3g} (bound {EGNN_EQUI_TOL})")
+
+
+def egnn_shape(torch, shape, gen):
+    """One of the JAX package's four shapes at full width: the graph made
+    on the host, moved to the card, its plan built once, the forward timed
+    on the device and back to back beside its bound, two forwards (the
+    second building its own plan) equal bit for bit, the peak memory."""
+    from repro_torch.configs import egnn as egnn_cfg
+    from repro_torch.models import egnn
+
+    geom = egnn_cfg.SHAPES[shape]
+    feat, coords, edges, gids, n_graphs, made, sampled = egnn_graph(geom,
+                                                                    SEED)
+    readout = "graph" if gids is not None else "node"
+    cfg = egnn_cfg.full_config(d_feat=geom["d_feat"], readout=readout)
+    params = egnn.init_params(cfg, device=DEV, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feat, coords, edges = (torch.as_tensor(a, device=DEV)
+                           for a in (feat, coords, edges))
+    if gids is not None:
+        gids = torch.as_tensor(gids, device=DEV)
+    torch.cuda.synchronize()
+    moved = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = egnn.prepare(edges, feat.shape[0], gids, n_graphs)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+
+    def fwd(p=plan):
+        return egnn.forward(params, feat, coords, edges, cfg,
+                            graph_ids=gids, n_graphs=n_graphs, plan=p)
+
+    (logits, x), launches = counted(torch, fwd)
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"[egnn] {shape}: a forward launched {launches}")
+    n_out = n_graphs or feat.shape[0]
+    if logits.shape != (n_out, cfg.n_classes) or x.shape != coords.shape \
+            or not (torch.isfinite(logits).all() and torch.isfinite(x).all()):
+        raise AssertionError(f"[egnn] {shape}: outputs malformed")
+    again = fwd(None)                       # a plan of its own
+    if not (torch.equal(again[0], logits) and torch.equal(again[1], x)):
+        raise AssertionError(f"[egnn] {shape}: two forwards differ")
+    del again
+    # one forward a device reading: a forward over many edge chunks
+    # launches more kernels than the launch queue holds behind a sleep,
+    # and then only the profiler's sum over its kernels reads the device
+    reps = EGNN_REPS[shape]
+    readings = [timed_device(torch, fwd, 1, strict=False)
+                for _ in range(reps)]
+    dev_ms = None if None in readings else sum(readings) / reps
+    b2b_ms = timed(torch, fwd, reps)
+    prof = profile_split(torch, lambda _: fwd(), None, parts={
+        "mlp": (egnn, "_mlp"), "segment_sum": (egnn.SegmentPlan, "add")})
+    split = None if prof is None else {k: round(v, 4)
+                                       for k, v in prof[1].items()}
+    n_edges = int(plan.edges.counts.sum())
+    nbytes, ops = egnn_costs(cfg, feat.shape[0], n_edges, n_out,
+                             geom["d_feat"])
+    bms, by = bound(nbytes, ops, F32_OPS)
+    log(f"[egnn] {shape} ({feat.shape[0]} nodes, {edges.shape[1]} edge "
+        f"slots, {n_edges} valid, d_feat {geom['d_feat']}, {readout} "
+        f"readout, 4 layers, d 64): forward "
+        + (f"{dev_ms:.4f} ms on the device" if dev_ms is not None else
+           "device time not measurable behind a sleep (the enqueue "
+           "outran it)")
+        + f", {b2b_ms:.4f} ms back to back (mean of {reps}); profiler, "
+        + ("no device activity" if prof is None else
+           f"one forward: {prof[0]} device activities, kernels "
+           f"{sum(prof[1].values()):.4f} ms by part {json.dumps(split)}")
+        + f"; bound {bms:.4f} ms "
+        f"({by}: {ops:.4g} operations, {nbytes / 1e9:.4g} GB); plan "
+        f"{plan_ms:.2f} ms (host clock, once a graph); "
+        f"{len(plan.edges.chunks)} edge chunk(s) of at most "
+        f"{egnn.EDGE_CHUNK}; two forwards equal bit for bit; peak device "
+        f"memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} above the "
+        f"inputs and weights); host: graph made in {made:.2f} s"
+        + (f", sampler {sampled:.2f} s" if sampled is not None else "")
+        + f", moved to the card in {moved:.2f} s")
+    if peak > 80e9:
+        raise AssertionError(f"[egnn] {shape}: peak {peak} B")
+    return {"ms": dev_ms, "b2b_ms": b2b_ms, "bound_ms": bms, "bound_by": by,
+            "profiled_ms": None if prof is None else sum(prof[1].values()),
+            "peak_gb": peak / 1e9, "chunks": len(plan.edges.chunks)}
+
+
+def egnn_phase(torch):
+    """[egnn]: the smoke config card against CPU and equivariance, then
+    the four shapes at full width."""
+    t_phase = time.perf_counter()
+    egnn_smoke(torch)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 7)
+    out = {}
+    for shape in EGNN_SHAPES:
+        out[shape] = egnn_shape(torch, shape, gen)
+        torch.cuda.empty_cache()
+    log("[egnn] shapes " + json.dumps(out))
+    log(f"[egnn] phase in {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------- corpus
@@ -1320,12 +1976,16 @@ def knn_phase(torch, rep: Report, corpus, streams):
         rv, ri = knn_ref.select(s1, ids, k)
         if not (torch.equal(sv, rv) and torch.equal(si, ri)):
             raise AssertionError(f"knn_select B=1 k={k} != plain")
-        select_ms = timed(torch, lambda: knn_ops.knn_select(s1, ids, k), 5)
+        # five readings of the select: its spread between calls
+        spread = sorted(timed(torch, lambda: knn_ops.knn_select(s1, ids, k),
+                              5) for _ in range(SPREAD_READINGS))
+        select_ms = spread[len(spread) // 2]
         sel_plain = timed(torch, lambda: knn_ref.select(s1, ids, k), 3)
         sel_lib = timed(torch, lambda: torch.topk(s1, k, dim=1), 5)
         plain = timed(torch, lambda: knn_ref.search(corpus, ids, q1, k), 3)
         op_ms = timed(torch, lambda: knn_ops.knn_search(corpus, ids, q1, k),
                       5)
+        op_lib = timed(torch, lambda: torch.topk(q1 @ corpus.T, k, dim=1), 5)
         if k == KC:
             rep.add("knn_select_b1", err=0.0, ms=select_ms,
                     plain_ms=sel_plain, nbytes=N_CORPUS * 4 + k * 8, ops=0,
@@ -1337,7 +1997,9 @@ def knn_phase(torch, rep: Report, corpus, streams):
                 f"library_ms={sel_lib:.4f}")
         log(f"[kernels] knn_search fp32 B=1 k={k} N={N_CORPUS}: ok; op "
             f"ms={op_ms:.4f} (knn_score {ms:.4f} + knn_select "
-            f"{select_ms:.4f}) plain_ms={plain:.4f}")
+            f"{select_ms:.4f}, the median of {SPREAD_READINGS} readings "
+            f"{[round(x, 4) for x in spread]}) plain_ms={plain:.4f} "
+            f"library_ms={op_lib:.4f} (topk(q[:1] @ D.T))")
     del s1
     torch.cuda.empty_cache()
     # the score paths around the threshold beside one torch.mm and the
@@ -1455,8 +2117,12 @@ def bulk_search_check(torch, corpus):
         raise AssertionError(f"2048-query search: scores differ by {err}")
     rows = knn_ops.chunk_rows(corpus.shape[0], 4 * knn_ops._select_words(
         corpus.shape[0], KC)[2])
+    n = corpus.shape[0]
+    bms, by = bound(n * (dp * 4 + 8) + b * dp * 4 + b * KC * 8,
+                    2 * b * n * dp, F32_OPS)
     log(f"[kernels] MetricIndex.search of {b} queries over {corpus.shape[0]} "
-        f"docs, k={KC}: {secs:.3f} s in chunks of {rows} queries; ids equal "
+        f"docs, k={KC}: {secs:.3f} s (bound {bms:.4f} ms, {by}) in chunks "
+        f"of {rows} queries; ids equal "
         f"the 64-query searches (scores max diff {err:.3g}); peak device "
         f"memory above the corpus {peak / 1e9:.3f} GB (limit "
         f"{limit / 1e9:.3f} GB: scratch budget "
@@ -2588,6 +3254,8 @@ def pad_rows(rows, width):
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
     return tree.detach().to(dev)
 
 
@@ -2662,12 +3330,16 @@ def profile_split(torch, encode, tokens, parts=None):
         for label, (mod, name) in parts.items():
             setattr(mod, name, saved[label])
     events = prof.events()
-    n_device = sum(e.device_type == DeviceType.CUDA for e in events)
-    if n_device == 0:
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not device:
         return None
+    # kernels are charged to the aten operator that launched them; the
+    # profiler's own markers (a full command buffer, when the launch queue
+    # blocks the host) list the same kernels again
     split = dict.fromkeys(["matmul", *parts, "other"], 0.0)
     for e in events:
-        if e.device_type != DeviceType.CPU or not e.kernels:
+        if e.device_type != DeviceType.CPU or not e.kernels \
+                or not e.name.startswith("aten::"):
             continue
         part, p = None, e
         while p is not None and part is None:
@@ -2678,7 +3350,7 @@ def profile_split(torch, encode, tokens, parts=None):
             part = "matmul" if e.name in ("aten::mm", "aten::addmm",
                                           "aten::bmm") else "other"
         split[part] += sum(k.duration for k in e.kernels) / 1e3
-    return n_device, split
+    return len(device), split
 
 
 def encoder_phase(torch, corpus):
@@ -3441,12 +4113,18 @@ def main() -> int:
         wave_phase(torch, rep, gen)
         wave_single_phase(torch, rep, gen)
     if "recsys" in phases:
-        paths["recsys"] = recsys_phase(torch, rep, gen, args.seed)
+        paths.update(recsys_phase(torch, rep, gen, args.seed))
         torch.cuda.empty_cache()
     global SEED
     SEED = args.seed
     if "lm" in phases:         # before the corpus: 31.6 GB of weights
         paths.update(lm_phase(torch))
+        torch.cuda.empty_cache()
+    if "seqrec" in phases:
+        paths.update(seqrec_phase(torch, rep))
+        torch.cuda.empty_cache()
+    if "egnn" in phases:
+        egnn_phase(torch)
         torch.cuda.empty_cache()
     tier_rows = {}
     if phases & {"kernels", "encoder", "ab", "main", "tiered", "paper"}:
@@ -3480,6 +4158,14 @@ def main() -> int:
                             ("paper", "engine", "encoder_session"))
                      for n, k in {**B1_ROWS, **S1_ROWS}.items()})
     launches.update(tier_rows)
+    launches.update({
+        "knn_score_seqrec": paths["seqrec"]["knn_score"],
+        "knn_select_seqrec": paths["seqrec"]["knn_select"],
+        "knn_score_cand": paths["seqrec_cand"]["knn_score"]
+        + paths["recsys_cand"]["knn_score"],
+        "knn_select_cand": paths["seqrec_cand"]["knn_select"]
+        + paths["recsys_cand"]["knn_select"],
+        "embedding_bag_cand": paths["recsys_cand"]["embedding_bag"]})
     print(rep.line(launches))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ beside it.
 from repro_torch.core.cache import MetricCache
 from repro_torch.core.conversation import ConversationalSearcher, TurnRecord
 from repro_torch.core.metric_index import MetricIndex
+from repro_torch.models.egnn import EGNNConfig
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.recsys import SeqRec, SeqRecConfig, candidate_index
 from repro_torch.models.transformer import (MLAConfig, Transformer,
                                             TransformerConfig, decode_step,
                                             init_kv_caches)
@@ -26,4 +28,5 @@ from repro_torch.serve.engine import (ConversationalEngine,
 __all__ = ["MetricCache", "ConversationalSearcher", "TurnRecord",
            "MetricIndex", "ConversationalEngine", "Transformer",
            "TransformerConfig", "MLAConfig", "MoEConfig", "init_kv_caches",
-           "decode_step", "make_lm_query_encoder"]
+           "decode_step", "make_lm_query_encoder", "SeqRec", "SeqRecConfig",
+           "candidate_index", "EGNNConfig"]

@@ -1,10 +1,9 @@
-"""Architecture registry of the port: ``get(arch)`` for the ported archs.
+"""Architecture registry of the port: ``get(arch)`` for every arch of the
+JAX package's ``repro.configs.registry``.
 
-An arch the JAX package knows (``repro.configs.registry``) but the port
-does not serve yet raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.  ``RECSYS_SHAPES`` holds the ported recsys input shapes,
-copied from the JAX package's ``launch/cells.py`` (``RECSYS_SHAPE_DEFS``);
-``train_batch`` and ``retrieval_cand`` wait for training and retrieval.
+``RECSYS_SHAPES`` holds the ported recsys input shapes, copied from the
+JAX package's ``launch/cells.py`` (``RECSYS_SHAPE_DEFS``); ``train_batch``
+waits for training (ROADMAP.md queue 1, item 13e).
 """
 
 from __future__ import annotations
@@ -24,26 +23,24 @@ PORTED = {
     # MLA / MoE / MTP (and every LM's decode path)
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "llama4-scout-17b-16e": "repro_torch.configs.llama4_scout_17b_a16e",
-}
-_SEQREC = "ROADMAP.md queue 1, item 13c (seqrec: SASRec, BERT4Rec)"
-_WAITING = {
-    "sasrec": _SEQREC,
-    "bert4rec": _SEQREC,
-    "egnn": "ROADMAP.md queue 1, item 13d (egnn)",
+    # the sequential recommenders and the equivariant GNN
+    "sasrec": "repro_torch.configs.sasrec",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "egnn": "repro_torch.configs.egnn",
 }
 
 RECSYS_SHAPES = {
     "serve_p99": dict(kind="serve", batch=512),
     "serve_bulk": dict(kind="serve", batch=262144),
+    # one query against the first n_candidates rows of the item table
+    "retrieval_cand": dict(kind="retrieval", batch=1,
+                           n_candidates=1_000_000),
 }
 
 
 def get(arch_id: str):
     """The config module of a ported arch (``full_config``,
     ``smoke_config``, ``ARCH_ID``, ``FAMILY``)."""
-    if arch_id in PORTED:
-        return importlib.import_module(PORTED[arch_id])
-    if arch_id in _WAITING:
-        raise NotImplementedError(f"{arch_id} is not ported yet: "
-                                  f"{_WAITING[arch_id]}")
-    raise KeyError(f"unknown arch {arch_id!r}")
+    if arch_id not in PORTED:
+        raise KeyError(f"unknown arch {arch_id!r}")
+    return importlib.import_module(PORTED[arch_id])

@@ -28,6 +28,13 @@ Both packages exchange it as numpy arrays.
     (the query encoder's ``proj``) goes through the same calls; MoE
     (``ffn/{router,wi,wo,shared_wi,shared_wo}``), MLA and MTP trees
     included.
+  * ``seqrec_params_from_numpy`` / ``seqrec_params_to_numpy`` — a SASRec /
+    BERT4Rec tree (``item_emb``, ``pos_emb``, ``final_norm`` and the list
+    of block dicts with their ``ffn`` layer lists) carried across and back;
+    f32 throughout, so the round trip is exact.
+  * ``egnn_params_from_numpy`` / ``egnn_params_to_numpy`` — an EGNN tree
+    (``encoder``, ``head`` and the list of layer dicts of ``phi_e`` /
+    ``phi_x`` / ``phi_h`` MLPs) carried across and back, exactly.
   * ``kv_caches_from_numpy`` / ``kv_caches_to_numpy`` — the per-group list
     of cache tuples that ``init_kv_caches`` and ``forward(return_kv=True)``
     return ((k, v), or (c_kv, k_rope) for MLA; each (count, B, S, ...)),
@@ -49,7 +56,9 @@ __all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
            "shared_tier_to_numpy", "shared_tier_from_numpy",
            "corpus_from_numpy", "recsys_params_from_numpy",
            "recsys_params_to_numpy", "transformer_params_from_numpy",
-           "transformer_params_to_numpy", "kv_caches_from_numpy",
+           "transformer_params_to_numpy", "seqrec_params_from_numpy",
+           "seqrec_params_to_numpy", "egnn_params_from_numpy",
+           "egnn_params_to_numpy", "kv_caches_from_numpy",
            "kv_caches_to_numpy"]
 
 
@@ -195,6 +204,33 @@ def transformer_params_from_numpy(params, device=None):
 def transformer_params_to_numpy(params):
     """A transformer tree of tensors (or one tensor) as numpy arrays in the
     JAX package's layout; bf16 widened to f32 (exact)."""
+    return _map_tree(to_numpy, params)
+
+
+def seqrec_params_from_numpy(params, device=None) -> dict:
+    """The JAX package's SASRec / BERT4Rec parameter tree as this port's
+    tensors on ``device``: the same dicts and lists, weights (d_in,
+    d_out)."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: _tensor(a, dev), params)
+
+
+def seqrec_params_to_numpy(params) -> dict:
+    """A seqrec tree of tensors (``SeqRec(...).params`` or the functions'
+    dicts) as numpy arrays in the JAX package's layout."""
+    return _map_tree(to_numpy, params)
+
+
+def egnn_params_from_numpy(params, device=None) -> dict:
+    """The JAX package's EGNN parameter tree as this port's tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: _tensor(a, dev), params)
+
+
+def egnn_params_to_numpy(params) -> dict:
+    """An EGNN tree of tensors as numpy arrays in the JAX package's
+    layout."""
     return _map_tree(to_numpy, params)
 
 

@@ -1,8 +1,8 @@
-"""RecSys serving models of the port: DLRM-RM2 and xDeepFM.
+"""RecSys models of the port: DLRM-RM2, xDeepFM, SASRec and BERT4Rec.
 
-The port of the DLRM and xDeepFM part of ``repro.models.recsys``.  The
-shared substrate is a multi-field EmbeddingBag: ``field_pool`` flattens the
-F per-field tables into one (F*V, D) view (no copy) with offset ids and
+The port of ``repro.models.recsys``.  The shared substrate of DLRM and
+xDeepFM is a multi-field EmbeddingBag: ``field_pool`` flattens the F
+per-field tables into one (F*V, D) view (no copy) with offset ids and
 pools every (row, field) bag in one ``embedding_bag`` launch -- the JAX
 package's kernel branch.  Its gather branch clamps ids >= V inside each
 field's table; the port clamps the same way before offsetting, so both
@@ -16,27 +16,52 @@ plain version's).  A DLRM forward is one embedding-bag launch; an xDeepFM
 forward two (the field tables, then the order-1 linear term, which the JAX
 package pools through its gather branch).
 
+SASRec (causal) and BERT4Rec (bidirectional) share ``seqrec_encode``:
+item and position embeddings, pre-norm self-attention blocks with a ReLU
+FFN, a final RMSNorm.  As in the JAX package, a pad (-1) has its item
+embedding zeroed but keeps its position embedding and stays an attention
+key; only the output zeroes it.  The encode runs in row chunks of
+``encode_rows(cfg)`` rows (rows are independent), so a 262,144-row batch
+never holds its (B, H, S, S) scores at once.
+
+Retrieval is the paper's index scan: ``candidate_index`` puts an item
+table behind a ``MetricIndex`` (rows as they are, ids = row positions, -1
+from ``n_valid`` on), whose search runs the fused kNN kernels on the card
+(``knn_score`` + ``knn_select``): the body of the JAX package's
+``make_batched_scorer``, the stable top-k of ``q @ table.T``.
+
 The matrix products are plain ``torch`` calls (XLA's in the JAX package);
 they are float32 and expect TF32 off (PyTorch's default for matmul).
-The SASRec / BERT4Rec part is not ported yet (ROADMAP, queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
+from repro_torch.core import layout
+from repro_torch.core.cache_ops import pad_features
+from repro_torch.core.metric_index import MetricIndex
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.models import common as cm
 
 __all__ = ["flatten_fields", "field_pool", "DLRMConfig", "dlrm_init",
            "dlrm_interact", "dlrm_forward", "dlrm_user_tower",
            "XDeepFMConfig", "xdeepfm_init", "xdeepfm_interact",
-           "xdeepfm_forward", "xdeepfm_user_tower", "DLRM", "XDeepFM"]
+           "xdeepfm_forward", "xdeepfm_user_tower", "SeqRecConfig",
+           "seqrec_init", "encode_rows", "seqrec_encode",
+           "seqrec_session_repr", "seqrec_score_candidates",
+           "seqrec_bce_loss", "candidate_index", "DLRM", "XDeepFM",
+           "SeqRec"]
 
 INT32_MAX = 2 ** 31 - 1
+# bytes of one encode chunk's largest per-row f32 intermediates (the
+# attention scores and the FFN's hidden layer): what sets ``encode_rows``
+ENCODE_BUDGET = 4 << 30
 
 
 # ------------------------------------------------------------ embeddings
@@ -206,27 +231,189 @@ def xdeepfm_user_tower(params: dict, sparse_idx: torch.Tensor,
     return field_pool(params["tables"], sparse_idx).mean(dim=1)
 
 
+# ------------------------------------------- sequential models (shared)
+
+@dataclasses.dataclass(frozen=True)
+class SeqRecConfig:
+    name: str = "sasrec"
+    vocab: int = 1_000_000
+    max_len: int = 50
+    embed_dim: int = 50
+    n_blocks: int = 2
+    n_heads: int = 1
+    causal: bool = True          # SASRec causal; BERT4Rec bidirectional
+    d_ff_mult: int = 4
+    dtype: torch.dtype = torch.float32
+
+
+def seqrec_init(cfg: SeqRecConfig, *, device=None, generator=None) -> dict:
+    """The JAX package's distributions (not its values) drawn from
+    ``generator`` on ``device``."""
+    dev = resolve_device(device)
+    kw = dict(dtype=cfg.dtype, device=dev, generator=generator)
+    d = cfg.embed_dim
+
+    def ones():
+        return torch.ones((d,), dtype=torch.float32, device=dev)
+
+    p = {"item_emb": _normal((cfg.vocab, d), d ** -0.5, **kw),
+         "pos_emb": _normal((cfg.max_len, d), 0.02, **kw),
+         "blocks": [],
+         "final_norm": ones()}
+    for _ in range(cfg.n_blocks):
+        p["blocks"].append({
+            **{w: _normal((d, d), d ** -0.5, **kw)
+               for w in ("wq", "wk", "wv", "wo")},
+            "ffn": _mlp_init([d, cfg.d_ff_mult * d, d], **kw),
+            "norm1": ones(), "norm2": ones()})
+    return p
+
+
+def encode_rows(cfg: SeqRecConfig) -> int:
+    """Rows of one encode chunk: the largest power of two whose attention
+    scores (H x S x S) and FFN hidden layer (S x d_ff) in f32 fit
+    ``ENCODE_BUDGET`` (SASRec 65,536 rows, BERT4Rec 4,096)."""
+    s = cfg.max_len
+    row = 4 * s * (cfg.n_heads * s + cfg.d_ff_mult * cfg.embed_dim)
+    return 1 << (max(ENCODE_BUDGET // row, 1).bit_length() - 1)
+
+
+def _by_rows(fn, items: torch.Tensor, rows: int) -> torch.Tensor:
+    """``fn`` over row chunks of ``items``, written into one output."""
+    b = items.shape[0]
+    if b <= rows:
+        return fn(items)
+    first = fn(items[:rows])
+    out = first.new_empty((b,) + tuple(first.shape[1:]))
+    out[:rows] = first
+    for lo in range(rows, b, rows):
+        out[lo:lo + rows] = fn(items[lo:lo + rows])
+    return out
+
+
+def _encode(params: dict, items: torch.Tensor, cfg: SeqRecConfig):
+    """``seqrec_encode`` of one chunk of rows."""
+    b, s = items.shape
+    d, h = cfg.embed_dim, cfg.n_heads
+    mask = (items >= 0)[..., None]
+    x = params["item_emb"][items.clamp(min=0).long()] * mask
+    x = x + params["pos_emb"][None, :s]
+    chunk, masks = min(256, s), {}
+    for blk in params["blocks"]:
+        xn = cm.rms_norm(x, blk["norm1"])
+        q, k, v = ((xn @ blk[w]).reshape(b, s, h, d // h)
+                   for w in ("wq", "wk", "wv"))
+        o = cm.blockwise_attention(q, k, v, causal=cfg.causal,
+                                   q_chunk=chunk, kv_chunk=chunk,
+                                   masks=masks)
+        x = x + o.reshape(b, s, d) @ blk["wo"]
+        xn = cm.rms_norm(x, blk["norm2"])
+        x = x + _mlp(blk["ffn"], xn.reshape(b * s, d)).reshape(b, s, d)
+    x = cm.rms_norm(x, params["final_norm"])
+    return x * mask
+
+
+def seqrec_encode(params: dict, items: torch.Tensor,
+                  cfg: SeqRecConfig) -> torch.Tensor:
+    """items (B, S) int32, -1 = pad.  Returns (B, S, D) hidden states,
+    encoded ``encode_rows(cfg)`` rows at a time."""
+    return _by_rows(lambda it: _encode(params, it, cfg), items,
+                    encode_rows(cfg))
+
+
+def _last(hidden: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """The hidden state at position max(count of items - 1, 0) of each
+    row, as the JAX package reads it (an all-pad row reads position 0)."""
+    pos = ((items >= 0).sum(dim=1) - 1).clamp(min=0)
+    return hidden[torch.arange(items.shape[0], device=items.device), pos]
+
+
+def seqrec_session_repr(params: dict, items: torch.Tensor,
+                        cfg: SeqRecConfig) -> torch.Tensor:
+    """The retrieval query (B, D): each row's last valid hidden state,
+    chunk by chunk (no (B, S, D) hidden states held at once)."""
+    return _by_rows(lambda it: _last(_encode(params, it, cfg), it), items,
+                    encode_rows(cfg))
+
+
+def seqrec_score_candidates(params: dict, session: torch.Tensor,
+                            cand_ids: Optional[torch.Tensor] = None):
+    """Inner products (B, C) of ``session`` (B, D) with the item table's
+    rows ``cand_ids`` (C,) (None: the whole vocab)."""
+    table = params["item_emb"]
+    if cand_ids is not None:
+        table = table[torch.as_tensor(cand_ids, device=table.device).long()]
+    return session @ table.T
+
+
+def seqrec_bce_loss(params: dict, items: torch.Tensor, pos: torch.Tensor,
+                    neg: torch.Tensor, cfg: SeqRecConfig) -> torch.Tensor:
+    """SASRec-style BCE, one positive and one sampled negative per
+    position (items / pos / neg (B, S), -1 pads): the forward value."""
+    hidden = seqrec_encode(params, items, cfg)
+    valid = pos >= 0
+    emb = params["item_emb"]
+    s_pos = (hidden * emb[pos.clamp(min=0).long()]).sum(dim=-1)
+    s_neg = (hidden * emb[neg.clamp(min=0).long()]).sum(dim=-1)
+    nls = torch.nn.functional.logsigmoid
+    loss = -(nls(s_pos) + nls(-s_neg))
+    return (loss * valid).sum() / valid.sum().clamp(min=1)
+
+
+def candidate_index(table: torch.Tensor, n_valid: Optional[int] = None, *,
+                    dim: Optional[int] = None, device=None) -> MetricIndex:
+    """The paper's index scan over an item table (V, width): a
+    ``MetricIndex`` of its rows as they are (fp32, whatever
+    ``REPRO_CORPUS_DTYPE`` says), ids = row positions, -1 on the rows at and
+    past ``n_valid``, which never win.  Its ``search(q, k)`` is the stable
+    top-k of ``q @ table.T``.  A table already at ``layout.phys_dim``
+    width on ``device`` is used as is, not copied; ``dim`` names the
+    logical width of a table that arrives zero-padded."""
+    dev = resolve_device(device)
+    ids = torch.arange(table.shape[0], dtype=torch.int32, device=dev)
+    if n_valid is not None:
+        ids[n_valid:] = -1
+    return MetricIndex(table, ids, transformed=True, dtype="fp32", dim=dim,
+                       device=dev)
+
+
 # --------------------------------------------------------------- modules
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class _Node(nn.Module):
+    """A dict of subtrees that are not all tensors (a seqrec block)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = tuple(tree)
+        for k, v in tree.items():
+            setattr(self, k, _hold(v))
+
+
 def _hold(v):
     if isinstance(v, torch.Tensor):
         return _frozen(v)
+    if isinstance(v, dict):
+        if all(isinstance(x, torch.Tensor) for x in v.values()):
+            return nn.ParameterDict({k: _frozen(x) for k, x in v.items()})
+        return _Node(v)
     if all(isinstance(x, torch.Tensor) for x in v):
         return nn.ParameterList([_frozen(x) for x in v])
-    return nn.ModuleList([nn.ParameterDict({k: _frozen(x)
-                                            for k, x in layer.items()})
-                          for layer in v])
+    return nn.ModuleList([_hold(x) for x in v])
 
 
 def _tree(v):
     if isinstance(v, nn.ParameterList):
         return list(v)
     if isinstance(v, nn.ModuleList):
-        return [dict(layer.items()) for layer in v]
+        return [_tree(x) for x in v]
+    if isinstance(v, nn.ParameterDict):
+        return dict(v.items())
+    if isinstance(v, _Node):
+        return {k: _tree(getattr(v, k)) for k in v._keys}
     return v
 
 
@@ -247,7 +434,7 @@ class _Recsys(nn.Module):
         return {n: _tree(getattr(self, n)) for n in self._names}
 
     def _put(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.tables.device)
+        return torch.as_tensor(x, device=next(self.parameters()).device)
 
 
 class DLRM(_Recsys):
@@ -279,3 +466,56 @@ class XDeepFM(_Recsys):
     def user_tower(self, sparse_idx) -> torch.Tensor:
         return xdeepfm_user_tower(self.params, self._put(sparse_idx),
                                   self.cfg)
+
+
+class SeqRec(_Recsys):
+    """SASRec or BERT4Rec on one device; ``device=None`` means the card.
+
+    ``retrieve(items, k, n_valid)`` answers each session with the top-k
+    items of the paper's index scan over its own item table
+    (``candidate_index``: the kNN kernels on the card).  The index is built
+    once per ``n_valid`` and shares one payload: the table itself at a
+    width of ``layout.phys_dim`` (BERT4Rec's 64), else one zero-padded copy
+    (SASRec's 50 -> 64, 268 MB at full width)."""
+
+    def __init__(self, cfg: SeqRecConfig, *, device=None, generator=None):
+        super().__init__(cfg, seqrec_init(cfg, device=device,
+                                          generator=generator))
+        self._indexes: dict = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        self._indexes.clear()       # a move or a cast leaves them stale
+        return super()._apply(fn, *args, **kwargs)
+
+    def encode(self, items) -> torch.Tensor:
+        return seqrec_encode(self.params, self._put(items), self.cfg)
+
+    def session_repr(self, items) -> torch.Tensor:
+        return seqrec_session_repr(self.params, self._put(items), self.cfg)
+
+    def score_candidates(self, session, cand_ids=None) -> torch.Tensor:
+        return seqrec_score_candidates(self.params, self._put(session),
+                                       cand_ids)
+
+    def bce_loss(self, items, pos, neg) -> torch.Tensor:
+        return seqrec_bce_loss(self.params, self._put(items), self._put(pos),
+                               self._put(neg), self.cfg)
+
+    def index(self, n_valid: Optional[int] = None) -> MetricIndex:
+        """The candidate index over the item table (memoized)."""
+        if n_valid not in self._indexes:
+            d = self.cfg.embed_dim
+            payload = next((ix.doc_emb for ix in self._indexes.values()),
+                           None)
+            if payload is None:
+                payload = pad_features(self.item_emb.detach(),
+                                       layout.phys_dim(d))
+            self._indexes[n_valid] = candidate_index(
+                payload, n_valid, dim=d, device=payload.device)
+        return self._indexes[n_valid]
+
+    def retrieve(self, items, k: int, n_valid: Optional[int] = None):
+        """(scores (B, k) descending, ids (B, k) item rows) of each
+        session's top-k items."""
+        res = self.index(n_valid).search(self.session_repr(items), k)
+        return res.scores, res.ids

@@ -526,10 +526,14 @@ def init_kv_caches(cfg: TransformerConfig, batch: int, max_len: int, *,
 
 def decode_step(params: dict, token, caches, cur_len: int,
                 cfg: TransformerConfig):
-    """One token for the whole batch.  token: (B,) ids; cur_len: the
-    sequence length *including* this token (an int, the same for every
-    row).  Writes the token's entries into ``caches`` at cur_len - 1, in
-    place, and returns (logits (B, V), caches)."""
+    """One token for the whole batch; writes the caller's caches in place.
+
+    token: (B,) ids; cur_len: the sequence length *including* this token
+    (an int, the same for every row).  The token's entries go into the
+    tensors of ``caches`` at cur_len - 1 (the JAX package returns new
+    arrays instead: a caller that branches two continuations from one
+    prefill clones first).  Returns (logits (B, V), caches), the same
+    cache objects."""
     cur_len = int(cur_len)
     max_len = caches[0][0].shape[2]
     if not 1 <= cur_len <= max_len:

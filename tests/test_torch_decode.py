@@ -195,3 +195,27 @@ def test_kv_caches_carry_across_and_back():
         for c, j in zip(g, jg):
             assert c.dtype == np.float32
             np.testing.assert_array_equal(c, np.asarray(j).astype(np.float32))
+
+
+def test_decode_step_writes_the_callers_caches_in_place(model):
+    """The port's recorded divergence: ``decode_step`` writes the new
+    token's entries into the tensors it was given, at cur_len - 1, and
+    returns those same objects (the JAX package returns new arrays)."""
+    _jcfg, cfg, _jp, tp = model
+    tok = torch.as_tensor(_tokens(11, 2, 3, cfg.vocab_size))
+    _, _, _, caches = tf.forward(tp, tok, cfg, return_kv=True, kv_len=6)
+    before = [tuple(c.clone() for c in group) for group in caches]
+    held = [tuple(group) for group in caches]
+    _, out = tf.decode_step(tp, torch.as_tensor([5, 7], dtype=torch.int32),
+                            caches, 4, cfg)
+    assert len(out) == len(held)
+    for got, mine, old in zip(out, held, before):
+        assert len(got) == len(mine)
+        for g, m, o in zip(got, mine, old):
+            assert g is m
+            # the new entry at cur_len - 1 = 3; the prompt's entries and the
+            # empty tail unchanged
+            assert m[:, :, 3].abs().sum() > 0 and not o[:, :, 3].any()
+            torch.testing.assert_close(m[:, :, :3], o[:, :, :3], atol=0,
+                                       rtol=0)
+            assert not m[:, :, 4:].any()

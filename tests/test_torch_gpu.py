@@ -1520,3 +1520,114 @@ def test_moe_ffn_bf16_on_card_is_deterministic_and_near_f32(card):
         want.index_add_(0, tok[sel], out * r.gates[sel, None])
     rms = float(want.pow(2).mean().sqrt())
     assert float((a.y.float() - want).pow(2).mean().sqrt()) <= 2e-2 * rms
+
+
+@pytest.mark.parametrize("arch", ["sasrec", "bert4rec"])
+def test_seqrec_smoke_on_card_matches_cpu(card, arch):
+    """SASRec / BERT4Rec at their smoke configs, the same parameters on the
+    card and on the CPU path, ``SessionStream`` rows (pads) and an all-pad
+    row: encode, session repr and BCE within 1e-5, retrieval ids equal
+    (one knn_score and one knn_select launch a search)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import SessionStream
+
+    cfg = registry.get(arch).smoke_config()
+    m = rs.SeqRec(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    b = SessionStream(cfg.vocab, cfg.max_len, seed=1).batch(0, 33)
+    b["items"][0] = -1
+    args = (b["items"], b["pos"], b["neg"])
+    want = (m.encode(b["items"]), m.session_repr(b["items"]),
+            m.bce_loss(*args), m.retrieve(b["items"], 25, 180))
+    m.to("cuda")
+    dispatch.reset_counters()
+    got = (m.encode(b["items"]), m.session_repr(b["items"]),
+           m.bce_loss(*args), m.retrieve(b["items"], 25, 180))
+    c = dispatch.counters()
+    assert c["knn_score"].launches == c["knn_select"].launches == 1
+    for g, w, what in zip(got[:3], want[:3], ("encode", "repr", "bce")):
+        assert_close(g, w, TOL, f"{arch} {what}")
+    assert_topk_agree(*got[3], *want[3], TOL, f"{arch} retrieve")
+    assert int(got[3][1].max()) < 180
+
+
+@pytest.mark.parametrize("b", [1, 512])
+@pytest.mark.parametrize("k", [100, 1000])
+@pytest.mark.parametrize("dp", [32, 64])
+def test_candidate_index_matches_plain_at_retrieval_shapes(card, b, k, dp):
+    """The item-table index at the served shapes: 1,048,576 rows at width
+    32 (xDeepFM's padded) or 64, 1,000,000 of them valid, taken as is;
+    the kernels' answer against the plain search on the card."""
+    n = 1_048_576
+    table = torch.randn(n, dp, generator=card, device="cuda") * dp ** -0.5
+    index = rs.candidate_index(table, 1_000_000, device="cuda")
+    assert index.doc_emb.data_ptr() == table.data_ptr()
+    q = torch.randn(b, dp, generator=card, device="cuda")
+    dispatch.reset_counters()
+    got = index.search(q, k)
+    assert dispatch.counters()["knn_score"].launches == 1
+    rv, ri = knn_ref.search(table, index.doc_ids, q, k)
+    assert_topk_agree(got.scores, got.ids, rv, ri, TOL,
+                      f"candidates b={b} k={k} dp={dp}")
+    assert int(got.ids.max()) < 1_000_000 and int(got.ids.min()) >= 0
+
+
+def _egnn_inputs(readout):
+    import dataclasses
+
+    from repro_torch.configs import egnn as egnn_cfg
+    from repro_torch.data import graph
+    from repro_torch.models import egnn
+
+    cfg = dataclasses.replace(egnn_cfg.smoke_config(), readout=readout)
+    params = egnn.init_params(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    if readout == "graph":
+        feat, coords, edges, gids, _ = graph.batched_molecules(
+            0, 16, 30, 64, cfg.d_feat_in, cfg.n_classes)
+        return cfg, params, (feat, coords, edges), dict(graph_ids=gids,
+                                                        n_graphs=16)
+    g = graph.random_graph(0, 3000, 40_000, cfg.d_feat_in)
+    return cfg, params, (g.node_feat, g.coords, g.edge_index), {}
+
+
+def _to_card(params):
+    """A parameter tree moved to the card."""
+    if isinstance(params, dict):
+        return {k: _to_card(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_to_card(v) for v in params]
+    return params.to("cuda")
+
+
+@pytest.mark.parametrize("readout", ["node", "graph"])
+def test_egnn_on_card_matches_cpu(card, readout):
+    from repro_torch.models import egnn
+
+    cfg, params, args, kw = _egnn_inputs(readout)
+    want = egnn.forward(params, *args, cfg, **kw)
+    got = egnn.forward(_to_card(params), *args, cfg, **{
+        k: (torch.as_tensor(v, device="cuda") if k == "graph_ids" else v)
+        for k, v in kw.items()})
+    for g, w, what in zip(got, want, ("logits", "coords")):
+        assert g.is_cuda
+        assert_close(g, w, 1e-4, f"egnn {readout} {what}")
+
+
+def test_egnn_forward_is_bitwise_repeatable_on_card(card):
+    """Edge chunks of 1,000 over a graph whose destinations hold about 13
+    edges each, so chunks split destination runs: two forwards agree bit
+    for bit (no float atomics), and within 1e-4 of one chunk."""
+    from repro_torch.models import egnn
+
+    cfg, params, args, _ = _egnn_inputs("node")
+    on_card = _to_card(params)
+    edges = torch.as_tensor(args[2], device="cuda")
+    split = egnn.prepare(edges, 3000, edge_chunk=1000)
+    assert len(split.edges.chunks) > 1
+    a = egnn.forward(on_card, *args, cfg, plan=split)
+    b = egnn.forward(on_card, *args, cfg, plan=split)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    one = egnn.forward(on_card, *args, cfg)
+    for x, y in zip(a, one):
+        assert_close(x, y, 1e-4, "egnn chunked against one chunk")

@@ -68,7 +68,10 @@ def test_default_device_raises_without_a_card(no_card):
     from repro_torch.data.lm import LMBatchSpec, TokenStream
     from repro_torch.dist.retrieval import DeviceShard
     from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.configs import sasrec
     from repro_torch.convert import kv_caches_from_numpy
+    from repro_torch.models import egnn
+    from repro_torch.models.recsys import SeqRec, candidate_index
     from repro_torch.models.transformer import (Transformer, init_kv_caches,
                                                 init_params)
     from repro_torch.serve.engine import (ConversationalEngine,
@@ -94,7 +97,10 @@ def test_default_device_raises_without_a_card(no_card):
                  lambda: make_lm_query_encoder(
                      init_params(star_encoder.smoke_config(), device="cpu"),
                      star_encoder.smoke_config(), np.eye(32, 8)),
-                 lambda: TokenStream(LMBatchSpec(2, 8, 100))):
+                 lambda: TokenStream(LMBatchSpec(2, 8, 100)),
+                 lambda: SeqRec(sasrec.smoke_config()),
+                 lambda: candidate_index(torch.zeros(6, 32)),
+                 lambda: egnn.init_params(egnn.EGNNConfig())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert resolve_device("cpu").type == "cpu"

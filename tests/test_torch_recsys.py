@@ -255,12 +255,20 @@ def test_models_default_to_the_card(monkeypatch):
 
 
 def test_registry_serves_ported_archs_and_names_the_rest():
+    """Every arch of the JAX package's registry resolves in the port, to
+    its own config module; an unknown arch is a KeyError."""
+    from repro.configs import registry as jregistry
+
     assert registry.get("dlrm-rm2") is dlrm_rm2
     assert registry.get("xdeepfm") is xdeepfm
-    for arch in ("sasrec", "bert4rec", "egnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            registry.get(arch)
+    assert set(registry.PORTED) == set(jregistry._MODULES)
+    for arch in jregistry._MODULES:
+        mod = registry.get(arch)
+        assert mod.ARCH_ID == arch and mod.__name__.startswith("repro_torch.")
+        assert mod.FAMILY == jregistry.get(arch).FAMILY
     with pytest.raises(KeyError):
         registry.get("nope")
     assert registry.RECSYS_SHAPES["serve_p99"]["batch"] == 512
     assert registry.RECSYS_SHAPES["serve_bulk"]["batch"] == 262144
+    assert registry.RECSYS_SHAPES["retrieval_cand"] == dict(
+        kind="retrieval", batch=1, n_candidates=1_000_000)

@@ -234,8 +234,9 @@ def test_config_twins_equal_jax(arch):
 
 
 def test_mla_moe_and_decode_name_their_roadmap_item():
-    """MLA, MoE, MTP and the decode path now run (items 13a and 13b); the
-    archs still waiting (seqrec, egnn) name theirs."""
+    """MLA, MoE, MTP and the decode path now run (items 13a and 13b), and
+    so do the archs that waited after them (seqrec and egnn, items 13c
+    and 13d): each resolves to its own config module."""
     cfg = star_encoder.smoke_config()
     mla = dataclasses.replace(cfg, attention="mla", mla=tf.MLAConfig(
         q_lora_rank=16, kv_lora_rank=8, qk_nope_dim=4, qk_rope_dim=4,
@@ -262,10 +263,9 @@ def test_mla_moe_and_decode_name_their_roadmap_item():
             len(c.layer_groups())
         if c.mtp:
             assert tf.mtp_logits(p, tok, hidden, c).shape == logits.shape
-    for arch, item in (("sasrec", "13c"), ("bert4rec", "13c"),
-                       ("egnn", "13d")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            registry.get(arch)
+    for arch in ("sasrec", "bert4rec", "egnn"):
+        assert registry.get(arch).ARCH_ID == arch
+        assert registry.get(arch).smoke_config().name == arch + "-smoke"
     for arch in ("deepseek-v3-671b", "llama4-scout-17b-16e"):
         assert registry.get(arch).full_config().name == arch
 
