@@ -247,6 +247,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -294,8 +295,8 @@ P99_CALLS = 51                     # the first is a warm-up, not in the stats
 SPREAD_READINGS = 5                # readings of the B = 1 select's time
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
-PHASES = ("kernels", "probe", "recsys", "lm", "seqrec", "egnn", "encoder",
-          "ab", "main", "tiered", "paper", "engine")
+PHASES = ("kernels", "probe", "recsys", "lm", "seqrec", "egnn", "train",
+          "encoder", "ab", "main", "tiered", "paper", "engine")
 XDEEPFM_CHUNK = 16_384
 # [tiered]: the L2 tier, the cluster index and the traffic of
 # serve_bench.bench_zipf; [chaos]: bench_chaos at 8 sessions x 10 rounds
@@ -339,6 +340,27 @@ EGNN_SMOKE_TOL, EGNN_EQUI_TOL = 1e-4, 2e-4
 EGNN_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg", "ogb_products")
 EGNN_REPS = {"molecule": 10, "full_graph_sm": 10, "minibatch_lg": 5,
              "ogb_products": 2}
+# [train]: the smoke configs card against CPU (train.parity's rule); STAR
+# at full width through train.encoder (TRAIN_STAR_STEPS steps of
+# TRAIN_STAR_B x TRAIN_STAR_S tokens in its config's TRAIN_ACCUM_STEPS
+# microbatches, remat "full"), then killed after TRAIN_RESUME steps and
+# resumed (losses within TRAIN_RESUME_RTOL, test_system.py's bar);
+# llama4-scout at full width cut to TRAIN_LM_LAYERS layer(s) (TRAIN_LM_B x
+# TRAIN_LM_S tokens, Adafactor with bf16 stochastic rounding); the four
+# recsys archs at train_batch for TRAIN_RECSYS_STEPS steps (xDeepFM in
+# XDEEPFM_TRAIN_ACCUM row microbatches: its CIN product is 20.4 GB a layer
+# at 65,536 rows); EGNN at TRAIN_EGNN_SHAPES, TRAIN_EGNN_STEPS steps each
+# (the first a warm-up).  EGNN_GRAPHS keeps those shapes' host graphs from
+# [egnn] for [train].
+TRAIN_STAR_STEPS, TRAIN_STAR_B, TRAIN_STAR_S, TRAIN_RESUME = 20, 64, 512, 3
+TRAIN_RESUME_RTOL = 1e-5
+TRAIN_LM_ARCH, TRAIN_LM_LAYERS, TRAIN_LM_B, TRAIN_LM_S, TRAIN_LM_STEPS = (
+    "llama4-scout-17b-16e", 1, 8, 512, 3)
+TRAIN_RECSYS = ("dlrm-rm2", "xdeepfm", "sasrec", "bert4rec")
+TRAIN_RECSYS_STEPS, XDEEPFM_TRAIN_ACCUM = 5, 4
+TRAIN_EGNN_SHAPES, TRAIN_EGNN_STEPS = (
+    ("molecule", "full_graph_sm", "minibatch_lg"), 3)
+EGNN_GRAPHS: dict = {}
 # the kernels again at this slice's shapes: the kNN pair at seqrec's
 # serve_p99 (B = 512 over the 1,048,576-item table, k = SERVE_K; launches
 # of serve_p99 and serve_bulk) and at retrieval_cand (B = 1, k = CAND_K;
@@ -1612,33 +1634,49 @@ def egnn_costs(cfg, n_nodes, n_edges, n_out, d_feat):
     return nbytes, ops
 
 
-def egnn_graph(geom, seed):
+def egnn_graph(shape, seed):
     """One shape's input on the host: (node_feat, coords, edge_index,
     graph_ids or None, n_graphs or None, host seconds, sampler seconds or
-    None), from the port's copies of the JAX package's generators."""
+    None, labels), from the port's copies of the JAX package's generators.
+    The labels are per graph (molecule), per node (full graphs) or per seed
+    node (minibatch; -1 elsewhere).  A shape of TRAIN_EGNN_SHAPES is made
+    once and kept for [train] until it ends."""
     import numpy as np
 
+    from repro_torch.configs import egnn as egnn_cfg
     from repro_torch.data import graph
 
+    geom, key = egnn_cfg.SHAPES[shape], (shape, seed)
+    if key in EGNN_GRAPHS:
+        return EGNN_GRAPHS[key]
     t0 = time.perf_counter()
     if geom["kind"] == "batched":
-        feat, coords, edges, gids, _ = graph.batched_molecules(
+        feat, coords, edges, gids, labels = graph.batched_molecules(
             seed, geom["batch"], geom["n_nodes"], geom["n_edges"],
             geom["d_feat"])
-        return (feat, coords, edges, gids, geom["batch"],
-                time.perf_counter() - t0, None)
-    g = graph.random_graph(seed, geom["n_nodes"], geom["n_edges"],
-                           geom["d_feat"])
-    made = time.perf_counter() - t0
-    if geom["kind"] == "full":
-        return g.node_feat, g.coords, g.edge_index, None, None, made, None
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(seed)
-    sampler = graph.NeighborSampler(g.edge_index, geom["n_nodes"])
-    seeds = rng.choice(geom["n_nodes"], geom["batch_nodes"], replace=False)
-    block = sampler.sample(seeds, geom["fanout"], rng)
-    return (g.node_feat, g.coords, block, None, None, made,
-            time.perf_counter() - t0)
+        out = (feat, coords, edges, gids, geom["batch"],
+               time.perf_counter() - t0, None, labels)
+    else:
+        g = graph.random_graph(seed, geom["n_nodes"], geom["n_edges"],
+                               geom["d_feat"])
+        made = time.perf_counter() - t0
+        if geom["kind"] == "full":
+            out = (g.node_feat, g.coords, g.edge_index, None, None, made,
+                   None, g.labels)
+        else:
+            t0 = time.perf_counter()
+            rng = np.random.default_rng(seed)
+            sampler = graph.NeighborSampler(g.edge_index, geom["n_nodes"])
+            seeds = rng.choice(geom["n_nodes"], geom["batch_nodes"],
+                               replace=False)
+            block = sampler.sample(seeds, geom["fanout"], rng)
+            labels = np.full_like(g.labels, -1)
+            labels[seeds] = g.labels[seeds]
+            out = (g.node_feat, g.coords, block, None, None, made,
+                   time.perf_counter() - t0, labels)
+    if shape in TRAIN_EGNN_SHAPES:
+        EGNN_GRAPHS[key] = out
+    return out
 
 
 def egnn_smoke(torch):
@@ -1701,8 +1739,8 @@ def egnn_shape(torch, shape, gen):
     from repro_torch.models import egnn
 
     geom = egnn_cfg.SHAPES[shape]
-    feat, coords, edges, gids, n_graphs, made, sampled = egnn_graph(geom,
-                                                                    SEED)
+    feat, coords, edges, gids, n_graphs, made, sampled, _ = egnn_graph(
+        shape, SEED)
     readout = "graph" if gids is not None else "node"
     cfg = egnn_cfg.full_config(d_feat=geom["d_feat"], readout=readout)
     params = egnn.init_params(cfg, device=DEV, generator=gen)
@@ -1793,6 +1831,440 @@ def egnn_phase(torch):
         torch.cuda.empty_cache()
     log("[egnn] shapes " + json.dumps(out))
     log(f"[egnn] phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------- train
+def labelled(opt):
+    """``opt`` with its update under the profiler label ``part.update``."""
+    from torch.profiler import record_function
+
+    from repro_torch.train.optimizer import Optimizer
+
+    def update(*args):
+        with record_function("part.update"):
+            return opt.update(*args)
+    return Optimizer(opt.init, update)
+
+
+def train_timing(torch, step_once):
+    """One more step under ``torch.profiler``: (device activities, kernel
+    ms by part, the largest operators of ``other``) or None when the
+    profiler saw no device activity.  The forward's parts (and the remat
+    recompute's) carry their labels; the backward's kernels, launched from
+    autograd's thread, count as matmul or other."""
+    prof = profile_split(torch, lambda _: step_once(), None)
+    if prof is None:
+        return None
+    return (prof[0], {k: round(v, 4) for k, v in prof[1].items() if v},
+            {k: round(v, 4) for k, v in prof[2].items()})
+
+
+def train_log(what, *, dev, b2b_ms, reps, items, unit, peak, base, bms,
+              by, ops, nbytes, losses, launches, extra=""):
+    """The line every full-width train path prints."""
+    n_dev, split, top = dev if dev is not None else (0, {}, {})
+    dev_ms = sum(split.values()) if dev is not None else None
+    log(f"[train] {what}: step "
+        + (f"{dev_ms:.4f} ms on the device (profiler, one step: {n_dev} "
+           f"device activities, kernels by part {json.dumps(split)}; the "
+           f"largest of other {json.dumps(top)})"
+           if dev_ms is not None else "device time not measured (the "
+           "profiler saw no device activity)")
+        + f", {b2b_ms:.4f} ms back to back (mean of {reps}); "
+        f"{items / b2b_ms * 1e3:.6g} {unit}/s; bound {bms:.4f} ms ({by}: "
+        f"{ops:.4g} operations, {nbytes / 1e9:.4g} GB); peak device memory "
+        f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} above the "
+        f"allocation before the first step); loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} "
+        f"over {len(losses)} steps; kernel launches {launches}" + extra)
+    return {"ms": dev_ms, "b2b_ms": b2b_ms, "bound_ms": bms, "bound_by": by,
+            "peak_gb": peak / 1e9, "first_loss": losses[0],
+            "last_loss": losses[-1]}
+
+
+def no_launches(launches, what):
+    if any(launches.values()):
+        raise AssertionError(f"[train] {what}: kernel launches {launches} "
+                             f"on a train path")
+    return sum(launches.values())
+
+
+def train_drive(torch, step, state, batches):
+    """``step`` over ``batches`` (the first a warm-up, synchronised; the
+    rest enqueued back to back), with the kernel counters zeroed before
+    and read after.  Returns (state, losses, back-to-back ms, launches,
+    peak bytes, bytes allocated before the first step)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = []
+
+    def run():
+        nonlocal state
+        for i, b in enumerate(batches):
+            state, m = step(state, b)
+            out.append(m["loss"])
+            if i == 0:
+                torch.cuda.synchronize()
+                out.append(time.perf_counter())
+        return None
+
+    _, launches = counted(torch, run)
+    t_end = time.perf_counter()
+    t1 = out.pop(1)
+    losses = [float(x) for x in out]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"[train] losses {losses}")
+    b2b = (t_end - t1) * 1e3 / max(len(batches) - 1, 1)
+    return (state, losses, b2b, launches, torch.cuda.max_memory_allocated(),
+            base)
+
+
+def train_smoke(torch):
+    """The smoke configs: one step from the same parameters and batch on
+    the CPU path and on the card, held by ``train.parity``."""
+    from repro_torch.train import parity
+
+    errs = {}
+    for arch in parity.SMOKE_ARCHS:
+        ref = parity.smoke_step(arch, "cpu")
+        got, launches = counted(torch, lambda: parity.smoke_step(arch, DEV))
+        no_launches(launches, f"{arch} smoke")
+        errs[arch] = {k: float(f"{v:.3g}") for k, v in
+                      parity.assert_steps_agree(ref, got, arch).items()}
+    log(f"[train] smoke configs, card == CPU path (one step, lr "
+        f"{parity.LR}: loss / grad_norm within rtol {parity.LOSS_RTOL}, "
+        f"gradients within {parity.G_ATOL} + {parity.G_RTOL} x the leaf's "
+        f"largest, parameters within {parity.P_ATOL}; 0 kernel launches): "
+        f"largest errors {json.dumps(errs)}")
+
+
+def lm_train_ops(cfg, layer, tokens, b, s):
+    """Operations of one LM train step with remat "full": 6 x the active
+    parameters that enter a product (the head's D x V included, the
+    embedding's gather not) x tokens, the layers' forward again (remat),
+    and attention's QK^T and PV over the whole (s, s) block, 4 times (the
+    forward, the recompute and the backward's two)."""
+    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    head = cfg.d_model * cfg.vocab_size
+    return 6 * (layer + head) * tokens + 2 * layer * tokens + 4 * attn
+
+
+def train_star(torch):
+    """STAR at full width through ``train.encoder.train``: TRAIN_STAR_STEPS
+    steps (loss falling), then a run killed after TRAIN_RESUME steps and
+    resumed from its checkpoints, whose losses equal the first run's."""
+    import shutil
+
+    from repro_torch.configs import star_encoder
+    from repro_torch.data.lm import LMBatchSpec, TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import encoder
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import make_lm_train_step
+
+    cfg = star_encoder.full_config()
+    accum = star_encoder.TRAIN_ACCUM_STEPS
+    root = ROOT / "artifacts" / "train_star"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(device=DEV, batch=TRAIN_STAR_B, seq=TRAIN_STAR_S, accum=accum,
+              remat="full", seed=SEED)
+    marks = []
+
+    def mark(step, _metrics):
+        if step == 0:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (state, _, hist), launches = counted(torch, lambda: encoder.train(
+        cfg, TRAIN_STAR_STEPS, str(root / "run"), interval=10 ** 9,
+        on_step=mark, **kw))
+    b2b = (time.perf_counter() - marks[0]) * 1e3 / (TRAIN_STAR_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in hist]
+    if not all(map(math.isfinite, losses)) or \
+            sum(losses[-5:]) >= sum(losses[:5]):
+        raise AssertionError(f"[train] star-encoder: losses {losses}")
+    params = state["params"]
+    n = tf.param_count(params)
+    layer = tf.param_count(params["group0_dense"])
+    tokens = TRAIN_STAR_B * TRAIN_STAR_S
+    ops = lm_train_ops(cfg, layer, tokens, TRAIN_STAR_B, TRAIN_STAR_S)
+    # f32 AdamW: per microbatch a gradient written and read and the
+    # accumulator read and written (16 B a parameter); the update reads
+    # the parameter, accumulator, m and v and writes three (28 B)
+    nbytes = n * (16 * accum + 28)
+    bms, by = bound(nbytes, ops, F32_OPS)
+    opt = labelled(adamw(lr=encoder.LR, warmup=encoder.WARMUP))
+    step = make_lm_train_step(cfg, opt, accum_steps=accum, remat="full")
+    stream = TokenStream(LMBatchSpec(TRAIN_STAR_B, TRAIN_STAR_S,
+                                     cfg.vocab_size), device=DEV)
+    batch = stream.batch(TRAIN_STAR_STEPS)
+    dev = train_timing(torch, lambda: step(state, batch))
+    out = {"star": train_log(
+        f"star-encoder (12 layers, d 768, {n} parameters, f32, AdamW lr "
+        f"{encoder.LR} warmup {encoder.WARMUP}, remat full) at "
+        f"{TRAIN_STAR_B} x {TRAIN_STAR_S} tokens in {accum} microbatches",
+        dev=dev, b2b_ms=b2b, reps=TRAIN_STAR_STEPS - 1, items=tokens,
+        unit="tokens", peak=peak, base=base, bms=bms, by=by, ops=ops,
+        nbytes=nbytes, losses=losses, launches=no_launches(launches, "star"),
+        extra=f" (the state is made inside the run); losses "
+        f"{[round(x, 4) for x in losses]}")}
+    del state, params, step, batch
+    torch.cuda.empty_cache()
+    ck = str(root / "resume")
+    (_, _, first), l1 = counted(torch, lambda: encoder.train(
+        cfg, TRAIN_RESUME, ck, interval=1, **kw))
+    # the run is killed here: its state is gone, its checkpoints stay
+    (_, start, rest), l2 = counted(torch, lambda: encoder.train(
+        cfg, 2 * TRAIN_RESUME, ck, interval=1, **kw))
+    no_launches({k: l1[k] + l2[k] for k in l1}, "star resume")
+    again = [float(m["loss"]) for m in first + rest]
+    want = losses[:2 * TRAIN_RESUME]
+    err = max(abs(a - b) / abs(b) for a, b in zip(again, want))
+    if start != TRAIN_RESUME or err > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"[train] resumed at {start}: losses {again} "
+                             f"against {want}")
+    log(f"[train] star-encoder killed after {TRAIN_RESUME} steps "
+        f"(CheckpointManager interval 1, async saves) and resumed from "
+        f"step {start}: losses of steps 0-{2 * TRAIN_RESUME - 1} "
+        f"{[round(x, 6) for x in again]} against the uninterrupted run's "
+        f"within rtol {err:.3g} (bound {TRAIN_RESUME_RTOL})")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def train_llama4(torch):
+    """llama4-scout at full width cut to TRAIN_LM_LAYERS layer(s): bf16,
+    Adafactor with stochastic rounding, TRAIN_ACCUM_STEPS microbatches in
+    an f32 accumulator, remat "full"."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data.lm import LMBatchSpec, TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import OPTIMIZERS
+    from repro_torch.train.step import make_lm_train_step
+
+    mod = registry.get(TRAIN_LM_ARCH)
+    cfg = dataclasses.replace(mod.full_config(), n_layers=TRAIN_LM_LAYERS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 11)
+    params = tf.init_params(cfg, device=DEV, generator=gen)
+    opt = labelled(OPTIMIZERS[mod.OPTIMIZER]())      # stochastic rounding on
+    accum = mod.TRAIN_ACCUM_STEPS
+    step = make_lm_train_step(cfg, opt, accum_steps=accum, remat="full",
+                              accum_dtype=mod.ACCUM_DTYPE)
+    stream = TokenStream(LMBatchSpec(TRAIN_LM_B, TRAIN_LM_S,
+                                     cfg.vocab_size), device=DEV)
+    batches = [stream.batch(i) for i in range(TRAIN_LM_STEPS)]
+    probe = params["group0_moe"]["ffn"]["wi"][0, 0, :4, :4].clone()
+    state = {"params": params, "opt": opt.init(params)}
+    state, losses, b2b, launches, peak, base = train_drive(
+        torch, step, state, batches)
+    wi = state["params"]["group0_moe"]["ffn"]["wi"]
+    if wi.dtype != torch.bfloat16 or torch.equal(wi[0, 0, :4, :4], probe):
+        raise AssertionError("[train] llama4: bf16 weights not updated")
+    n = tf.param_count(params)
+    active = tf.active_param_count(cfg, params)
+    layer = active - 2 * cfg.d_model * cfg.vocab_size     # embed and head
+    tokens = TRAIN_LM_B * TRAIN_LM_S
+    ops = lm_train_ops(cfg, layer, tokens, TRAIN_LM_B, TRAIN_LM_S)
+    # per microbatch a bf16 gradient written and read and the f32
+    # accumulator read and written (12 B a parameter); the update reads
+    # the parameter and accumulator and writes the parameter (8 B; the
+    # factored state is small)
+    nbytes = n * (12 * accum + 8)
+    bms, by = bound(nbytes, ops, BF16_OPS)
+    if by == "bytes":
+        by = "the optimizer's bytes"
+    dev = train_timing(torch, lambda: step(state, batches[0]))
+    out = train_log(
+        f"{TRAIN_LM_ARCH} at full width, {TRAIN_LM_LAYERS} of "
+        f"{mod.full_config().n_layers} layers ({n} parameters, "
+        f"{n * 2 / 1e9:.2f} GB bf16; Adafactor with stochastic rounding, "
+        f"remat full, f32 accumulator) at {TRAIN_LM_B} x {TRAIN_LM_S} "
+        f"tokens in {accum} microbatches", dev=dev, b2b_ms=b2b,
+        reps=TRAIN_LM_STEPS - 1, items=tokens, unit="tokens", peak=peak,
+        base=base, bms=bms, by=by, ops=ops, nbytes=nbytes, losses=losses,
+        launches=no_launches(launches, TRAIN_LM_ARCH))
+    del state, params, step, batches, wi
+    torch.cuda.empty_cache()
+    return out
+
+
+def recsys_train_ops(arch, cfg, b) -> float:
+    """Operations of one recsys train step: 3 x the forward's count of
+    ``launch/cells.py``'s ``_recsys_flops`` (forward and backward), 4 x for
+    the seqrec encode (each chunk encoded again in the backward)."""
+    if arch == "dlrm-rm2":
+        mlp = sum(a * o for a, o in zip(cfg.bot_mlp[:-1], cfg.bot_mlp[1:]))
+        tops = [cfg.embed_dim + 27 * 26 // 2, *cfg.top_mlp_hidden]
+        mlp += sum(a * o for a, o in zip(tops[:-1], tops[1:]))
+        return 3 * 2.0 * b * (mlp + 27 * 27 * cfg.embed_dim)
+    if arch == "xdeepfm":
+        m, dd = cfg.n_sparse, cfg.embed_dim
+        cin, h_prev = 0, m
+        for h in cfg.cin_layers:
+            cin += h_prev * m * dd + h * h_prev * m * dd
+            h_prev = h
+        sizes = [m * dd, *cfg.mlp, 1]
+        dnn = sum(a * o for a, o in zip(sizes[:-1], sizes[1:]))
+        return 3 * 2.0 * b * (cin + dnn)
+    d, s = cfg.embed_dim, cfg.max_len
+    per_tok = 4 * d * d + 2 * cfg.d_ff_mult * d * d + 2 * s * d
+    return 4 * 2.0 * b * s * cfg.n_blocks * per_tok
+
+
+def train_recsys(torch, arch):
+    """One recsys arch at full width and ``train_batch``: TRAIN_RECSYS_STEPS
+    AdamW steps through the gather branch (no embedding-bag launch)."""
+    import functools
+
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import CTRSpec, CTRStream, SessionStream
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import step as st
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import OPTIMIZERS
+
+    mod = registry.get(arch)
+    cfg = mod.full_config()
+    rows = registry.RECSYS_SHAPES["train_batch"]["batch"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    if arch in ("dlrm-rm2", "xdeepfm"):
+        dlrm = arch == "dlrm-rm2"
+        params = (rs.dlrm_init if dlrm else rs.xdeepfm_init)(
+            cfg, device=DEV, generator=gen)
+        stream = CTRStream(CTRSpec(n_sparse=cfg.n_sparse, vocab=cfg.vocab,
+                                   multi_hot=cfg.multi_hot if dlrm else 1,
+                                   seed=SEED))
+        loss = functools.partial(st.ctr_loss_fn, cfg=cfg)
+
+        def batch(i):
+            b = stream.batch(i, rows)
+            if not dlrm:
+                del b["dense"]
+            return b
+    else:
+        params = rs.seqrec_init(cfg, device=DEV, generator=gen)
+        stream = SessionStream(cfg.vocab, cfg.max_len, seed=SEED)
+        loss = functools.partial(st.seqrec_loss_fn, cfg=cfg)
+
+        def batch(i):
+            return stream.batch(i, rows)
+    accum = XDEEPFM_TRAIN_ACCUM if arch == "xdeepfm" else \
+        mod.TRAIN_ACCUM_STEPS
+    opt = labelled(OPTIMIZERS[mod.OPTIMIZER]())
+    step = st.make_train_step(loss, opt, accum_steps=accum,
+                              accum_dtype=mod.ACCUM_DTYPE)
+    batches = [{k: torch.as_tensor(v, device=DEV)
+                for k, v in batch(i).items()}
+               for i in range(TRAIN_RECSYS_STEPS)]
+    made = time.perf_counter() - t0
+    state = {"params": params, "opt": opt.init(params)}
+    state, losses, b2b, launches, peak, base = train_drive(
+        torch, step, state, batches)
+    n = sum(t.numel() for t in tree.leaves(params))
+    ops = recsys_train_ops(arch, cfg, rows)
+    # f32 AdamW: the dense gradient written and read, the parameter, m and
+    # v read and written (32 B a parameter); with microbatches the
+    # accumulator's read and write per microbatch besides (16 B)
+    nbytes = n * (32 + (16 * accum if accum > 1 else 0))
+    bms, by = bound(nbytes, ops, F32_OPS)
+    dev = train_timing(torch, lambda: step(state, batches[0]))
+    out = train_log(
+        f"{arch} at train_batch ({rows} rows"
+        + (f" in {accum} microbatches" if accum > 1 else "")
+        + f"; {n} parameters, {n * 4 / 1e9:.2f} GB f32; AdamW; the gather "
+        f"branch)", dev=dev, b2b_ms=b2b, reps=TRAIN_RECSYS_STEPS - 1,
+        items=rows, unit="rows", peak=peak, base=base, bms=bms, by=by,
+        ops=ops, nbytes=nbytes, losses=losses,
+        launches=no_launches(launches, arch),
+        extra=f"; host: parameters and batches made in {made:.2f} s")
+    del state, params, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_egnn(torch, shape):
+    """EGNN at full width on one of TRAIN_EGNN_SHAPES: TRAIN_EGNN_STEPS
+    AdamW steps through ``egnn_loss_fn`` (each layer checkpointed)."""
+    import functools
+
+    from repro_torch.configs import egnn as egnn_cfg
+    from repro_torch.models import egnn
+    from repro_torch.train import step as st
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import OPTIMIZERS
+
+    geom = egnn_cfg.SHAPES[shape]
+    feat, coords, edges, gids, n_graphs, _, _, labels = egnn_graph(shape,
+                                                                   SEED)
+    readout = "graph" if gids is not None else "node"
+    cfg = egnn_cfg.full_config(d_feat=geom["d_feat"], readout=readout)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 17)
+    params = egnn.init_params(cfg, device=DEV, generator=gen)
+    b = {"feat": feat, "coords": coords, "edge_index": edges,
+         "labels": labels}
+    if gids is not None:
+        b["graph_ids"] = gids
+    b = {k: torch.as_tensor(v, device=DEV) for k, v in b.items()}
+    plan = egnn.prepare(b["edge_index"], feat.shape[0], b.get("graph_ids"),
+                        n_graphs)
+    loss = functools.partial(st.egnn_loss_fn, cfg=cfg, n_graphs=n_graphs,
+                             plan=plan)
+    opt = labelled(OPTIMIZERS[egnn_cfg.OPTIMIZER]())
+    step = st.make_train_step(loss, opt)
+    state = {"params": params, "opt": opt.init(params)}
+    state, losses, b2b, launches, peak, base = train_drive(
+        torch, step, state, [b] * TRAIN_EGNN_STEPS)
+    n_out = n_graphs or feat.shape[0]
+    n_edges = int(plan.edges.counts.sum())
+    nbytes, ops = egnn_costs(cfg, feat.shape[0], n_edges, n_out,
+                             geom["d_feat"])
+    n = sum(t.numel() for t in tree.leaves(params))
+    ops, nbytes = 4 * ops, nbytes + 32 * n       # remat: 4 x the forward
+    bms, by = bound(nbytes, ops, F32_OPS)
+    dev = train_timing(torch, lambda: step(state, b))
+    out = train_log(
+        f"egnn {shape} ({feat.shape[0]} nodes, {n_edges} valid edges, "
+        f"d_feat {geom['d_feat']}, {readout} readout, "
+        f"{int((b['labels'] >= 0).sum())} labels; AdamW, remat per layer)",
+        dev=dev, b2b_ms=b2b, reps=TRAIN_EGNN_STEPS - 1, items=n_out,
+        unit=("graphs" if readout == "graph" else "nodes"), peak=peak,
+        base=base, bms=bms, by=by, ops=ops, nbytes=nbytes, losses=losses,
+        launches=no_launches(launches, f"egnn {shape}"))
+    del state, params, step, b, plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch):
+    """[train]: the smoke configs card against CPU, then every full-width
+    train path (STAR with kill and resume, llama4-scout cut to 1 layer,
+    the recsys archs at train_batch, EGNN at three shapes), each freed
+    before the next and each checked to launch no kernel."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("[train] products must accumulate in f32")
+    t_phase = time.perf_counter()
+    train_smoke(torch)
+    out = train_star(torch)
+    out[TRAIN_LM_ARCH] = train_llama4(torch)
+    for arch in TRAIN_RECSYS:
+        out[arch] = train_recsys(torch, arch)
+    for shape in TRAIN_EGNN_SHAPES:
+        out[f"egnn {shape}"] = train_egnn(torch, shape)
+    EGNN_GRAPHS.clear()
+    log("[train] paths " + json.dumps(out))
+    log(f"[train] phase in {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------- corpus
@@ -3294,8 +3766,9 @@ def encoder_ops(cfg, b, s):
 
 
 def profile_split(torch, encode, tokens, parts=None):
-    """One call ``encode(tokens)`` under ``torch.profiler``: device ms by
-    part and the device activities launched (kernels, copies, fills).  The
+    """One call ``encode(tokens)`` under ``torch.profiler``: the device
+    activities launched (kernels, copies, fills), device ms by part, and
+    the operators of ``other`` that took the most (at most 6, by ms).  The
     parts are {label: (module, function name)}, each function wrapped for
     the call (the innermost wrapped caller names a kernel's part); by
     default the encoder's attention, RMSNorms and RoPE; products outside
@@ -3337,6 +3810,7 @@ def profile_split(torch, encode, tokens, parts=None):
     # profiler's own markers (a full command buffer, when the launch queue
     # blocks the host) list the same kernels again
     split = dict.fromkeys(["matmul", *parts, "other"], 0.0)
+    others: dict = {}
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels \
                 or not e.name.startswith("aten::"):
@@ -3349,8 +3823,12 @@ def profile_split(torch, encode, tokens, parts=None):
         if part is None:
             part = "matmul" if e.name in ("aten::mm", "aten::addmm",
                                           "aten::bmm") else "other"
-        split[part] += sum(k.duration for k in e.kernels) / 1e3
-    return len(device), split
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        split[part] = split.get(part, 0.0) + ms
+        if part == "other":
+            others[e.name] = others.get(e.name, 0.0) + ms
+    top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:6])
+    return len(device), split, top
 
 
 def encoder_phase(torch, corpus):
@@ -4125,6 +4603,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "egnn" in phases:
         egnn_phase(torch)
+        torch.cuda.empty_cache()
+    if "train" in phases:      # before the corpus, as [recsys]
+        train_phase(torch)
         torch.cuda.empty_cache()
     tier_rows = {}
     if phases & {"kernels", "encoder", "ab", "main", "tiered", "paper"}:

@@ -2,7 +2,7 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 layout (``core``, ``kernels``, ``dist``, ``serve``, ``data``, ``models``,
-``configs``) with PyTorch
+``configs``, ``train``, ``checkpoint``) with PyTorch
 idiom and hand-written CUDA kernels for an NVIDIA H100 (``csrc/``).  It
 imports neither ``jax`` nor any ``repro`` module.
 

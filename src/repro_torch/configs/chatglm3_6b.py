@@ -8,6 +8,9 @@ from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "chatglm3-6b"
 FAMILY = "lm"
+OPTIMIZER = "adamw"
+TRAIN_ACCUM_STEPS = 4
+ACCUM_DTYPE = torch.float32
 
 
 def full_config() -> TransformerConfig:

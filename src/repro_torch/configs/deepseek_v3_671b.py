@@ -1,8 +1,7 @@
 """deepseek-v3-671b [arXiv:2412.19437]: 61L d7168, MLA (128 heads), MoE
 256 routed experts top-8 + 1 shared, first 3 layers dense (d_ff 18432),
 MTP depth 1, vocab 129280.
-The torch twin of ``repro.configs.deepseek_v3_671b`` (its training-only
-constants left out)."""
+The torch twin of ``repro.configs.deepseek_v3_671b``."""
 
 import torch
 
@@ -11,6 +10,11 @@ from repro_torch.models.transformer import MLAConfig, TransformerConfig
 
 ARCH_ID = "deepseek-v3-671b"
 FAMILY = "lm"
+OPTIMIZER = "adafactor"
+TRAIN_ACCUM_STEPS = 32
+# bf16 gradient accumulation, as the JAX package's (its f32
+# accumulator did not fit the TPU mesh it was sized for)
+ACCUM_DTYPE = torch.bfloat16
 
 
 def full_config() -> TransformerConfig:

@@ -11,6 +11,9 @@ from repro_torch.models.egnn import EGNNConfig
 
 ARCH_ID = "egnn"
 FAMILY = "gnn"
+OPTIMIZER = "adamw"
+TRAIN_ACCUM_STEPS = 1
+ACCUM_DTYPE = torch.float32
 
 # per-shape input geometry (the JAX package's)
 SHAPES = {

@@ -1,8 +1,7 @@
 """llama4-scout-17b-16e [hf:meta-llama/Llama-4-Scout-17B-16E]: 48L d5120,
 40H GQA kv=8, MoE 16 experts top-1 + shared expert (d_ff 8192), vocab
 202048.  Text backbone only.
-The torch twin of ``repro.configs.llama4_scout_17b_a16e`` (its
-training-only constants left out)."""
+The torch twin of ``repro.configs.llama4_scout_17b_a16e``."""
 
 import torch
 
@@ -11,6 +10,9 @@ from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "llama4-scout-17b-16e"
 FAMILY = "lm"
+OPTIMIZER = "adafactor"
+TRAIN_ACCUM_STEPS = 4
+ACCUM_DTYPE = torch.float32
 
 
 def full_config() -> TransformerConfig:

@@ -8,6 +8,9 @@ from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "mistral-large-123b"
 FAMILY = "lm"
+OPTIMIZER = "adamw"
+TRAIN_ACCUM_STEPS = 8
+ACCUM_DTYPE = torch.float32
 
 
 def full_config() -> TransformerConfig:

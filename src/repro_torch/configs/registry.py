@@ -1,9 +1,12 @@
 """Architecture registry of the port: ``get(arch)`` for every arch of the
 JAX package's ``repro.configs.registry``.
 
-``RECSYS_SHAPES`` holds the ported recsys input shapes, copied from the
-JAX package's ``launch/cells.py`` (``RECSYS_SHAPE_DEFS``); ``train_batch``
-waits for training (ROADMAP.md queue 1, item 13e).
+``RECSYS_SHAPES`` holds the recsys input shapes, copied from the JAX
+package's ``launch/cells.py`` (``RECSYS_SHAPE_DEFS``).  Each config module
+also carries the JAX package's training constants: ``OPTIMIZER`` (a key
+of ``train.optimizer.OPTIMIZERS``), ``TRAIN_ACCUM_STEPS`` and
+``ACCUM_DTYPE`` (the gradient accumulator's dtype; the JAX package's
+default where its module has none).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ PORTED = {
 }
 
 RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", batch=65536),
     "serve_p99": dict(kind="serve", batch=512),
     "serve_bulk": dict(kind="serve", batch=262144),
     # one query against the first n_candidates rows of the item table

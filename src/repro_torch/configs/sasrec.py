@@ -9,6 +9,9 @@ from repro_torch.models.recsys import SeqRecConfig
 
 ARCH_ID = "sasrec"
 FAMILY = "recsys"
+OPTIMIZER = "adamw"
+TRAIN_ACCUM_STEPS = 1
+ACCUM_DTYPE = torch.float32
 
 
 def full_config() -> SeqRecConfig:

@@ -10,6 +10,9 @@ from repro_torch.models.transformer import TransformerConfig
 
 ARCH_ID = "star-encoder"
 FAMILY = "lm"
+OPTIMIZER = "adamw"
+TRAIN_ACCUM_STEPS = 4
+ACCUM_DTYPE = torch.float32
 
 
 def full_config() -> TransformerConfig:

@@ -39,6 +39,11 @@ Both packages exchange it as numpy arrays.
     of cache tuples that ``init_kv_caches`` and ``forward(return_kv=True)``
     return ((k, v), or (c_kv, k_rope) for MLA; each (count, B, S, ...)),
     carried across and back.
+  * ``opt_state_from_numpy`` / ``opt_state_to_numpy`` — an optimizer
+    state (the JAX package's ``OptState`` or any object with ``step`` and
+    ``inner``): AdamW's ``m`` / ``v`` or Adafactor's ``v`` tree of
+    ``{"vr", "vc"}`` / ``{"v"}`` in the params' structure, f32, the step
+    an int32 scalar; carried across and back exactly.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from repro_torch.core.cache_ops import (CacheConfig, CacheState,
                                         init_batched_cache, pad_features,
                                         to_numpy)
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.train.optimizer import OptState
 
 __all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
            "shared_tier_to_numpy", "shared_tier_from_numpy",
@@ -59,7 +65,8 @@ __all__ = ["cache_state_from_numpy", "cache_state_to_numpy",
            "transformer_params_to_numpy", "seqrec_params_from_numpy",
            "seqrec_params_to_numpy", "egnn_params_from_numpy",
            "egnn_params_to_numpy", "kv_caches_from_numpy",
-           "kv_caches_to_numpy"]
+           "kv_caches_to_numpy", "opt_state_from_numpy",
+           "opt_state_to_numpy"]
 
 
 def _fields(leaves) -> dict:
@@ -246,3 +253,18 @@ def kv_caches_to_numpy(caches) -> list:
     """Decode caches of either package as a list of tuples of numpy
     arrays; bf16 widened to f32 (exact)."""
     return [tuple(to_numpy(c) for c in group) for group in caches]
+
+
+def opt_state_from_numpy(state, device=None):
+    """An optimizer state of either package (``step``, ``inner``) as this
+    port's ``OptState`` on ``device``."""
+    dev = resolve_device(device)
+    step = _tensor(np.asarray(state.step, np.int32), dev)
+    return OptState(step, _map_tree(lambda a: _tensor(a, dev), state.inner))
+
+
+def opt_state_to_numpy(state):
+    """An optimizer state of either package as an ``OptState`` of numpy
+    arrays (the step an int32 scalar)."""
+    return OptState(np.asarray(to_numpy(state.step), np.int32),
+                    _map_tree(to_numpy, state.inner))

@@ -9,6 +9,11 @@ non-finite result to 0 -- all inside the one kernel launch.
 
 ``embedding_bag`` dispatches on the table's device: CUDA launches
 ``csrc/embedding_bag.cu`` (counter ``embedding_bag``), CPU runs ``ref``.
+The kernel has no backward (nor has the JAX package's), so on the card it
+refuses a table or weights that require a gradient while autograd records:
+it never hands back pooled rows without their history.  Training pools
+through ``models.recsys.field_pool(..., use_kernel=False)``, the gather
+branch, as the JAX package trains.
 """
 
 from __future__ import annotations
@@ -63,6 +68,13 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     _validate(table, indices, weights, mode)
     if not dispatch.is_kernel(table):
         return ref.embedding_bag(table, indices, weights, mode)
+    if torch.is_grad_enabled() and (table.requires_grad or (
+            weights is not None and weights.requires_grad)):
+        raise RuntimeError(
+            "embedding_bag: the kernel has no backward and cannot give the "
+            "gradient this table (or its weights) requires; train through "
+            "the gather branch, models.recsys.field_pool(..., "
+            "use_kernel=False)")
     v, d = table.shape
     if table.stride() != (d, 1):
         raise ValueError(f"table must be row-major contiguous (stride "

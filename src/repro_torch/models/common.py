@@ -7,8 +7,7 @@ package's two ``lax.scan``s): peak memory O(B*H*q_chunk*kv_chunk).  The
 JAX package has no attention kernel (plain ``jnp`` under XLA), so neither
 has the port: every step is a plain ``torch`` call.  ``decode_attention``
 is one token's attention against a KV cache (the decode path).
-
-``cross_entropy`` is not ported yet (training, ROADMAP queue 1, item 13e).
+``cross_entropy`` is the training loss.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import torch
 
 __all__ = ["NEG_INF", "normal", "rms_norm", "softcap", "rope_frequencies",
            "rope_angles", "apply_rope", "rotate", "blockwise_attention",
-           "decode_attention"]
+           "decode_attention", "cross_entropy"]
 
 NEG_INF = -1e30
 
@@ -212,3 +211,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgp,bpkd->bkgd", p, v_cache.to(torch.float32))
     return o.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token CE in f32; optional z-loss.  Labels < 0 are masked; the
+    denominator is the count of the others, at least 1.  The label's
+    log-prob is a gather (the JAX package's masked reduction keeps a
+    vocab-sharded axis sharded; one device has none): the same value."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = torch.as_tensor(labels, device=logits.device)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = labels >= 0
+    return (nll * mask).sum() / mask.sum().clamp(min=1)

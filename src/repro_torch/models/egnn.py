@@ -16,9 +16,15 @@ order.  No float atomics (``index_add_`` on the card adds with them, so
 its last bits change from run to run): two forwards agree bit for bit,
 for one chunk size.  The chunks also bound the edge tensors: at
 ``ogb_products`` (61,859,140 edges) one layer's unchunked message input
-alone is 31.9 GB.  The JAX package shards edges across devices instead;
-``jax.checkpoint`` only saves memory in training and has no forward
-counterpart.
+alone is 31.9 GB.  The JAX package shards edges across devices instead.
+
+Training differentiates the forward as it is: the plan's sums write each
+row to its own position of a fresh buffer and add it in (``index_put``),
+which autograd takes.  ``forward(remat=True)`` checkpoints each layer
+(``torch.utils.checkpoint``: a layer keeps its inputs and is recomputed in
+the backward), the JAX package's ``jax.checkpoint`` per layer.  On the
+card the backward of the gathers at edge endpoints adds with float
+atomics, so a gradient's last bits change from run to run.
 
 The products are plain ``torch`` calls (XLA's in the JAX package), float32
 with TF32 off.  The JAX package has no TPU kernel here, so neither has the
@@ -28,9 +34,11 @@ port.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.dispatch import resolve_device
 
@@ -213,10 +221,11 @@ def egnn_layer(p: dict, h: torch.Tensor, x: torch.Tensor,
 
 def forward(params: dict, node_feat, coords, edge_index, cfg: EGNNConfig,
             edge_attr=None, graph_ids=None, n_graphs: Optional[int] = None,
-            *, plan: Optional[GraphPlan] = None):
+            *, plan: Optional[GraphPlan] = None, remat: bool = False):
     """Returns (logits, coords_out): logits (N, C) node-level or (G, C).
     Inputs (tensors or arrays) go to the parameters' device; ``plan``
-    (None: built here, ``prepare``) is the graph's."""
+    (None: built here, ``prepare``) is the graph's.  ``remat``
+    checkpoints each layer while autograd records."""
     dev = params["encoder"][0]["w"].device
     node_feat, coords, edge_index = (torch.as_tensor(a, device=dev)
                                      for a in (node_feat, coords, edge_index))
@@ -232,8 +241,13 @@ def forward(params: dict, node_feat, coords, edge_index, cfg: EGNNConfig,
     h = _mlp(params["encoder"], node_feat.to(cfg.dtype))
     x = coords.to(cfg.dtype)
     for p in params["layers"]:
-        h, x = egnn_layer(p, h, x, edge_index, edge_attr, n, cfg.residual,
-                          plan=plan.edges)
+        layer = functools.partial(egnn_layer, p, edge_index=edge_index,
+                                  edge_attr=edge_attr, n_nodes=n,
+                                  residual=cfg.residual, plan=plan.edges)
+        if remat and torch.is_grad_enabled():
+            h, x = ckpt.checkpoint(layer, h, x, use_reentrant=False)
+        else:
+            h, x = layer(h, x)
     if cfg.readout == "graph":
         cnt = plan.graphs.counts.to(h.dtype)
         h = plan.graphs.sum(h) / torch.clamp(cnt, min=1.0)[:, None]

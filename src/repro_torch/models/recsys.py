@@ -1,20 +1,25 @@
 """RecSys models of the port: DLRM-RM2, xDeepFM, SASRec and BERT4Rec.
 
 The port of ``repro.models.recsys``.  The shared substrate of DLRM and
-xDeepFM is a multi-field EmbeddingBag: ``field_pool`` flattens the F
-per-field tables into one (F*V, D) view (no copy) with offset ids and
-pools every (row, field) bag in one ``embedding_bag`` launch -- the JAX
-package's kernel branch.  Its gather branch clamps ids >= V inside each
-field's table; the port clamps the same way before offsetting, so both
-branches agree with it on every id (ids >= V are outside the contract:
-``CTRStream`` draws them ``% vocab``).
+xDeepFM is a multi-field EmbeddingBag, ``field_pool``, with the JAX
+package's two branches.  The kernel branch (``use_kernel=True``, what
+serving takes) flattens the F per-field tables into one (F*V, D) view (no
+copy) with offset ids and pools every (row, field) bag in one
+``embedding_bag`` launch.  The gather branch (``use_kernel=False``, what
+training takes, as in the JAX package) gathers each field's rows, zeroes
+the pads and pools them in plain ``torch``: autograd gives the tables'
+gradient, which the kernel has not (it refuses a table that requires a
+gradient).  The JAX gather clamps ids >= V inside each field's table;
+both branches of the port clamp the same way (ids >= V are outside the
+contract: ``CTRStream`` draws them ``% vocab``).
 
 Each forward is the pool followed by a pure function of the pooled
 embeddings (``dlrm_interact``, ``xdeepfm_interact``), so a caller can feed
 the interaction pooled rows from elsewhere (``chip_smoke.py`` feeds it the
 plain version's).  A DLRM forward is one embedding-bag launch; an xDeepFM
 forward two (the field tables, then the order-1 linear term, which the JAX
-package pools through its gather branch).
+package pools through its gather branch; the port pools it in the branch
+the forward is given).
 
 SASRec (causal) and BERT4Rec (bidirectional) share ``seqrec_encode``:
 item and position embeddings, pre-norm self-attention blocks with a ReLU
@@ -22,7 +27,10 @@ FFN, a final RMSNorm.  As in the JAX package, a pad (-1) has its item
 embedding zeroed but keeps its position embedding and stays an attention
 key; only the output zeroes it.  The encode runs in row chunks of
 ``encode_rows(cfg)`` rows (rows are independent), so a 262,144-row batch
-never holds its (B, H, S, S) scores at once.
+never holds its (B, H, S, S) scores at once.  Under autograd each chunk is
+checkpointed (``torch.utils.checkpoint``: only its rows are kept, the
+chunk is encoded again in the backward), so a train batch of 65,536
+BERT4Rec rows never holds every chunk's saved activations at once.
 
 Retrieval is the paper's index scan: ``candidate_index`` puts an item
 table behind a ``MetricIndex`` (rows as they are, ids = row positions, -1
@@ -41,6 +49,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import layout
 from repro_torch.core.cache_ops import pad_features
@@ -83,13 +92,31 @@ def flatten_fields(tables: torch.Tensor, idx: torch.Tensor):
     return tables.view(f * v, d), flat_idx.reshape(b * f, l)
 
 
-def field_pool(tables: torch.Tensor, idx: torch.Tensor,
-               mode: str = "sum") -> torch.Tensor:
+def field_pool(tables: torch.Tensor, idx: torch.Tensor, mode: str = "sum",
+               use_kernel: bool = True) -> torch.Tensor:
     """tables (F, V, D) stacked per-field tables; idx (B, F, L) multi-hot
-    ids (< 0 padding) -> (B, F, D) f32 pooled per field, in one launch."""
-    f, _, d = tables.shape
-    out = embedding_bag(*flatten_fields(tables, idx), mode=mode)
-    return out.view(idx.shape[0], f, d)
+    ids (< 0 padding) -> (B, F, D) pooled per field.  ``use_kernel``: in
+    one ``embedding_bag`` launch (f32 out); else the JAX package's gather
+    branch (the tables' dtype, differentiable)."""
+    f, v, d = tables.shape
+    if use_kernel:
+        out = embedding_bag(*flatten_fields(tables, idx), mode=mode)
+        return out.view(idx.shape[0], f, d)
+    if idx.shape[1] != f:
+        raise ValueError(f"{f} tables for {idx.shape[1]} id fields")
+    valid = idx >= 0
+    safe = torch.where(valid, idx.clamp(max=v - 1), 0).long()
+    field = torch.arange(f, device=idx.device)[None, :, None]
+    rows = tables[field, safe] * valid[..., None]           # (B, F, L, D)
+    if mode == "mean":
+        cnt = valid.sum(dim=-1, keepdim=True).clamp(min=1)
+        return rows.sum(dim=2) / cnt
+    if mode == "max":
+        out = torch.where(valid[..., None], rows, -torch.inf).amax(dim=2)
+        return torch.where(torch.isfinite(out), out, 0.0)
+    if mode != "sum":
+        raise ValueError(f"mode {mode!r} not in ('sum', 'mean', 'max')")
+    return rows.sum(dim=2)
 
 
 def _normal(shape, scale, *, dtype, device, generator):
@@ -156,10 +183,11 @@ def dlrm_interact(params: dict, dense: torch.Tensor, emb: torch.Tensor,
 
 
 def dlrm_forward(params: dict, dense: torch.Tensor, sparse_idx: torch.Tensor,
-                 cfg: DLRMConfig) -> torch.Tensor:
-    """dense (B, 13); sparse_idx (B, 26, L). Returns (B,) logits."""
-    return dlrm_interact(params, dense, field_pool(params["tables"],
-                                                   sparse_idx), cfg)
+                 cfg: DLRMConfig, use_kernel: bool = True) -> torch.Tensor:
+    """dense (B, 13); sparse_idx (B, 26, L). Returns (B,) logits.
+    ``use_kernel`` False pools through the gather branch (training)."""
+    emb = field_pool(params["tables"], sparse_idx, use_kernel=use_kernel)
+    return dlrm_interact(params, dense, emb, cfg)
 
 
 def dlrm_user_tower(params: dict, dense: torch.Tensor,
@@ -218,10 +246,12 @@ def xdeepfm_interact(params: dict, x0: torch.Tensor, lin: torch.Tensor,
 
 
 def xdeepfm_forward(params: dict, sparse_idx: torch.Tensor,
-                    cfg: XDeepFMConfig) -> torch.Tensor:
-    """sparse_idx (B, 39, L). Returns (B,) logits (pre-sigmoid)."""
-    x0 = field_pool(params["tables"], sparse_idx)
-    lin = field_pool(params["linear"], sparse_idx)
+                    cfg: XDeepFMConfig,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """sparse_idx (B, 39, L). Returns (B,) logits (pre-sigmoid).
+    ``use_kernel`` False pools through the gather branch (training)."""
+    x0, lin = (field_pool(params[k], sparse_idx, use_kernel=use_kernel)
+               for k in ("tables", "linear"))
     return xdeepfm_interact(params, x0, lin, cfg)
 
 
@@ -291,12 +321,22 @@ def _by_rows(fn, items: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[max(ids, 0)]``, as the JAX package gathers (pads read row
+    0, masked by the caller).  Through ``F.embedding``, whose backward
+    sums the rows of each id in parallel: a quarter of a train batch's
+    positions are pads, all reading row 0, and indexing's backward
+    (``index_put_`` with accumulate) adds such a run one row at a time
+    (1.15 s of a 1.36 s SASRec step at 65,536 rows on the H100)."""
+    return torch.nn.functional.embedding(ids.clamp(min=0).long(), table)
+
+
 def _encode(params: dict, items: torch.Tensor, cfg: SeqRecConfig):
     """``seqrec_encode`` of one chunk of rows."""
     b, s = items.shape
     d, h = cfg.embed_dim, cfg.n_heads
     mask = (items >= 0)[..., None]
-    x = params["item_emb"][items.clamp(min=0).long()] * mask
+    x = _rows(params["item_emb"], items) * mask
     x = x + params["pos_emb"][None, :s]
     chunk, masks = min(256, s), {}
     for blk in params["blocks"]:
@@ -313,10 +353,22 @@ def _encode(params: dict, items: torch.Tensor, cfg: SeqRecConfig):
     return x * mask
 
 
+def _records(params: dict) -> bool:
+    """True when autograd records a graph over ``params``."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in params.values()
+        if isinstance(t, torch.Tensor))
+
+
 def seqrec_encode(params: dict, items: torch.Tensor,
                   cfg: SeqRecConfig) -> torch.Tensor:
     """items (B, S) int32, -1 = pad.  Returns (B, S, D) hidden states,
-    encoded ``encode_rows(cfg)`` rows at a time."""
+    encoded ``encode_rows(cfg)`` rows at a time (each chunk checkpointed
+    under autograd)."""
+    if _records(params):
+        return _by_rows(lambda it: ckpt.checkpoint(
+            _encode, params, it, cfg, use_reentrant=False), items,
+            encode_rows(cfg))
     return _by_rows(lambda it: _encode(params, it, cfg), items,
                     encode_rows(cfg))
 
@@ -353,8 +405,8 @@ def seqrec_bce_loss(params: dict, items: torch.Tensor, pos: torch.Tensor,
     hidden = seqrec_encode(params, items, cfg)
     valid = pos >= 0
     emb = params["item_emb"]
-    s_pos = (hidden * emb[pos.clamp(min=0).long()]).sum(dim=-1)
-    s_neg = (hidden * emb[neg.clamp(min=0).long()]).sum(dim=-1)
+    s_pos = (hidden * _rows(emb, pos)).sum(dim=-1)
+    s_neg = (hidden * _rows(emb, neg)).sum(dim=-1)
     nls = torch.nn.functional.logsigmoid
     loss = -(nls(s_pos) + nls(-s_neg))
     return (loss * valid).sum() / valid.sum().clamp(min=1)
@@ -418,9 +470,11 @@ def _tree(v):
 
 
 class _Recsys(nn.Module):
-    """A parameter tree held as frozen parameters on one device: the port
-    serves these models (the kernel has no backward, as in the JAX
-    package).  ``params`` rebuilds the tree the functions take."""
+    """A parameter tree held as frozen parameters on one device: the
+    modules serve these models through the kernel branch (the kernel has
+    no backward, as in the JAX package; training takes the functions and
+    the gather branch, ``train.step``).  ``params`` rebuilds the tree the
+    functions take."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()

@@ -26,8 +26,15 @@ block, norm_h, norm_e}`` (``block`` one unstacked dense layer); weights
 (d_in, d_out) for ``x @ w``.  Carrying JAX weights across is a copy of
 arrays (``repro_torch.convert.transformer_params_from_numpy``).
 ``forward`` loops over the stacked layers and indexes each layer's slice
-(a view, no copy): the JAX package's ``lax.scan``.  ``remat`` is a
-training concept and is not carried over.
+(a view, no copy): the JAX package's ``lax.scan``.  Its ``remat`` picks
+what a layer keeps for the backward (``REMAT_POLICIES``): ``"none"``
+everything, ``"full"`` only its input (``torch.utils.checkpoint`` around
+each block, recomputed in the backward), ``"dots"`` its matrix products'
+outputs (selective checkpointing: ``mm`` / ``bmm`` saved, the rest
+recomputed).  The values are the same under every policy; a policy only
+applies while autograd records, so the serving forward is untouched.  The
+JAX forward defaults to ``"full"``; the port's to ``"none"`` (serving),
+and its ``train.step.lm_loss_fn`` to ``"full"`` as the JAX one.
 
 ``hidden_states`` is the forward without the head: an encoder pools the
 hidden states and never needs logits (under ``jax.jit`` XLA drops the
@@ -44,18 +51,21 @@ False on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
 
-__all__ = ["MLAConfig", "TransformerConfig", "init_params", "param_count",
-           "active_param_count", "hidden_states", "forward", "mtp_logits",
-           "init_kv_caches", "decode_step", "Transformer"]
+__all__ = ["REMAT_POLICIES", "MLAConfig", "TransformerConfig",
+           "init_params", "param_count", "active_param_count",
+           "hidden_states", "forward", "mtp_logits", "init_kv_caches",
+           "decode_step", "Transformer"]
 
 
 # --------------------------------------------------------------- configs
@@ -394,6 +404,30 @@ def _block(p: dict, x: torch.Tensor, rope, window: int,
 
 # --------------------------------------------------------------- forward
 
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# what a layer keeps for the backward: the JAX package's policies
+REMAT_POLICIES = {
+    "none": None,
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)},
+}
+
+
+def _remat(fn, remat: str):
+    """``fn`` (one layer of x) under the ``remat`` policy: checkpointed
+    while autograd records, else as it is."""
+    kw = REMAT_POLICIES[remat]
+    if kw is None or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def _embed(params: dict, tokens, cfg: TransformerConfig):
     """(tokens on the parameters' device, their embeddings in the model's
     dtype).  Tensor indexing, as ``params["embed"][tokens]`` in JAX: a pad
@@ -414,11 +448,12 @@ def _final_norm(params: dict, x: torch.Tensor, cfg: TransformerConfig):
 
 
 def _trunk(params: dict, tokens, cfg: TransformerConfig,
-           kv_len: Optional[int] = None):
+           kv_len: Optional[int] = None, remat: str = "none"):
     """Embedding, layers and final norm over ``tokens`` (B, S).  Returns
     (hidden, aux loss summed over the MoE layers, per-group caches when
     ``kv_len`` is given: each layer's (k, v) / latent pair written into
-    zeroed (count, B, kv_len, ...) buffers)."""
+    zeroed (count, B, kv_len, ...) buffers).  ``remat`` applies to each
+    layer (not with ``kv_len``: the caches are a serving output)."""
     tokens, x = _embed(params, tokens, cfg)
     b, s = tokens.shape
     if kv_len is not None and kv_len < s:
@@ -433,8 +468,14 @@ def _trunk(params: dict, tokens, cfg: TransformerConfig,
         stack = params[f"group{gi}_{kind}"]
         group_aux, bufs = None, None
         for i in range(count):
-            x, aux, kv = _block(_layer(stack, i), x, rope, windows[base + i],
-                                cfg, kind, masks)
+            block = functools.partial(_block, _layer(stack, i),
+                                      rope=rope, window=windows[base + i],
+                                      cfg=cfg, kind=kind, masks=masks)
+            if kv_len is None:
+                x, aux = _remat(lambda x, f=block: f(x)[:2], remat)(x)
+                kv = None
+            else:
+                x, aux, kv = block(x)
             if aux is not None:
                 group_aux = aux if group_aux is None else group_aux + aux
             if kv_len is not None:
@@ -466,8 +507,10 @@ def _head(params: dict, hidden: torch.Tensor,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
-            return_kv: bool = False, kv_len: Optional[int] = None):
-    """Causal forward pass (prefill).
+            return_kv: bool = False, kv_len: Optional[int] = None,
+            remat: str = "none"):
+    """Causal forward pass (training / prefill); ``remat`` a key of
+    ``REMAT_POLICIES``.
 
     Returns (logits, aux_loss, hidden, kv_caches_per_group) as the JAX
     package does: the aux loss summed over the MoE layers (0 for a dense
@@ -477,7 +520,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     """
     hidden, aux, caches = _trunk(
         params, tokens, cfg,
-        (kv_len or torch.as_tensor(tokens).shape[1]) if return_kv else None)
+        (kv_len or torch.as_tensor(tokens).shape[1]) if return_kv else None,
+        remat)
     return (_head(params, hidden, cfg), aux, hidden,
             caches if return_kv else None)
 

@@ -1631,3 +1631,64 @@ def test_egnn_forward_is_bitwise_repeatable_on_card(card):
     one = egnn.forward(on_card, *args, cfg)
     for x, y in zip(a, one):
         assert_close(x, y, 1e-4, "egnn chunked against one chunk")
+
+
+# ---------------------------------------------------------------- training
+@pytest.mark.parametrize("arch", [
+    "star-encoder", "deepseek-v3-671b", "llama4-scout-17b-16e", "dlrm-rm2",
+    "xdeepfm", "sasrec", "bert4rec", "egnn"])
+def test_smoke_train_step_on_card_matches_cpu(card, arch):
+    """One step from the same parameters and batch on the card and on the
+    CPU path, held by ``train.parity.assert_steps_agree``."""
+    from repro_torch.train import parity
+
+    parity.assert_steps_agree(parity.smoke_step(arch, "cpu"),
+                              parity.smoke_step(arch, "cuda"), arch)
+
+
+def test_embedding_bag_refuses_a_table_that_requires_grad(card):
+    tables = torch.randn(3, 100, 8, generator=card, device="cuda",
+                         requires_grad=True)
+    idx = torch.randint(0, 100, (4, 3, 2), generator=card, device="cuda",
+                        dtype=torch.int32)
+    dispatch.reset_counters()
+    with pytest.raises(RuntimeError, match="use_kernel=False"):
+        rs.field_pool(tables, idx)
+    assert dispatch.counters()["embedding_bag"].launches == 0
+    with torch.no_grad():
+        pooled = rs.field_pool(tables, idx)
+    assert dispatch.counters()["embedding_bag"].launches == 1
+    gathered = rs.field_pool(tables, idx, use_kernel=False)
+    assert_close(gathered.detach(), pooled, 1e-5, "gather branch")
+    gathered.sum().backward()
+    assert tables.grad is not None and bool((tables.grad != 0).any())
+
+
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager, restore_tree
+    from repro_torch.configs import star_encoder
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from repro_torch.train import tree
+
+    cfg = star_encoder.smoke_config()
+    params = tf.init_params(cfg, device="cuda", generator=card)
+    opt = topt.adamw(lr=1e-2, warmup=1)
+    step = tstep.make_lm_train_step(cfg, opt)
+    tok = torch.randint(0, cfg.vocab_size, (4, 16), generator=card,
+                        device="cuda")
+    batch = {"tokens": tok, "labels": tok.roll(-1, 1)}
+    state, _ = step({"params": params, "opt": opt.init(params)}, batch)
+    before = tree.map(lambda t: t.clone(), state)
+    mgr = CheckpointManager(str(tmp_path), interval=1)
+    mgr.maybe_save(1, state)
+    state, _ = step(state, batch)                  # in place, during the save
+    mgr.wait()
+    out, at = mgr.restore_or(tree.map(torch.zeros_like, before))
+    assert at == 1
+    for a, b in zip(tree.leaves(out), tree.leaves(before)):
+        assert a.is_cuda and torch.equal(a, b)
+    on_cpu = restore_tree(before, str(tmp_path), device="cpu")
+    assert all(a.device.type == "cpu" and torch.equal(a, b.cpu())
+               for a, b in zip(tree.leaves(on_cpu), tree.leaves(before)))

@@ -106,6 +106,53 @@ def test_default_device_raises_without_a_card(no_card):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_training_entry_points_follow_the_card(no_card, tmp_path):
+    """The training script defaults to the card and raises without one;
+    the step factories follow the parameters' device and a restore lands
+    on the template's device, so a CPU state never asks for a card."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import star_encoder
+    from repro_torch.train import encoder
+    from repro_torch.train.optimizer import adafactor, adamw
+    from repro_torch.train.step import make_lm_train_step
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encoder.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "a")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encoder.train(star_encoder.smoke_config(), 1, str(tmp_path / "b"))
+    cfg = star_encoder.smoke_config()
+    params = init_params_cpu(cfg)
+    for opt in (adamw(), adafactor()):
+        state = {"params": params, "opt": opt.init(params)}
+        step = make_lm_train_step(cfg, opt, remat="none")
+        state, m = step(state, {"tokens": np.zeros((2, 8), np.int32),
+                                "labels": np.ones((2, 8), np.int32)})
+        assert m["loss"].device.type == "cpu"
+    mgr = CheckpointManager(str(tmp_path / "c"), interval=1)
+    mgr.maybe_save(1, state)
+    mgr.wait()
+    out, step = mgr.restore_or(state)
+    assert step == 1 and out["params"]["embed"].device.type == "cpu"
+
+
+def test_training_script_runs_and_resumes_on_the_cpu(tmp_path, capsys):
+    from repro_torch.train import encoder
+
+    args = ["--device", "cpu", "--steps", "4", "--interval", "2",
+            "--batch", "4", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    assert encoder.main(args) == 0
+    assert (tmp_path / "step_4").is_dir()
+    assert encoder.main(args[:3] + ["6"] + args[4:]) == 0
+    out = capsys.readouterr().out
+    assert "resumed from checkpoint at step 4" in out and "step    5" in out
+
+
+def init_params_cpu(cfg):
+    from repro_torch.models.transformer import init_params
+    return init_params(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
     """Without a visible card, or run from a directory holding nothing of
