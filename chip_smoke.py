@@ -203,6 +203,27 @@ Run from the repository root.  Phases, each fatal on failure:
   12. engine — ``ConversationalEngine`` behind ``ShardedRouter([DeviceShard
      (corpus)])`` serves 8 conversations x 10 turns (k=10, k_c=1000) and
      agrees turn for turn with the dynamic searcher.
+  13. dist   — the distributed layer (``repro_torch.dist``) in a world of
+     one rank: an NCCL group on the card (a rendezvous file, no port) and
+     ``DeviceMesh``es of shape (1,) and (1, 1).  ``MetricIndex(corpus,
+     sharded=True)`` lays the corpus out with ``shard_corpus`` without a
+     copy; its ``sharded_nn`` at B = 64 and B = 1 (k = 1000) equals
+     ``MetricIndex.search`` on the same corpus bit for bit, through the
+     kNN kernels, timed on the device and back to back beside it (the
+     difference is the gather and the merge at a world of one).
+     ``make_batched_scorer`` at SASRec's ``retrieval_cand`` shape
+     (1,048,576 x 64 items, 1,000,000 valid, B = 1, k = 1000) against
+     ``candidate_index``'s search.  STAR at full width under
+     ``lm_activation_rules`` with its parameters placed by
+     ``param_specs`` as DTensors, B = 1 and 64 rows of 64 tokens, within
+     1e-6 of the plain forward, both timed.  After the corpus is
+     released: ``moe_ffn_sharded`` on one deepseek-v3 MoE layer at full
+     width (256 experts, top 8, bf16, 8 x 512 tokens, ``moe_ffn``'s
+     capacity) against ``moe_ffn``: the sharded form routes in bf16 (the
+     JAX version's rule) and ``moe_ffn`` in f32, so the tokens routed
+     alike by both are held to [lm]'s MoE bar (RMS error within 2e-2 of
+     the output's RMS); the share routed differently and the whole RMS
+     error are printed; both timed.
 
 ``--phases`` runs a subset (``probe,recsys,paper`` also drives the
 parent package, whose entries these phases share, for a comparison in one
@@ -246,10 +267,13 @@ nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -296,7 +320,7 @@ SPREAD_READINGS = 5                # readings of the B = 1 select's time
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
 PHASES = ("kernels", "probe", "recsys", "lm", "seqrec", "egnn", "train",
-          "encoder", "ab", "main", "tiered", "paper", "engine")
+          "encoder", "ab", "main", "tiered", "paper", "engine", "dist")
 XDEEPFM_CHUNK = 16_384
 # [tiered]: the L2 tier, the cluster index and the traffic of
 # serve_bench.bench_zipf; [chaos]: bench_chaos at 8 sessions x 10 rounds
@@ -379,6 +403,14 @@ TIER_ROWS = {"knn_score_assign": "knn_score", "knn_select_assign":
              "wave_query_topk_l2": "wave_query_topk",
              "wave_insert_scatter_l2": "wave_insert_scatter",
              "wave_insert_query_wide": "wave_insert_query"}
+
+
+# [dist]: a world of one rank.  The sharded index at DIST_B queries (k =
+# KC); STAR under the activation rules at DIST_ENC_B rows of ENC_SEQ
+# tokens, within DIST_FWD_TOL of the plain forward; SASRec's
+# retrieval_cand table (CAND_ROWS x CAND_WIDTH, CAND_VALID valid)
+DIST_B, DIST_ENC_B, DIST_FWD_TOL = (64, 1), (1, 64), 1e-6
+CAND_ROWS, CAND_WIDTH, CAND_VALID = 1 << 20, 64, 1_000_000
 
 
 def log(msg: str) -> None:
@@ -4537,6 +4569,217 @@ def lm_phase(torch):
     return paths
 
 
+# ----------------------------------------------------------------- dist
+def dist_group(torch, tmp):
+    """A one-rank NCCL group on cuda:0 that meets through a file in
+    ``tmp``, and the (1,) and (1, 1) meshes over it."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "rendezvous"), rank=0, world_size=1)
+    return (init_device_mesh("cuda", (1,), mesh_dim_names=("shard",)),
+            init_device_mesh("cuda", (1, 1), mesh_dim_names=("data",
+                                                             "model")))
+
+
+def both_times(torch, fn, reps):
+    """(device ms or None when the enqueue outruns the sleep, back-to-back
+    ms) of ``fn``."""
+    return (timed_device(torch, fn, reps, strict=False),
+            timed(torch, fn, reps))
+
+
+def fmt_ms(ms) -> str:
+    return "not measurable" if ms is None else f"{ms:.4f} ms"
+
+
+def dist_index(torch, corpus, streams, flat):
+    """[dist] the sharded index over the [kernels] corpus against the
+    single-device search.  Returns {path: launches}."""
+    import numpy as np
+
+    from repro_torch.core.metric_index import MetricIndex
+
+    dim = DIM_RAW + 1
+    local = MetricIndex(corpus, transformed=True, dim=dim, device=DEV)
+    shard = MetricIndex(corpus, transformed=True, dim=dim, device=DEV,
+                        sharded=True, mesh=flat)
+    if shard.doc_emb.to_local().data_ptr() != corpus.data_ptr() or \
+            local.doc_emb.data_ptr() != corpus.data_ptr():
+        raise AssertionError("[dist] the sharded index copied the corpus")
+    q64 = torch.as_tensor(np.stack([c[0] for c in streams]), device=DEV)
+    paths = {}
+    for b in DIST_B:
+        q = q64[:b]
+        got, launches = counted(torch, lambda: shard.search(q, KC))
+        want = local.search(q, KC)
+        if not (torch.equal(got.ids, want.ids)
+                and torch.equal(got.scores, want.scores)):
+            raise AssertionError(f"[dist] sharded_nn at B={b} differs from "
+                                 f"MetricIndex.search")
+        n = launches.get("knn_score", 0), launches.get("knn_select", 0)
+        if n[0] < 1 or n[1] < 1:
+            raise AssertionError(f"[dist] sharded_nn at B={b} launched "
+                                 f"no kNN kernel: {launches}")
+        paths["dist" if b == S else "dist_b1"] = launches
+        reps = 5 if b == S else 10
+        s_dev, s_b2b = both_times(torch, lambda: shard.search(q, KC), reps)
+        l_dev, l_b2b = both_times(torch, lambda: local.search(q, KC), reps)
+        log(f"[dist] sharded_nn over {tuple(corpus.shape)} f32 laid out by "
+            f"shard_corpus on a (1,) mesh, no copy; B={b}, k={KC}: ids and "
+            f"scores equal MetricIndex.search bit for bit; launches "
+            f"knn_score {n[0]}, knn_select {n[1]}; {fmt_ms(s_dev)} on the "
+            f"device, {s_b2b:.4f} ms back to back, against the local "
+            f"search's {fmt_ms(l_dev)} / {l_b2b:.4f} ms (the gather and the "
+            f"merge at a world of one)")
+    del shard, local, q64
+    return paths
+
+
+def dist_scorer(torch, mesh):
+    """[dist] ``make_batched_scorer`` at SASRec's retrieval_cand shape
+    against ``candidate_index``.  Returns {path: launches}."""
+    from repro_torch.dist.retrieval import make_batched_scorer
+    from repro_torch.kernels.parity import assert_topk_agree
+    from repro_torch.models.recsys import candidate_index
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 7)
+    table = torch.randn(CAND_ROWS, CAND_WIDTH, generator=gen, device=DEV)
+    q = torch.randn(1, CAND_WIDTH, generator=gen, device=DEV)
+    scorer = make_batched_scorer(mesh, k=CAND_K, table_axes=("model",),
+                                 batch_axes=("data",))
+    (vals, ids), launches = counted(
+        torch, lambda: scorer(q, table, n_valid=CAND_VALID))
+    index = candidate_index(table, n_valid=CAND_VALID, device=DEV)
+    if index.doc_emb.data_ptr() != table.data_ptr():
+        raise AssertionError("[dist] candidate_index copied the table")
+    want = index.search(q, CAND_K)
+    err = assert_topk_agree(vals, ids, want.scores, want.ids, SCORE_TOL,
+                            "[dist] batched scorer")
+    if int(ids.max()) >= CAND_VALID or launches.get("knn_score", 0) < 1:
+        raise AssertionError(f"[dist] batched scorer: an id >= "
+                             f"{CAND_VALID} or no kNN launch {launches}")
+    s_dev, s_b2b = both_times(
+        torch, lambda: scorer(q, table, n_valid=CAND_VALID), 20)
+    c_dev, c_b2b = both_times(torch, lambda: index.search(q, CAND_K), 20)
+    log(f"[dist] make_batched_scorer at retrieval_cand ({CAND_ROWS} x "
+        f"{CAND_WIDTH} items, {CAND_VALID} valid, B=1, k={CAND_K}) on a "
+        f"(1, 1) mesh: ids equal candidate_index's search (scores within "
+        f"{err:.3g}), none >= {CAND_VALID}; launches knn_score "
+        f"{launches.get('knn_score', 0)}, knn_select "
+        f"{launches.get('knn_select', 0)}; {fmt_ms(s_dev)} on the device, "
+        f"{s_b2b:.4f} ms back to back, against candidate_index's "
+        f"{fmt_ms(c_dev)} / {c_b2b:.4f} ms")
+    return {"dist_cand": launches}
+
+
+def dist_forward(torch, mesh):
+    """[dist] STAR at full width under ``lm_activation_rules``, its
+    parameters DTensors placed by ``param_specs``, against the plain
+    forward."""
+    import numpy as np
+
+    from repro_torch.configs import star_encoder
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.api import sharding_rules
+    from repro_torch.models import transformer as tf
+
+    cfg = star_encoder.full_config()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 2)
+    params = tf.init_params(cfg, device=DEV, generator=gen)
+    specs = shd.param_specs(params, mesh)
+    placed = shd.place_tree(params, mesh, specs)
+    rules = shd.lm_activation_rules(mesh, cfg, "train")
+    rng = np.random.default_rng(SEED)
+    for b in DIST_ENC_B:
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, ENC_SEQ))
+                              .astype(np.int32), device=DEV)
+
+        def sharded():
+            with sharding_rules(mesh, rules):
+                return tf.forward(placed, tok, cfg)[0]
+
+        with torch.no_grad():
+            got = sharded()
+            want = tf.forward(params, tok, cfg)[0]
+            full = got.full_tensor()
+            err = float((full - want).abs().max())
+            if full.shape != want.shape or not torch.isfinite(full).all() \
+                    or err > DIST_FWD_TOL:
+                raise AssertionError(f"[dist] STAR under the rules at B={b} "
+                                     f"differs from the plain forward by "
+                                     f"{err:.3g}")
+            reps = 10 if b == 1 else 5
+            s_dev, s_b2b = both_times(torch, sharded, reps)
+            p_dev, p_b2b = both_times(
+                torch, lambda: tf.forward(params, tok, cfg)[0], reps)
+        log(f"[dist] {cfg.name} at full width under lm_activation_rules on "
+            f"a (1, 1) mesh, parameters placed by param_specs as DTensors "
+            f"(logits {[str(p) for p in got.placements]}); B={b} x "
+            f"S={ENC_SEQ}: logits within {err:.3g} of the plain forward "
+            f"(bound {DIST_FWD_TOL}); {fmt_ms(s_dev)} on the device, "
+            f"{s_b2b:.4f} ms back to back, against the plain forward's "
+            f"{fmt_ms(p_dev)} / {p_b2b:.4f} ms")
+    del params, placed
+
+
+def dist_moe(torch, mesh):
+    """[dist] ``moe_ffn_sharded`` on one deepseek-v3 MoE layer at full
+    width against ``moe_ffn`` at the same capacity."""
+    from repro_torch.configs import deepseek_v3_671b
+    from repro_torch.models import moe
+
+    cfg = deepseek_v3_671b.full_config()
+    m = cfg.moe
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 3)
+    layer = moe.init_moe(m, cfg.d_model, cfg.dtype, device=DEV,
+                         generator=gen)
+    weights = sum(v.numel() * v.element_size() for v in layer.values())
+    x = torch.randn(LM_B * LM_S, cfg.d_model, generator=gen,
+                    device=DEV).to(cfg.dtype)
+    with torch.no_grad():
+        r = moe.route(layer, x, m)
+        want = moe.moe_ffn(layer, x, m).y.float()
+        got = moe.moe_ffn_sharded(layer, x, m, mesh,
+                                  capacity=r.capacity).y.float()
+        # the sharded rule's routing: router logits in the activation dtype
+        probs = torch.softmax((x @ layer["router"].to(x.dtype)).float(), -1)
+        _g, ids = moe._top_k(probs, m)
+        _aux, pos = moe._aux_and_positions(probs, ids.reshape(-1), m)
+        alike = ((ids.reshape(-1) == r.expert_ids)
+                 & ((pos < r.capacity) == r.keep)).view(-1, m.top_k).all(1)
+        rms = float(want.pow(2).mean().sqrt())
+        diff = got - want
+        err = float(diff[alike].pow(2).mean().sqrt()) / rms
+        whole = float(diff.pow(2).mean().sqrt()) / rms
+        share = float(alike.float().mean())
+        if not torch.isfinite(got).all() or err > LM_MOE_TOL:
+            raise AssertionError(f"[dist] moe_ffn_sharded: RMS error "
+                                 f"{err:.3g} of the output's RMS on the "
+                                 f"tokens routed alike > {LM_MOE_TOL}")
+        s_dev, s_b2b = both_times(torch, lambda: moe.moe_ffn_sharded(
+            layer, x, m, mesh, capacity=r.capacity), 5)
+        p_dev, p_b2b = both_times(torch, lambda: moe.moe_ffn(
+            layer, x, m, capacity=r.capacity), 5)
+    log(f"[dist] moe_ffn_sharded, one {cfg.name} MoE layer at full width "
+        f"({m.n_experts} experts, top-{m.top_k} + {m.n_shared} shared, d "
+        f"{cfg.d_model}, bf16, {weights / 1e9:.2f} GB) over {LM_B} x {LM_S} "
+        f"tokens on a (1, 1) mesh, capacity {r.capacity} as moe_ffn's: "
+        f"{share:.4f} of the tokens routed alike by both rules (bf16 "
+        f"router logits against f32), their RMS error {err:.3g} of the "
+        f"output's RMS {rms:.4g} (bound {LM_MOE_TOL}); over every token "
+        f"{whole:.3g}; {fmt_ms(s_dev)} on the device, {s_b2b:.4f} ms back "
+        f"to back, against moe_ffn's {fmt_ms(p_dev)} / {p_b2b:.4f} ms")
+    del layer, x, want, got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4608,7 +4851,9 @@ def main() -> int:
         train_phase(torch)
         torch.cuda.empty_cache()
     tier_rows = {}
-    if phases & {"kernels", "encoder", "ab", "main", "tiered", "paper"}:
+    dist_tmp = tempfile.mkdtemp() if "dist" in phases else None
+    if phases & {"kernels", "encoder", "ab", "main", "tiered", "paper",
+                 "dist"}:
         world, corpus, streams = build_corpus(torch, args.seed)
         if "encoder" in phases:
             paths.update(encoder_phase(torch, corpus))
@@ -4630,22 +4875,41 @@ def main() -> int:
                                                   streams)
         if "engine" in phases:
             paths["engine"] = engine_phase(torch, corpus, streams, dynamic)
+        if "dist" in phases:
+            flat, mesh = dist_group(torch, dist_tmp)
+            paths.update(dist_index(torch, corpus, streams, flat))
+            paths.update(dist_scorer(torch, mesh))
+            dist_forward(torch, mesh)
+        # release the corpus and everything that reads it
+        world = corpus = streams = dynamic = ci = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "dist" in phases:
+        held = torch.cuda.memory_allocated() / 1e9
+        log(f"[dist] corpus released: {held:.2f} GB allocated on the card")
+        dist_moe(torch, mesh)
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        shutil.rmtree(dist_tmp, ignore_errors=True)
     log(f"[done] phases in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         print(smi)
         return 0
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in KERNELS}
     launches.update({n: sum(paths[p].get(k, 0) for p in
-                            ("paper", "engine", "encoder_session"))
+                            ("paper", "engine", "encoder_session",
+                             "dist_b1"))
                      for n, k in {**B1_ROWS, **S1_ROWS}.items()})
     launches.update(tier_rows)
     launches.update({
         "knn_score_seqrec": paths["seqrec"]["knn_score"],
         "knn_select_seqrec": paths["seqrec"]["knn_select"],
         "knn_score_cand": paths["seqrec_cand"]["knn_score"]
-        + paths["recsys_cand"]["knn_score"],
+        + paths["recsys_cand"]["knn_score"]
+        + paths["dist_cand"]["knn_score"],
         "knn_select_cand": paths["seqrec_cand"]["knn_select"]
-        + paths["recsys_cand"]["knn_select"],
+        + paths["recsys_cand"]["knn_select"]
+        + paths["dist_cand"]["knn_select"],
         "embedding_bag_cand": paths["recsys_cand"]["embedding_bag"]})
     print(rep.line(launches))
     print(smi)

@@ -17,6 +17,9 @@ The port of ``repro.checkpoint.manager``:
     bf16 checkpoint of either package.
   * **Atomic**: written to ``<dir>/tmp.<step>`` then renamed.
   * **Integrity**: restore checks each leaf's CRC32.
+  * **Sharded trees**: a ``DTensor`` leaf is gathered whole (every rank
+    calls ``save_tree``, rank 0 writes), so the format stays one file a
+    leaf whatever the world size.
   * **Async**: ``save_tree(..., blocking=False)`` first takes its own host
     copy of every leaf (``.detach().to("cpu", copy=True)``: a copy even
     of a CPU tensor), then writes from a thread.  The optimizer updates
@@ -25,8 +28,11 @@ The port of ``repro.checkpoint.manager``:
   * **Retention**: the last ``keep`` steps are kept.
 
 ``restore_tree`` puts each leaf on ``device`` (None: its template leaf's
-device) in its template leaf's dtype.  A leaf that lives on a mesh is the
-JAX package's elastic restore (``shardings``): item 12, not ported.
+device) in its template leaf's dtype.  ``shardings`` (a tree in the
+template's structure of ``dist.api.NamedSharding``, None where a leaf
+stays whole) is the elastic restore: leaves are stored whole, so each is
+read whole and laid out as a ``DTensor`` with the given placements on any
+mesh; a restore onto another world size gives the same full tensors.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.api import is_dtensor, place
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.train import tree
 
@@ -54,10 +61,13 @@ def _flatten(t: Any) -> dict:
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that no later step can change; a bf16
-    tensor as its raw 2-byte words (``|V2``)."""
+    """A host copy of ``leaf`` that no later step can change (a
+    ``DTensor`` gathered whole first); a bf16 tensor as its raw 2-byte
+    words (``|V2``)."""
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -77,8 +87,14 @@ def save_tree(t: Any, directory: str, step: int, *, keep: int = 3,
     """Write ``t`` to ``directory/step_<step>`` atomically; without
     ``blocking``, return the writer thread (``join`` re-raises its
     error)."""
+    flat = _flatten(t)
+    host = {k: _host(v) for k, v in flat.items()}
+    if any(is_dtensor(v) for v in flat.values()):
+        # every rank gathered the leaves; one writes them
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            return None
     os.makedirs(directory, exist_ok=True)
-    host = {k: _host(v) for k, v in _flatten(t).items()}
 
     def write():
         tmp = os.path.join(directory, f"tmp.{step}")
@@ -150,10 +166,11 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore_tree(template: Any, directory: str, step: Optional[int] = None,
-                 device=None) -> Any:
+                 device=None, shardings: Any = None) -> Any:
     """The checkpoint of ``step`` (None: the latest) in the structure of
     ``template``: each leaf on ``device`` (None: its template leaf's) in
-    its template leaf's dtype.  Raises ``IOError`` on a CRC mismatch."""
+    its template leaf's dtype, or laid out by its entry of ``shardings``.
+    Raises ``IOError`` on a CRC mismatch."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -161,6 +178,9 @@ def restore_tree(template: Any, directory: str, step: Optional[int] = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     dev = None if device is None else resolve_device(device)
+
+    flat_s = {} if shardings is None else dict(
+        tree.leaves_with_path(shardings))
 
     def load(p, leaf):
         key = tree.path_key(p)
@@ -171,8 +191,11 @@ def restore_tree(template: Any, directory: str, step: Optional[int] = None,
             raise IOError(f"checkpoint corruption in leaf {key!r} "
                           f"(crc {crc} != {meta['crc']})")
         t = torch.as_tensor(leaf)
-        return _tensor(arr, meta["dtype"]).to(
-            device=dev if dev is not None else t.device, dtype=t.dtype)
+        got = _tensor(arr, meta["dtype"]).to(dtype=t.dtype)
+        sharding = flat_s.get(p)
+        if sharding is not None:
+            return place(got, sharding.mesh, sharding.spec)
+        return got.to(device=dev if dev is not None else t.device)
 
     out = [load(p, leaf) for p, leaf in tree.leaves_with_path(template)]
     return tree.unflatten(template, out)
@@ -197,10 +220,11 @@ class CheckpointManager:
             pending, self._pending = self._pending, None
             pending.join()
 
-    def restore_or(self, template: Any):
+    def restore_or(self, template: Any, shardings: Any = None):
         """(tree, step) from the latest checkpoint onto the template's
-        devices, or (template, 0)."""
+        devices (or ``shardings``' layouts), or (template, 0)."""
         step = latest_step(self.directory)
         if step is None:
             return template, 0
-        return restore_tree(template, self.directory, step), step
+        return restore_tree(template, self.directory, step,
+                            shardings=shardings), step

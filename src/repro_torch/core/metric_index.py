@@ -1,14 +1,17 @@
 """Exact nearest-neighbour metric index: the back end of the paper's Fig. 2.
 
-The port of ``repro.core.metric_index`` without the device-sharded path.  ``scan_topk`` is the one corpus-scan contract — id -1
-rows never win, -inf result positions carry id -1, equal scores keep the
-lower corpus position — and runs the fused kNN wrapper
+The port of ``repro.core.metric_index``.  ``scan_topk`` is the one
+corpus-scan contract — id -1 rows never win, -inf result positions carry
+id -1, equal scores keep the lower corpus position — and runs the fused
+kNN wrapper
 (``kernels.knn.ops.knn_search``): the hand-written kernels on a CUDA
 corpus, the plain version on a CPU one.  ``streaming_topk`` is the plain
 chunked scan with a running top-k carry (peak memory O(B * chunk)) behind
 ``chunked_nn`` and ``masked_chunked_nn``, and ``exact_nn`` the one-shot
 full-matrix oracle.  ``MetricIndex.cluster`` builds (and memoizes) the
-topical ``ClusterIndex`` of ``core.cluster``.
+topical ``ClusterIndex`` of ``core.cluster``.  ``MetricIndex(sharded=True)``
+lays its corpus out over a device mesh once and searches it through
+``dist.retrieval.sharded_nn``.
 """
 
 from __future__ import annotations
@@ -107,11 +110,19 @@ class MetricIndex:
     ``dim`` names the logical width of transformed rows that arrive
     already zero-padded (None: their width): an fp32 corpus at
     ``layout.phys_dim(dim)`` on the device is then used as is, not copied.
+
+    ``sharded`` lays the corpus out once over ``mesh`` (None: the active
+    ``sharding_rules`` mesh, else a flat mesh over the default process
+    group) with ``dist.retrieval.shard_corpus``: ``doc_emb``, ``doc_ids``
+    and ``doc_scale`` become ``DTensor``s, each rank holding its slice, and
+    every ``search`` is ``sharded_nn``, called by every rank.  At a world
+    of one the corpus is not copied.
     """
 
     def __init__(self, doc_emb, doc_ids=None, *, transformed: bool = False,
                  dtype: str | None = None, int8_dot: bool | None = None,
-                 dim: int | None = None, device=None):
+                 dim: int | None = None, device=None, sharded: bool = False,
+                 mesh=None):
         self.device = resolve_device(device)
         doc_emb = torch.as_tensor(doc_emb, dtype=torch.float32,
                                   device=self.device)
@@ -135,6 +146,13 @@ class MetricIndex:
         self.int8_dot = quant.resolve_int8_dot(int8_dot, self.doc_emb.dtype)
         self._dequant = None
         self._clusters: dict = {}
+        self.sharded, self.mesh = sharded, mesh
+        if sharded:
+            from repro_torch.dist import retrieval
+            (self.doc_emb, self.doc_ids, self.doc_scale, self.mesh,
+             _chunk) = retrieval.shard_corpus(self.doc_emb, self.doc_ids,
+                                              scale=self.doc_scale,
+                                              mesh=mesh)
 
     def transform_queries(self, psi: torch.Tensor) -> torch.Tensor:
         return emb.transform_queries(psi)
@@ -146,6 +164,11 @@ class MetricIndex:
         if queries.ndim == 1:
             queries = queries[None]
         k = min(k, self.n_docs)
+        if self.sharded:
+            from repro_torch.dist import retrieval
+            return retrieval.sharded_nn(self.doc_emb, self.doc_ids, queries,
+                                        k, scale=self.doc_scale,
+                                        int8_dot=self.int8_dot)
         return _as_result(*scan_topk(self.doc_emb, self.doc_ids, queries, k,
                                      scale=self.doc_scale,
                                      int8_dot=self.int8_dot))

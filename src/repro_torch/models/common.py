@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.api import constrain
+
 __all__ = ["NEG_INF", "normal", "rms_norm", "softcap", "rope_frequencies",
            "rope_angles", "apply_rope", "rotate", "blockwise_attention",
            "decode_attention", "cross_entropy"]
@@ -158,6 +160,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     torch.arange(ki * kv_chunk, (ki + 1) * kv_chunk,
                                  device=dev), causal=causal, window=window)
             s = torch.where(masks[key], s, NEG_INF)
+            s = constrain(s, "attn_scores")
             if ki == 0:
                 # the first block from the empty carry (m = NEG_INF, l = o =
                 # 0): exp(NEG_INF - m) is 0, so the JAX update reduces to this

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.dist.api import constrain
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["EDGE_CHUNK", "EGNNConfig", "init_params", "SegmentPlan",
@@ -207,13 +208,15 @@ def egnn_layer(p: dict, h: torch.Tensor, x: torch.Tensor,
         feats = [h[s], h[t], dist2]
         if edge_attr is not None:
             feats.append(edge_attr[e])
-        m = _mlp(p["phi_e"], torch.cat(feats, dim=-1), last_act=True)
+        m = constrain(_mlp(p["phi_e"], torch.cat(feats, dim=-1),
+                           last_act=True), "edges")
         # equivariant: x_t += C * sum_j dx_ij * phi_x(m_ij)
         coef = torch.clamp(_mlp(p["phi_x"], m), -100.0, 100.0)
         plan.add(agg, i, torch.cat([m, dx * coef], dim=-1))
     deg = plan.counts.to(x.dtype)
     x_new = x + agg[:, d:] / torch.clamp(deg, min=1.0)[:, None]
-    h_new = _mlp(p["phi_h"], torch.cat([h, agg[:, :d]], dim=-1))
+    m_agg = constrain(agg[:, :d], "nodes")
+    h_new = _mlp(p["phi_h"], torch.cat([h, m_agg], dim=-1))
     if residual:
         h_new = h + h_new
     return h_new, x_new
@@ -238,7 +241,7 @@ def forward(params: dict, node_feat, coords, edge_index, cfg: EGNNConfig,
         plan = prepare(edge_index, n,
                        graph_ids if cfg.readout == "graph" else None,
                        n_graphs)
-    h = _mlp(params["encoder"], node_feat.to(cfg.dtype))
+    h = constrain(_mlp(params["encoder"], node_feat.to(cfg.dtype)), "nodes")
     x = coords.to(cfg.dtype)
     for p in params["layers"]:
         layer = functools.partial(egnn_layer, p, edge_index=edge_index,
@@ -248,6 +251,7 @@ def forward(params: dict, node_feat, coords, edge_index, cfg: EGNNConfig,
             h, x = ckpt.checkpoint(layer, h, x, use_reentrant=False)
         else:
             h, x = layer(h, x)
+        h = constrain(h, "nodes")
     if cfg.readout == "graph":
         cnt = plan.graphs.counts.to(h.dtype)
         h = plan.graphs.sum(h) / torch.clamp(cnt, min=1.0)[:, None]

@@ -10,9 +10,13 @@ dropped.  The expert product is batched over all E experts, each on its
 of a few tokens reads every expert's weights.  Shared experts (DeepSeek,
 Llama 4) run densely beside the routed path.
 
+``moe_ffn_sharded`` is the expert-parallel form over a ``DeviceMesh``
+(the JAX package's ``shard_map`` version): tokens split over the data
+axes, experts over ``"model"``, each model rank running its own experts on
+its data rank's tokens and the partial outputs summed over ``"model"``.
+
 The products are plain ``torch`` calls (XLA's in the JAX package); there
-is no kernel.  ``moe_ffn_sharded`` needs a device mesh and is not ported
-(ROADMAP queue 1, item 12).
+is no kernel.
 """
 
 from __future__ import annotations
@@ -20,13 +24,14 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
+from repro_torch.dist.api import P, axis_sizes, constrain, data_axes, \
+    to_placements
 from repro_torch.models import common as cm
 
 __all__ = ["MoEConfig", "init_moe", "MoEOut", "Routing", "capacity_for",
            "route", "moe_ffn", "moe_ffn_sharded"]
-
-_SHARDED = "ROADMAP.md queue 1, item 12 (dist: meshes and sharding)"
 
 
 class MoEConfig(NamedTuple):
@@ -95,40 +100,52 @@ def capacity_for(t: int, cfg: MoEConfig,
 def route(params: dict, x: torch.Tensor, cfg: MoEConfig,
           capacity: Optional[int] = None) -> Routing:
     """The router of ``moe_ffn`` on x (T, d)."""
-    t = x.shape[0]
-    e, k = cfg.n_experts, cfg.top_k
-    capacity = capacity_for(t, cfg, capacity)
+    capacity = capacity_for(x.shape[0], cfg, capacity)
     # the router's product in f32 (x.astype(f32) @ router in the JAX package)
     logits = x.to(cfg.router_dtype) @ params["router"]               # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    # lax.top_k is stable (the lower expert id wins a tie): a stable sort,
-    # never torch.topk
+    gate_vals, expert_ids = _top_k(probs, cfg)
+
+    flat = expert_ids.reshape(-1)                                    # (T*K,)
+    aux, pos = _aux_and_positions(probs, flat, cfg)
+    keep = pos < capacity
+    return Routing(flat, pos, keep, gate_vals.reshape(-1) * keep, capacity,
+                   aux.to(torch.float32))
+
+
+def _top_k(probs: torch.Tensor, cfg: MoEConfig):
+    """The chosen (gates, experts) of each token: the stable top-k of the
+    router's softmax (lax.top_k: the lower expert id wins a tie; a stable
+    sort, never torch.topk), renormalised when ``norm_topk``."""
     gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True,
                                        stable=True)
+    k = cfg.top_k
     gate_vals, expert_ids = gate_vals[:, :k], expert_ids[:, :k]
     if cfg.norm_topk:
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return gate_vals, expert_ids
 
-    # aux load-balancing loss (Switch / GShard)
-    flat = expert_ids.reshape(-1)                                    # (T*K,)
+
+def _aux_and_positions(probs: torch.Tensor, flat: torch.Tensor,
+                       cfg: MoEConfig):
+    """The Switch / GShard load-balancing loss of the router's ``probs``
+    (T, E) and choices ``flat`` (T*K,), and each choice's place in its
+    expert's queue in token-major order."""
+    e = cfg.n_experts
     # integer counts, exact in any order (bincount would wait for the card)
-    counts = torch.zeros(e, dtype=flat.dtype, device=x.device).scatter_add_(
-        0, flat, torch.ones_like(flat))
-    ce = counts.to(torch.float32) / (t * k)
+    counts = torch.zeros(e, dtype=flat.dtype, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+    ce = counts.to(torch.float32) / flat.numel()
     aux = cfg.aux_loss_weight * e * torch.sum(probs.mean(dim=0) * ce)
-
-    # each (token, choice)'s place in its expert's queue, in token-major
-    # order: the JAX package's cumsum over a (T*K, E) one-hot, computed by
-    # a stable sort on the expert id (the same integers, bit for bit)
+    # the JAX package's cumsum over a (T*K, E) one-hot, computed by a
+    # stable sort on the expert id (the same integers, bit for bit)
     order = torch.argsort(flat, stable=True)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(flat)
-    pos[order] = (torch.arange(flat.numel(), device=x.device)
+    pos[order] = (torch.arange(flat.numel(), device=flat.device)
                   - starts[flat[order]])
-    keep = pos < capacity
-    return Routing(flat, pos, keep, gate_vals.reshape(-1) * keep, capacity,
-                   aux.to(torch.float32))
+    return aux, pos
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
@@ -149,10 +166,13 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     buf = x.new_zeros((e, c + 1, d))
     for kk in range(k):
         buf[ids[:, kk], slot[:, kk]] = x
+    buf = constrain(buf[:, :c], "moe_buf")  # experts over "model"
 
     # expert compute, batched over E
-    gate_h, up_h = torch.bmm(buf[:, :c], params["wi"]).chunk(2, dim=-1)
-    out = torch.bmm(torch.nn.functional.silu(gate_h) * up_h, params["wo"])
+    h = constrain(torch.bmm(buf, params["wi"]), "moe_hidden")
+    gate_h, up_h = h.chunk(2, dim=-1)
+    out = constrain(torch.bmm(torch.nn.functional.silu(gate_h) * up_h,
+                              params["wo"]), "moe_buf")
 
     # combine: the k choices one at a time, in choice order, into a zero
     # buffer of the model dtype (XLA's in-order scatter-add; no atomics, so
@@ -163,14 +183,123 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     y = x.new_zeros((t, d))
     for kk in range(k):
         y = y + out[ids[:, kk], slot[:, kk]] * gates[:, kk, None]
+    y = constrain(y, "moe_out")
 
     if "shared_wi" in params:
         y = y + _swiglu(x, params["shared_wi"], params["shared_wo"])
     return MoEOut(y, r.aux_loss)
 
 
+def _moe_local(x: torch.Tensor, router: torch.Tensor, wi: torch.Tensor,
+               wo: torch.Tensor, cfg: MoEConfig, e0: int, capacity: int):
+    """One rank's share of ``moe_ffn_sharded``: its data rank's tokens x
+    (T_loc, d), routed over all E experts, of which it keeps the choices
+    that land in its slice [e0, e0 + E_loc) (``wi`` / ``wo``, E_loc
+    experts).  Returns (its partial output, the aux loss of its tokens)."""
+    t, d = x.shape
+    k, e_loc = cfg.top_k, wi.shape[0]
+    # routed in the activation dtype, softmax in f32, as the JAX version
+    logits = (x @ router.to(x.dtype)).to(cfg.router_dtype)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, cfg)
+    flat = expert_ids.reshape(-1)
+    aux, pos = _aux_and_positions(probs, flat, cfg)
+    mine = (flat >= e0) & (flat < e0 + e_loc)
+    keep = (pos < capacity) & mine
+    # a choice that is not kept goes to the extra expert E_loc, slot C,
+    # which no product reads
+    eid = torch.where(keep, flat - e0, e_loc).view(t, k)
+    slot = torch.where(keep, pos, capacity).view(t, k)
+    gates = (gate_vals.reshape(-1) * keep).view(t, k)
+
+    # dispatch and combine one choice at a time, in choice order
+    buf = x.new_zeros((e_loc + 1, capacity + 1, d))
+    for kk in range(k):
+        buf[eid[:, kk], slot[:, kk]] = x * (gates[:, kk] > 0)[:, None] \
+            .to(x.dtype)
+    gate_h, up_h = torch.bmm(buf[:e_loc, :capacity], wi).chunk(2, dim=-1)
+    out = torch.bmm(torch.nn.functional.silu(gate_h) * up_h, wo)
+    y = torch.zeros_like(x)
+    eid, slot = eid.clamp(max=e_loc - 1), slot.clamp(max=capacity - 1)
+    for kk in range(k):
+        y = y + out[eid[:, kk], slot[:, kk]] * gates[:, kk, None].to(x.dtype)
+    return y, aux
+
+
 def moe_ffn_sharded(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh,
                     capacity: Optional[int] = None) -> MoEOut:
-    """Expert parallelism over a device mesh: not ported yet."""
-    raise NotImplementedError(f"moe_ffn_sharded is not ported yet: "
-                              f"{_SHARDED}")
+    """Expert parallelism over ``mesh`` (a ``DeviceMesh`` with a
+    ``"model"`` axis; every other axis is a data axis), called by every
+    rank.
+
+    ``x`` (T, d) and the parameters are ``DTensor``s on ``mesh`` or plain
+    tensors holding the same global value on every rank.  The tokens split
+    over the data axes and are replicated over ``"model"``; ``wi`` / ``wo``
+    split their experts over ``"model"``.  Each rank routes its data
+    rank's T / dp tokens over all experts and keeps the choices in its own
+    slice, with ``capacity`` slots an expert (None: ``capacity_for`` the
+    local tokens); the partial outputs are summed over ``"model"`` and the
+    aux loss averaged over the data ranks.  The local body is checkpointed
+    (recomputed in the backward), as the JAX version's ``jax.checkpoint``.
+    The collectives are DTensor redistributions, which autograd
+    differentiates: the gradients are those of the global function.
+    Returns ``DTensor``s for a ``DTensor`` x, else plain tensors.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    sizes = axis_sizes(mesh)
+    names = tuple(sizes)
+    dp = data_axes(mesh)
+    tp = sizes["model"]
+    e = cfg.n_experts
+    if e % tp:
+        raise ValueError(f"{e} experts do not split over a model axis of "
+                         f"{tp}")
+    dp_prod = 1
+    for a in dp:
+        dp_prod *= sizes[a]
+    t = x.shape[0]
+    if t % dp_prod:
+        raise ValueError(f"{t} tokens do not split over {dp_prod} data "
+                         f"ranks")
+    capacity = capacity_for(t // dp_prod, cfg, capacity)
+    nd = len(names)
+    rep = [Replicate()] * nd
+
+    def on_mesh(a):
+        if isinstance(a, DTensor):
+            return a
+        return DTensor.from_local(a, mesh, rep, run_check=False)
+
+    def local(a, placements, grad_placements):
+        return on_mesh(a).redistribute(mesh, placements).to_local(
+            grad_placements=grad_placements)
+
+    x_pl = to_placements(P(dp or None, None), mesh)
+    w_pl = to_placements(P("model", None, None), mesh)
+    # the gradient each rank computes is its share of the whole: over
+    # "model" for the tokens (its experts' part), over the data axes for
+    # the experts (its tokens' part), over both for the router
+    partial_model = [Partial() if n == "model" else p
+                     for n, p in zip(names, x_pl)]
+    partial_data = [p if n == "model" else Partial()
+                    for n, p in zip(names, w_pl)]
+    x_loc = local(x, x_pl, partial_model)
+    router = local(params["router"], rep, [Partial()] * nd)
+    wi = local(params["wi"], w_pl, partial_data)
+    wo = local(params["wo"], w_pl, partial_data)
+    e0 = mesh.get_local_rank("model") * (e // tp)
+    y_part, aux = ckpt.checkpoint(_moe_local, x_loc, router, wi, wo, cfg, e0,
+                                  capacity, use_reentrant=False)
+    y = DTensor.from_local(y_part, mesh, partial_model,
+                           run_check=False).redistribute(mesh, x_pl)
+    # the mean over data ranks of an aux that every model rank shares
+    aux = DTensor.from_local(aux.to(torch.float32) / mesh.size(), mesh,
+                             [Partial()] * nd,
+                             run_check=False).redistribute(mesh, rep)
+    if "shared_wi" in params:
+        y = y + _swiglu(on_mesh(x), on_mesh(params["shared_wi"]),
+                        on_mesh(params["shared_wo"]))
+    if isinstance(x, DTensor):
+        return MoEOut(y, aux)
+    return MoEOut(y.full_tensor(), aux.full_tensor())

@@ -54,6 +54,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core import layout
 from repro_torch.core.cache_ops import pad_features
 from repro_torch.core.metric_index import MetricIndex
+from repro_torch.dist.api import constrain
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.models import common as cm
@@ -187,7 +188,7 @@ def dlrm_forward(params: dict, dense: torch.Tensor, sparse_idx: torch.Tensor,
     """dense (B, 13); sparse_idx (B, 26, L). Returns (B,) logits.
     ``use_kernel`` False pools through the gather branch (training)."""
     emb = field_pool(params["tables"], sparse_idx, use_kernel=use_kernel)
-    return dlrm_interact(params, dense, emb, cfg)
+    return dlrm_interact(params, dense, constrain(emb, "act_bfd"), cfg)
 
 
 def dlrm_user_tower(params: dict, dense: torch.Tensor,
@@ -252,7 +253,7 @@ def xdeepfm_forward(params: dict, sparse_idx: torch.Tensor,
     ``use_kernel`` False pools through the gather branch (training)."""
     x0, lin = (field_pool(params[k], sparse_idx, use_kernel=use_kernel)
                for k in ("tables", "linear"))
-    return xdeepfm_interact(params, x0, lin, cfg)
+    return xdeepfm_interact(params, constrain(x0, "act_bfd"), lin, cfg)
 
 
 def xdeepfm_user_tower(params: dict, sparse_idx: torch.Tensor,
@@ -337,7 +338,7 @@ def _encode(params: dict, items: torch.Tensor, cfg: SeqRecConfig):
     d, h = cfg.embed_dim, cfg.n_heads
     mask = (items >= 0)[..., None]
     x = _rows(params["item_emb"], items) * mask
-    x = x + params["pos_emb"][None, :s]
+    x = constrain(x + params["pos_emb"][None, :s], "act_bsd")
     chunk, masks = min(256, s), {}
     for blk in params["blocks"]:
         xn = cm.rms_norm(x, blk["norm1"])

@@ -58,9 +58,12 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.dist.api import active_mesh, axis_sizes, constrain, \
+    data_axes
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import common as cm
-from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn
+from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn, \
+    moe_ffn_sharded
 
 __all__ = ["REMAT_POLICIES", "MLAConfig", "TransformerConfig",
            "init_params", "param_count", "active_param_count",
@@ -294,14 +297,16 @@ def _attn_gqa(p: dict, x: torch.Tensor, rope, window: int,
     q = (x @ p["wq"]).view(b, s, h, dh)
     k = (x @ p["wk"]).view(b, s, kv, dh)
     v = (x @ p["wv"]).view(b, s, kv, dh)
-    q = cm.rotate(q, *rope, cfg.rope_interleaved)
-    k = cm.rotate(k, *rope, cfg.rope_interleaved)
+    q = constrain(cm.rotate(q, *rope, cfg.rope_interleaved), "act_bshd")
+    k = constrain(cm.rotate(k, *rope, cfg.rope_interleaved), "act_bskd")
+    v = constrain(v, "act_bskd")
     if cache is not None:
         k_cache, v_cache = cache
         _write(k_cache, k, cur_len)
         _write(v_cache, v, cur_len)
-        o = cm.decode_attention(q, k_cache, v_cache, cur_len, window=window,
-                                logit_cap=cfg.attn_softcap)
+        o = cm.decode_attention(q, constrain(k_cache, "kv_cache"),
+                                constrain(v_cache, "kv_cache"), cur_len,
+                                window=window, logit_cap=cfg.attn_softcap)
         new = cache
     else:
         o = cm.blockwise_attention(q, k, v, causal=True, window=window,
@@ -309,6 +314,7 @@ def _attn_gqa(p: dict, x: torch.Tensor, rope, window: int,
                                    kv_chunk=cfg.kv_chunk,
                                    logit_cap=cfg.attn_softcap, masks=masks)
         new = (k, v)
+    o = constrain(o, "act_bshd")
     return o.reshape(b, s, h * dh) @ p["wo"], new
 
 
@@ -337,6 +343,8 @@ def _attn_mla(p: dict, x: torch.Tensor, rope, window: int,
         ckv_cache, kr_cache = cache
         _write(ckv_cache, ckv, cur_len)
         _write(kr_cache, kr, cur_len)
+        ckv_cache = constrain(ckv_cache, "mla_cache")
+        kr_cache = constrain(kr_cache, "mla_cache_r")
         # absorbed attention, scored in the latent space: q_lat in the
         # model dtype, then scores, softmax and o_lat in f32
         f32 = torch.float32
@@ -358,20 +366,43 @@ def _attn_mla(p: dict, x: torch.Tensor, rope, window: int,
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, kr[:, :, None, :].expand(b, s, h, dr)],
                       dim=-1)
+        q = constrain(q, "act_bshd")
+        k = constrain(k, "act_bshd")
+        vfull = constrain(vfull, "act_bshd")
         o = cm.blockwise_attention(q, k, vfull, causal=True, window=window,
                                    q_chunk=cfg.q_chunk,
                                    kv_chunk=cfg.kv_chunk,
                                    logit_cap=cfg.attn_softcap, scale=scale,
                                    masks=masks)
         new = (ckv, kr)
-    return o.to(x.dtype).reshape(b, s, h * dv) @ p["wo"], new
+    o = constrain(o.to(x.dtype), "act_bshd")
+    return o.reshape(b, s, h * dv) @ p["wo"], new
 
 
 # ----------------------------------------------------------------- block
 
 def _dense_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     gate, up = (x @ p["wi"]).chunk(2, dim=-1)
-    return (torch.nn.functional.silu(gate) * up) @ p["wo"]
+    h = constrain(torch.nn.functional.silu(gate) * up, "act_bsf")
+    return h @ p["wo"]
+
+
+def _moe(p: dict, x: torch.Tensor, cfg: MoEConfig):
+    """The MoE FFN of x (T, d): ``moe_ffn_sharded`` under an active mesh
+    of more than one rank whose ``"model"`` axis divides the experts and
+    whose data ranks divide the tokens (the JAX package's rule: a tiny
+    decode batch takes ``moe_ffn``), else ``moe_ffn``."""
+    mesh = active_mesh()
+    if mesh is not None:
+        sizes = axis_sizes(mesh)
+        dp_prod = 1
+        for a in data_axes(mesh):
+            dp_prod *= sizes[a]
+        world = dp_prod * sizes.get("model", 1)
+        if "model" in sizes and cfg.n_experts % sizes["model"] == 0 \
+                and world > 1 and x.shape[0] % dp_prod == 0:
+            return moe_ffn_sharded(p, x, cfg, mesh)
+    return moe_ffn(p, x, cfg)
 
 
 def _block(p: dict, x: torch.Tensor, rope, window: int,
@@ -387,19 +418,19 @@ def _block(p: dict, x: torch.Tensor, rope, window: int,
                      cfg, masks, cache, cur_len)
     if cfg.use_post_norm:
         a_out = norm(a_out, p["post_attn_norm"])
-    x = x + a_out
+    x = constrain(x + a_out, "act_bsd")
     f_in = norm(x, p["pre_ffn_norm"])
     aux = None
     if kind == "moe":
         # every (batch, position) row is a token to the router, pads too
         b, s, d = f_in.shape
-        f_out, aux = moe_ffn(p["ffn"], f_in.reshape(b * s, d), cfg.moe)
+        f_out, aux = _moe(p["ffn"], f_in.reshape(b * s, d), cfg.moe)
         f_out = f_out.view(b, s, d)
     else:
         f_out = _dense_ffn(p["ffn"], f_in)
     if cfg.use_post_norm:
         f_out = norm(f_out, p["post_ffn_norm"])
-    return x + f_out, aux, kv
+    return constrain(x + f_out, "act_bsd"), aux, kv
 
 
 # --------------------------------------------------------------- forward
@@ -439,7 +470,7 @@ def _embed(params: dict, tokens, cfg: TransformerConfig):
         # sqrt(d) rounded to the model's dtype first, as JAX's
         # jnp.asarray(d ** 0.5, cfg.dtype); a host scalar, no copy to the card
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
-    return tokens, x
+    return tokens, constrain(x, "act_bsd")
 
 
 def _final_norm(params: dict, x: torch.Tensor, cfg: TransformerConfig):
@@ -461,6 +492,8 @@ def _trunk(params: dict, tokens, cfg: TransformerConfig,
     rope = _rope(cfg, torch.arange(s, device=x.device))
     windows = cfg.window_schedule()
     masks: dict = {}
+    kv_names = (("mla_cache", "mla_cache_r") if cfg.attention == "mla"
+                else ("kv_cache", "kv_cache"))
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     base = 0
@@ -479,6 +512,7 @@ def _trunk(params: dict, tokens, cfg: TransformerConfig,
             if aux is not None:
                 group_aux = aux if group_aux is None else group_aux + aux
             if kv_len is not None:
+                kv = tuple(constrain(c, n) for c, n in zip(kv, kv_names))
                 if bufs is None:
                     bufs = tuple(c.new_zeros((count, b, kv_len)
                                              + c.shape[2:]) for c in kv)
@@ -503,7 +537,8 @@ def hidden_states(params: dict, tokens: torch.Tensor,
 def _head(params: dict, hidden: torch.Tensor,
           cfg: TransformerConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return cm.softcap(hidden @ w.to(cfg.dtype), cfg.final_softcap)
+    return constrain(cm.softcap(hidden @ w.to(cfg.dtype), cfg.final_softcap),
+                     "logits")
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
@@ -534,11 +569,13 @@ def mtp_logits(params: dict, tokens: torch.Tensor, hidden: torch.Tensor,
     p = params["mtp"]
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
-    emb_next = embed[tokens].to(cfg.dtype)          # no embed_scale, as JAX
+    # no embed_scale, as JAX
+    emb_next = constrain(embed[tokens].to(cfg.dtype), "act_bsd")
+    hidden = constrain(hidden, "act_bsd")
     s = tokens.shape[1]
-    h = torch.cat([cm.rms_norm(hidden, p["norm_h"], cfg.norm_eps),
-                   cm.rms_norm(emb_next, p["norm_e"], cfg.norm_eps)],
-                  dim=-1) @ p["proj"]
+    h = constrain(torch.cat([cm.rms_norm(hidden, p["norm_h"], cfg.norm_eps),
+                             cm.rms_norm(emb_next, p["norm_e"], cfg.norm_eps)],
+                            dim=-1) @ p["proj"], "act_bsd")
     rope = _rope(cfg, torch.arange(s, device=h.device))
     h, _aux, _kv = _block(p["block"], h, rope, 0, cfg, "dense", {})
     return _head(params, cm.rms_norm(h, params["final_norm"], cfg.norm_eps),

@@ -25,8 +25,11 @@ seeded from (seed, step), so a resumed run draws what an uninterrupted one
 would; the draws are not JAX's (its PRNG cannot be reproduced here), so
 parity with the JAX package holds with ``stochastic_rounding=False``.
 
-``state_spec`` (the optimizer state's sharding) belongs to the mesh layer
-and is not ported (ROADMAP.md queue 1, item 12).
+``state_spec(param_shapes, param_specs)`` gives the state's partition
+specs (``dist.api.P``) from the parameters': the moments mirror their
+parameter, so the state shards as the parameters do (ZeRO-style); a
+factored Adafactor row / column moment drops the last / second-to-last
+entry.  The step is replicated (``P()``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist.api import P
 from repro_torch.train import tree
 
 __all__ = ["OptState", "Optimizer", "adamw", "adafactor", "global_norm",
@@ -53,6 +57,8 @@ class OptState(NamedTuple):
 class Optimizer:
     init: Callable
     update: Callable          # (grads, state, params) -> (params, state)
+    # (param_shapes, param_specs) -> the state's tree of specs
+    state_spec: Callable = None
 
 
 def _schedule(lr: float, warmup: int, step: torch.Tensor) -> torch.Tensor:
@@ -115,7 +121,10 @@ def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
         tree.map(upd, params, grads, state.inner["m"], state.inner["v"])
         return params, OptState(step, state.inner)
 
-    return Optimizer(init, update)
+    def state_spec(param_shapes, param_specs):
+        return OptState(P(), {"m": param_specs, "v": param_specs})
+
+    return Optimizer(init, update, state_spec)
 
 
 def _factored(shape) -> bool:
@@ -201,7 +210,15 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
         tree.map(upd, params, grads, state.inner["v"])
         return params, OptState(step, state.inner)
 
-    return Optimizer(init, update)
+    def state_spec(param_shapes, param_specs):
+        def st(p, spec):
+            full = tuple(spec) + (None,) * (len(p.shape) - len(spec))
+            if _factored(p.shape):
+                return {"vr": P(*full[:-1]), "vc": P(*(full[:-2] + full[-1:]))}
+            return {"v": P(*full)}
+        return OptState(P(), {"v": tree.map(st, param_shapes, param_specs)})
+
+    return Optimizer(init, update, state_spec)
 
 
 def _stochastic_round_bf16(x32: torch.Tensor,

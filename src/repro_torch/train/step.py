@@ -17,8 +17,12 @@ any clipping.  The step follows the parameters' device: batch arrays go
 there.  The update writes the parameters and moments in place (see
 ``train.optimizer``): the returned state holds the same tensors.
 
-``grad_shardings`` and ``unroll_accum`` (the JAX step's SPMD and XLA
-knobs) have no counterpart on one device and are left out.
+``grad_shardings`` (a tree of ``dist.api.NamedSharding`` in the params'
+structure, for parameters that are ``DTensor``s) pins the accumulator and
+each microbatch's gradients to those layouts before they are added, as
+the JAX step's ``with_sharding_constraint`` keeps them reduce-scattered
+onto the parameters' shardings; None leaves them as autograd gives them.
+``unroll_accum`` (an XLA knob) has no counterpart and is left out.
 """
 
 from __future__ import annotations
@@ -68,10 +72,18 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     accum_steps: int = 1,
-                    accum_dtype: torch.dtype = torch.float32) -> Callable:
+                    accum_dtype: torch.dtype = torch.float32,
+                    grad_shardings=None) -> Callable:
     """``loss_fn(params, microbatch) -> (scalar, metrics dict)``; returns
     ``train_step(state, batch) -> (state, metrics)``."""
     grad_fn = value_and_grad(loss_fn)
+
+    def pin(t):
+        # the accumulation's operands on the parameters' layouts
+        if grad_shardings is None:
+            return t
+        return tree.map(lambda g, s: g.redistribute(s.mesh, s.placements),
+                        t, grad_shardings)
 
     def train_step(state, batch):
         params = state["params"]
@@ -89,12 +101,14 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                 return tree.map(rows, batch)
 
             with torch.no_grad():
-                acc = tree.map(lambda p: (p * 0).to(accum_dtype), params)
+                acc = pin(tree.map(lambda p: (p * 0).to(accum_dtype),
+                                   params))
             losses, metricses = [], []
             for i in range(accum_steps):
                 (l, m), g = grad_fn(params, micro(i))
                 with torch.no_grad():
-                    tree.map(lambda a, b: a.add_(b.to(accum_dtype)), acc, g)
+                    tree.map(lambda a, b: a.add_(b.to(accum_dtype)), acc,
+                             pin(g))
                 del g
                 losses.append(l)
                 metricses.append(m)
@@ -132,10 +146,12 @@ def lm_loss_fn(params, batch, cfg: tf.TransformerConfig,
 
 def make_lm_train_step(cfg: tf.TransformerConfig, optimizer: Optimizer,
                        accum_steps: int = 1, remat: str = "full",
-                       accum_dtype: torch.dtype = torch.float32) -> Callable:
+                       accum_dtype: torch.dtype = torch.float32,
+                       grad_shardings=None) -> Callable:
     return make_train_step(functools.partial(lm_loss_fn, cfg=cfg,
                                              remat=remat),
-                           optimizer, accum_steps, accum_dtype)
+                           optimizer, accum_steps, accum_dtype,
+                           grad_shardings)
 
 
 # ---------------------------------------------------- the cells' losses

@@ -27,7 +27,10 @@ def _is_namedtuple(x) -> bool:
 
 def _children(node):
     """[(key string, child)] of an inner node in JAX order, or None for a
-    leaf."""
+    leaf (a type that sets ``_tree_leaf``, such as a partition spec, is
+    one, as JAX's ``PartitionSpec`` is)."""
+    if getattr(type(node), "_tree_leaf", False):
+        return None
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
     if _is_namedtuple(node):

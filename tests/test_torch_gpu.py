@@ -1692,3 +1692,82 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
     on_cpu = restore_tree(before, str(tmp_path), device="cpu")
     assert all(a.device.type == "cpu" and torch.equal(a, b.cpu())
                for a, b in zip(tree.leaves(on_cpu), tree.leaves(before)))
+
+
+# ------------------------------------------------ dist: a world of one rank
+
+@pytest.fixture
+def nccl_one(card, tmp_path):
+    """A one-rank NCCL group on the card (a rendezvous file, no port),
+    destroyed after the test; the (1,) and (1, 1) meshes over it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    yield (card, init_device_mesh("cuda", (1,), mesh_dim_names=("shard",)),
+           init_device_mesh("cuda", (1, 1), mesh_dim_names=("data",
+                                                            "model")))
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_sharded_nn_at_world_one_equals_the_local_search(nccl_one, b):
+    """``MetricIndex(sharded=True)`` over a corpus on the card: no copy,
+    the kNN kernels launched, ids and scores equal the single-device
+    search bit for bit (the same kernels on the same slice)."""
+    from repro_torch.core.metric_index import MetricIndex
+
+    gen, flat, _mesh = nccl_one
+    docs = tc.pad_features(_unit(300_000, DIM, gen=gen), 800)
+    local = MetricIndex(docs, transformed=True, dim=DIM, device="cuda")
+    shard = MetricIndex(docs, transformed=True, dim=DIM, device="cuda",
+                        sharded=True, mesh=flat)
+    assert shard.doc_emb.to_local().data_ptr() == docs.data_ptr()
+    q = _unit(b, DIM, gen=gen)
+    dispatch.reset_counters()
+    got = shard.search(q, 1000)
+    counts = dispatch.counters()
+    assert counts["knn_score"].launches >= 1
+    assert counts["knn_select"].launches >= 1
+    want = local.search(q, 1000)
+    assert torch.equal(got.ids, want.ids)
+    assert torch.equal(got.scores, want.scores)
+
+
+def test_batched_scorer_at_world_one_matches_candidate_index(nccl_one):
+    from repro_torch.dist.retrieval import make_batched_scorer
+
+    gen, _flat, mesh = nccl_one
+    table = torch.randn(1 << 20, 64, generator=gen, device="cuda")
+    q = torch.randn(1, 64, generator=gen, device="cuda")
+    scorer = make_batched_scorer(mesh, k=1000, table_axes=("model",),
+                                 batch_axes=("data",))
+    dispatch.reset_counters()
+    vals, ids = scorer(q, table, n_valid=1_000_000)
+    assert dispatch.counters()["knn_score"].launches >= 1
+    want = rs.candidate_index(table, n_valid=1_000_000,
+                              device="cuda").search(q, 1000)
+    assert_topk_agree(vals, ids, want.scores, want.ids, TOL, "scorer")
+    assert int(ids.max()) < 1_000_000
+
+
+def test_forward_under_rules_at_world_one_equals_plain(nccl_one):
+    from repro_torch.configs import star_encoder
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.api import sharding_rules
+    from repro_torch.models import transformer as tf
+
+    gen, _flat, mesh = nccl_one
+    cfg = star_encoder.smoke_config()
+    params = tf.init_params(cfg, device="cuda", generator=gen)
+    placed = shd.place_tree(params, mesh,
+                            shd.param_specs(params, mesh, min_shard_size=1))
+    tok = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                        device="cuda")
+    with torch.no_grad():
+        with sharding_rules(mesh, shd.lm_activation_rules(mesh, cfg)):
+            got = tf.forward(placed, tok, cfg)[0].full_tensor()
+        want = tf.forward(params, tok, cfg)[0]
+    assert_close(got, want, 1e-6, "forward under rules")

@@ -53,6 +53,21 @@ def test_no_source_imports_repro_or_jax():
     assert (ROOT / "chip_smoke.py").exists()
 
 
+def test_dist_and_launch_modules_are_scanned_and_launcher_is_lean():
+    """The distributed layer is among the modules scanned above, and the
+    launcher a spawned rank imports first needs only torch and the
+    standard library."""
+    mods = _port_modules()
+    for m in ("repro_torch.dist.api", "repro_torch.dist.sharding",
+              "repro_torch.dist.retrieval", "repro_torch.launch.hostdevices"):
+        assert m in mods
+    src = (PORT / "launch" / "hostdevices.py").read_text()
+    tops = {m.group(1).split(".")[0] for m in re.finditer(
+        r"^\s*(?:import|from)\s+([\w.]+)", src, re.M)}
+    assert tops <= {"__future__", "datetime", "os", "queue", "tempfile",
+                    "time", "traceback", "torch"}, tops
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

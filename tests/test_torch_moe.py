@@ -23,6 +23,7 @@ import torch
 
 from repro.models import moe as jmoe
 from repro_torch import convert
+from repro_torch.dist.api import MeshShape
 from repro_torch.models import moe
 
 jax.config.update("jax_platform_name", "cpu")
@@ -223,7 +224,15 @@ def test_config_and_init_mirror_jax(name):
          for k, v in want.items()}
 
 
-def test_moe_ffn_sharded_names_its_roadmap_item():
+def test_moe_ffn_sharded_refuses_what_does_not_split():
+    """The expert-parallel form (held against the JAX one on 4 ranks in
+    ``test_torch_dist_moe.py``) needs the experts to split over "model"
+    and the tokens over the data axes, as the JAX version asserts; it
+    checks both before it touches a tensor or a process group."""
     _jcfg, cfg = _cfgs("deepseek")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        moe.moe_ffn_sharded({}, torch.zeros(8, D), cfg, mesh=None)
+    with pytest.raises(ValueError, match="8 experts do not split"):
+        moe.moe_ffn_sharded({}, torch.zeros(8, D), cfg,
+                            MeshShape(("data", "model"), (1, 3)))
+    with pytest.raises(ValueError, match="9 tokens do not split"):
+        moe.moe_ffn_sharded({}, torch.zeros(9, D), cfg,
+                            MeshShape(("data", "model"), (2, 2)))
