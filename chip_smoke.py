@@ -224,12 +224,28 @@ Run from the repository root.  Phases, each fatal on failure:
      alike by both are held to [lm]'s MoE bar (RMS error within 2e-2 of
      the output's RMS); the share routed differently and the whole RMS
      error are printed; both timed.
+  14. cells  — the 40 cells of ``registry.all_cells()``, each built by
+     ``launch.cells.build_cell`` on a (1, 1) mesh over a world of one NCCL
+     rank of its own and run at full width with seeded random weights and
+     inputs (the cuts: the comment above ``CELL_LM_CUTS``): a train cell's
+     first loss equals ``train.step.make_train_step``'s from the same
+     parameters and batch (rtol 1e-5); a serve, prefill, decode or
+     retrieval output equals the direct model path's within 0 (top-k by
+     ``assert_topk_agree``, scores equal).  Each cell prints its time a
+     call (CUDA events and the host clock), its peak memory above what the
+     card held beside its arguments, its kernel launches (the kNN pair
+     behind every retrieval and seqrec serve, the embedding bag behind the
+     CTR models' serving; none elsewhere), its model flops over the time
+     against the roofline bound of ``launch.dryrun``'s counts, and the
+     dry-run's peak estimate on a (1, 1) fake mesh (traced in host
+     processes while the card works), which must reach half the measured
+     peak.
 
 ``--phases`` runs a subset (``probe,recsys,paper`` also drives the
 parent package, whose entries these phases share, for a comparison in one
 call).  Every path (recsys, lm's encoder session, the encoder's two
 engines, ab, main, the
-cluster build, tiered, chaos, the three paper runs, engine) runs
+cluster build, tiered, chaos, the three paper runs, engine, each cell) runs
 with the kernel
 counters zeroed just before it and read just after; each checks its own
 launch accounting, and the ``launches`` of the kernels line are their sums.
@@ -275,9 +291,19 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100 data sheet's rates and the paths' cost counts
+    from repro_torch.launch.roofline import (BF16_OPS, F32_OPS, HBM_BPS,
+                                             I8_OPS, bound, egnn_costs,
+                                             lm_bound, lm_costs, lm_train_ops,
+                                             recsys_train_ops)
+except ImportError:     # no package beside the script, or no PyTorch:
+    pass                # main() says which and exits 2
 N_CORPUS = 8_841_823          # MS MARCO passages (TREC CAsT 2019 collection)
 N_SMALL = 1_000_000           # corpus of the bf16 / int8 kNN checks
 S, QMAX, DIM_RAW = 64, 64, 768
@@ -286,10 +312,6 @@ PAPER_K = 200                 # Table 1's evaluation depth (MAP@200)
 PAPER_CAP = 12000             # (turns + 2) * k_c, as evaluate_policy sets it
 SCORE_TOL, RHAT_TOL = 1e-5, 1e-4
 DEV = "cuda"
-# H100 SXM data sheet, dense: HBM bytes/s; f32 (CUDA cores) and int8
-# (tensor cores) operations/s
-HBM_BPS, F32_OPS, I8_OPS = 3.35e12, 67e12, 1979e12
-BF16_OPS = 989e12             # bf16 on the tensor cores
 
 SRC = "src/repro_torch/csrc/"
 TPU = "src/repro/kernels/"
@@ -320,7 +342,8 @@ SPREAD_READINGS = 5                # readings of the B = 1 select's time
 # what --phases may select; the default runs them all (the kernels phase is
 # every kernel against its plain version, the knn checks included)
 PHASES = ("kernels", "probe", "recsys", "lm", "seqrec", "egnn", "train",
-          "encoder", "ab", "main", "tiered", "paper", "engine", "dist")
+          "encoder", "ab", "main", "tiered", "paper", "engine", "dist",
+          "cells")
 XDEEPFM_CHUNK = 16_384
 # [tiered]: the L2 tier, the cluster index and the traffic of
 # serve_bench.bench_zipf; [chaos]: bench_chaos at 8 sessions x 10 rounds
@@ -415,13 +438,6 @@ CAND_ROWS, CAND_WIDTH, CAND_VALID = 1 << 20, 64, 1_000_000
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def bound(nbytes: float, ops: float, rate: float):
-    """(least time in ms, what bounds it) for moving ``nbytes`` through
-    device memory and doing ``ops`` at ``rate``."""
-    tb, to = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def timed(torch, fn, reps: int) -> float:
@@ -1650,22 +1666,6 @@ def seqrec_phase(torch, rep: Report):
 
 
 # ------------------------------------------------------------------ egnn
-def egnn_costs(cfg, n_nodes, n_edges, n_out, d_feat):
-    """(bytes, operations) of one forward: ``launch/cells.py``'s message
-    passing count over the edges and nodes this run holds (valid edges
-    only), plus the encoder and the head; the inputs read once (features,
-    coordinates, edge ids) and the outputs written once."""
-    dh = cfg.d_hidden
-    per_edge = 2 * ((2 * dh + 1) * dh + dh * dh + dh * dh + dh)
-    per_node = 2 * (2 * dh * dh + dh * dh)
-    ops = (cfg.n_layers * (n_edges * per_edge + n_nodes * per_node)
-           + 2 * n_nodes * d_feat * dh
-           + 2 * n_out * (dh * dh + dh * cfg.n_classes))
-    nbytes = (n_nodes * (d_feat + 3) * 4 + n_edges * 8
-              + n_out * cfg.n_classes * 4 + n_nodes * 12)
-    return nbytes, ops
-
-
 def egnn_graph(shape, seed):
     """One shape's input on the host: (node_feat, coords, edge_index,
     graph_ids or None, n_graphs or None, host seconds, sampler seconds or
@@ -1971,17 +1971,6 @@ def train_smoke(torch):
         f"largest errors {json.dumps(errs)}")
 
 
-def lm_train_ops(cfg, layer, tokens, b, s):
-    """Operations of one LM train step with remat "full": 6 x the active
-    parameters that enter a product (the head's D x V included, the
-    embedding's gather not) x tokens, the layers' forward again (remat),
-    and attention's QK^T and PV over the whole (s, s) block, 4 times (the
-    forward, the recompute and the backward's two)."""
-    attn = 4 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers
-    head = cfg.d_model * cfg.vocab_size
-    return 6 * (layer + head) * tokens + 2 * layer * tokens + 4 * attn
-
-
 def train_star(torch):
     """STAR at full width through ``train.encoder.train``: TRAIN_STAR_STEPS
     steps (loss falling), then a run killed after TRAIN_RESUME steps and
@@ -2126,29 +2115,6 @@ def train_llama4(torch):
     del state, params, step, batches, wi
     torch.cuda.empty_cache()
     return out
-
-
-def recsys_train_ops(arch, cfg, b) -> float:
-    """Operations of one recsys train step: 3 x the forward's count of
-    ``launch/cells.py``'s ``_recsys_flops`` (forward and backward), 4 x for
-    the seqrec encode (each chunk encoded again in the backward)."""
-    if arch == "dlrm-rm2":
-        mlp = sum(a * o for a, o in zip(cfg.bot_mlp[:-1], cfg.bot_mlp[1:]))
-        tops = [cfg.embed_dim + 27 * 26 // 2, *cfg.top_mlp_hidden]
-        mlp += sum(a * o for a, o in zip(tops[:-1], tops[1:]))
-        return 3 * 2.0 * b * (mlp + 27 * 27 * cfg.embed_dim)
-    if arch == "xdeepfm":
-        m, dd = cfg.n_sparse, cfg.embed_dim
-        cin, h_prev = 0, m
-        for h in cfg.cin_layers:
-            cin += h_prev * m * dd + h * h_prev * m * dd
-            h_prev = h
-        sizes = [m * dd, *cfg.mlp, 1]
-        dnn = sum(a * o for a, o in zip(sizes[:-1], sizes[1:]))
-        return 3 * 2.0 * b * (cin + dnn)
-    d, s = cfg.embed_dim, cfg.max_len
-    per_tok = 4 * d * d + 2 * cfg.d_ff_mult * d * d + 2 * s * d
-    return 4 * 2.0 * b * s * cfg.n_blocks * per_tok
 
 
 def train_recsys(torch, arch):
@@ -4099,65 +4065,6 @@ def encoder_phase(torch, corpus):
 
 
 # ------------------------------------------------------------- LM serving
-def lm_costs(cfg, params, b, s, ctx, kept):
-    """(bf16 operations, f32 operations, bytes) of one forward of ``s`` new
-    tokens a row over ``ctx`` positions (a prefill: s = ctx; a decode step:
-    s = 1) with ``kept`` routed (token, choice) pairs over its MoE layers.  The
-    products count at their operand dtype (attention and the router in f32,
-    as the reference computes them), attention over the causal pairs it
-    needs.  The bytes: every layer weight and the head read once (every
-    expert, as the reference's expert product over all E reads them), the
-    embedding rows, the caches read or written, the logits written."""
-    from repro_torch.models import transformer as tf
-
-    t, d, h = b * s, cfg.d_model, cfg.n_heads
-    pairs = b * (s * (s + 1) // 2 if s == ctx else ctx)
-    bf, f32 = 0, 0
-    if cfg.attention == "mla":
-        m = cfg.mla
-        dn, dr, dv, r = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
-                         m.kv_lora_rank)
-        bf += 2 * t * (d * m.q_lora_rank + m.q_lora_rank * h * (dn + dr)
-                       + d * (r + dr) + h * dv * d)
-        if s == ctx:        # up-projected keys and values, f32 attention
-            bf += 2 * t * r * h * (dn + dv)
-            f32 += 2 * pairs * h * (dn + dr + dv)
-        else:               # absorbed: q_lat in bf16, the rest in f32
-            bf += 2 * t * h * dn * r
-            f32 += 2 * pairs * h * (2 * r + dr) + 2 * t * h * r * dv
-        cache_row = r + dr
-    else:
-        dh, kv = cfg.head_dim, cfg.n_kv_heads
-        bf += 2 * t * d * (h + 2 * kv) * dh + 2 * t * h * dh * d
-        f32 += 2 * pairs * h * 2 * dh
-        cache_row = 2 * kv * dh
-    bf, f32 = bf * cfg.n_layers, f32 * cfg.n_layers
-    for kind, count in cfg.layer_groups():
-        if kind == "moe":
-            mo = cfg.moe
-            fs = mo.d_ff_shared or mo.d_ff * mo.n_shared
-            bf += 2 * 3 * d * (kept * mo.d_ff
-                               + (count * t * fs if mo.n_shared else 0))
-            f32 += count * 2 * t * d * mo.n_experts
-        else:
-            bf += count * 2 * t * 3 * d * cfg.d_ff
-    bf += 2 * t * d * cfg.vocab_size
-    el = cfg.dtype.itemsize
-    weights = sum(v.numel() * v.element_size() for k, tree in params.items()
-                  if k not in ("embed", "mtp") for v in tf._leaves(tree))
-    nbytes = (weights + t * d * el + b * ctx * cache_row * el * cfg.n_layers
-              + t * cfg.vocab_size * el)
-    return bf, f32, nbytes
-
-
-def lm_bound(bf, f32, nbytes):
-    """(ms, what bounds it): the bytes at HBM_BPS against the bf16
-    operations at BF16_OPS plus the f32 ones at F32_OPS."""
-    tb = nbytes / HBM_BPS * 1e3
-    to = (bf / BF16_OPS + f32 / F32_OPS) * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
 def plain_moe(torch, params, x, cfg, capacity):
     """The MoE rule computed apart, for ``moe_ffn``'s check: routing from the
     router's f32 probabilities by a stable numpy argsort and a queue
@@ -4780,6 +4687,583 @@ def dist_moe(torch, mesh):
     del layer, x, want, got
 
 
+# ----------------------------------------------------------------- cells
+# [cells]: the 40 cells of launch.cells, built by build_cell on a world of
+# one NCCL rank over a (1, 1) ("data", "model") mesh and run at full width.
+# An LM keeps one layer of each group kind (deepseek: 1 dense + 1 MoE) and
+# runs at CELL_LM_CUTS' (batch, sequence) (a train batch at least its
+# microbatch count); deepseek's train cell keeps CELL_TRAIN_EXPERTS of its
+# 256 experts (Adafactor's f32 update of one layer's 256 would be 30 GB).
+# CELL_ROWS: cells one card cannot hold whole run their fn over row chunks.
+# Every other cell runs at its full shape.  Calls a cell: CELL_CALLS (a
+# GNN cell trains CELL_CALLS["gnn"] AdamW steps; a recsys cell calls once).
+# Each cell's memory is estimated by launch.dryrun on a (1, 1) fake mesh in
+# CELL_WORKERS host processes, beside the card's work.
+CELL_LM_CUTS = {"train_4k": (8, 512), "prefill_32k": (1, 4096),
+                "decode_32k": (32, 32768), "long_500k": (1, 524288)}
+CELL_TRAIN_EXPERTS = {"deepseek-v3-671b": 32}
+CELL_ROWS = {("xdeepfm", "serve_bulk"): 16_384,      # CIN: 81.8 GB whole
+             ("xdeepfm", "train_batch"): 16_384}     # CIN: 20.4 GB a layer
+CELL_CALLS = {"lm": 2, "gnn": 3, "recsys": 1}
+CELL_LOSS_RTOL, CELL_WORKERS = 1e-5, 6
+
+
+def cell_specs() -> list:
+    """One dict a cell: arch, shape, family, and its cuts (None: whole)."""
+    from repro_torch.configs import registry
+
+    out = []
+    for arch, shape in registry.all_cells():
+        mod = registry.get(arch)
+        spec = {"arch": arch, "shape": shape, "family": mod.FAMILY,
+                "batch": None, "seq": None, "layers": None, "experts": None,
+                "rows": CELL_ROWS.get((arch, shape))}
+        if mod.FAMILY == "lm":
+            b, s = CELL_LM_CUTS[shape]
+            if shape == "train_4k":
+                b = max(b, mod.TRAIN_ACCUM_STEPS)
+                spec["experts"] = CELL_TRAIN_EXPERTS.get(arch)
+            spec.update(batch=b, seq=s,
+                        layers=len(mod.full_config().layer_groups()))
+        elif spec["rows"] is not None:
+            spec["batch"] = spec["rows"]
+        out.append(spec)
+    return out
+
+
+def cell_config(spec):
+    """The config a cut LM cell runs: one layer of each group kind, and
+    its expert cut."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    cfg = registry.get(spec["arch"]).full_config()
+    kw = {"n_layers": spec["layers"],
+          "n_dense_layers": min(cfg.n_dense_layers, 1)}
+    if spec["experts"]:
+        kw["moe"] = cfg.moe._replace(n_experts=spec["experts"])
+    return dataclasses.replace(cfg, **kw)
+
+
+def cell_reduced(spec) -> str:
+    """The cell's cuts, as printed."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import cells
+
+    mod = registry.get(spec["arch"])
+    cuts = []
+    if spec["family"] == "lm":
+        full = mod.full_config()
+        d = cells.LM_SHAPE_DEFS[spec["shape"]]
+        cuts.append(f"layers {full.n_layers} -> {spec['layers']}")
+        if spec["experts"]:
+            cuts.append(f"experts {full.moe.n_experts} -> "
+                        f"{spec['experts']}")
+        if spec["batch"] != d["batch"]:
+            cuts.append(f"batch {d['batch']} -> {spec['batch']}")
+        if spec["seq"] != d["seq"]:
+            cuts.append(f"sequence {d['seq']} -> {spec['seq']}")
+    elif spec["rows"]:
+        total = cells.RECSYS_SHAPE_DEFS[spec["shape"]]["batch"]
+        cuts.append(f"{total} rows in {total // spec['rows']} chunks of "
+                    f"{spec['rows']}" if spec["shape"] != "train_batch"
+                    else f"rows {total} -> {spec['rows']}")
+    return "; ".join(cuts) or "none"
+
+
+def build_spec_cell(spec, mesh):
+    """``launch.cells``' cell with the spec's cuts: its shape table's
+    batch and sequence replaced while it builds."""
+    from repro_torch.launch import cells
+
+    lm = spec["family"] == "lm"
+    if spec["batch"] is None:
+        return cells.build_cell(spec["arch"], spec["shape"], mesh)
+    table = cells.LM_SHAPE_DEFS if lm else cells.RECSYS_SHAPE_DEFS
+    old = table[spec["shape"]]
+    new = dict(old)
+    if spec["batch"] is not None:
+        new["batch"] = spec["batch"]
+    if spec["seq"] is not None:
+        new["seq"] = spec["seq"]
+    table[spec["shape"]] = new
+    try:
+        if lm:
+            return cells.build_lm_cell(spec["arch"], spec["shape"], mesh,
+                                       cfg_override=cell_config(spec))
+        return cells.build_cell(spec["arch"], spec["shape"], mesh)
+    finally:
+        table[spec["shape"]] = old
+
+
+def cell_estimate(spec) -> dict:
+    """The dry-run of one cut cell on a (1, 1) fake CPU mesh (a host
+    process of its own): rank 0's peak live bytes and costs."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import collective_bytes
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        c = dryrun.trace_cell(build_spec_cell(spec,
+                                              make_host_mesh("cpu")))
+    return {"peak": c.peak_bytes, "flops": c.flops, "bytes": c.bytes,
+            "coll": collective_bytes(c.collectives)["total"],
+            "trace_s": time.perf_counter() - t0}
+
+
+def cell_gen(torch, spec, salt=0):
+    """The cell's generator on the card (the same numbers on a rerun)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED * 1_000_003 + zlib.crc32(
+        f"{spec['arch']}@{spec['shape']}@{salt}".encode()))
+    return gen
+
+
+def check_tree(torch, got, want, what):
+    """``got`` (the card's tensors) has ``want``'s (the cell's meta
+    arguments) leaves, shapes and dtypes."""
+    from repro_torch.train import tree
+
+    g, w = tree.leaves_with_path(got), tree.leaves_with_path(want)
+    bad = [(pg, tuple(a.shape), tuple(b.shape)) for (pg, a), (pw, b)
+           in zip(g, w) if pg != pw or a.shape != b.shape
+           or a.dtype != b.dtype]
+    if len(g) != len(w) or bad:
+        raise AssertionError(f"[cells] {what}: arguments differ from the "
+                             f"cell's: {bad[:3]} ({len(g)} vs {len(w)})")
+
+
+def cell_params(torch, spec, cfg, gen):
+    from repro_torch.models import egnn
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tf
+
+    if spec["family"] == "lm":
+        return tf.init_params(cfg, device=DEV, generator=gen)
+    if spec["family"] == "gnn":
+        return egnn.init_params(cfg, device=DEV, generator=gen)
+    init = {"dlrm-rm2": rs.dlrm_init, "xdeepfm": rs.xdeepfm_init}.get(
+        spec["arch"], rs.seqrec_init)
+    return init(cfg, device=DEV, generator=gen)
+
+
+def cell_batch(torch, spec, cfg, shapes, gen):
+    """Seeded inputs on the card for the batch leaves ``shapes`` (the
+    cell's meta tensors, by name)."""
+    out = {}
+    for k, m in shapes.items():
+        if k == "tokens":
+            out[k] = torch.randint(0, cfg.vocab_size, tuple(m.shape),
+                                   generator=gen, device=DEV,
+                                   dtype=torch.int32)
+        elif k == "labels" and spec["family"] == "lm":
+            out[k] = torch.roll(out["tokens"], -1, 1)
+        elif k == "labels":
+            out[k] = torch.randint(0, cfg.n_classes, tuple(m.shape),
+                                   generator=gen, device=DEV,
+                                   dtype=torch.int32)
+        elif k == "edge_index":
+            out[k] = torch.randint(0, shapes["feat"].shape[0],
+                                   tuple(m.shape), generator=gen,
+                                   device=DEV, dtype=torch.int32)
+        elif k == "graph_ids":
+            n = m.shape[0]
+            per = n // registry_shape(spec)["batch"]
+            out[k] = (torch.arange(n, device=DEV) // per).to(torch.int32)
+        elif k == "label":
+            out[k] = torch.randint(0, 2, tuple(m.shape), generator=gen,
+                                   device=DEV).to(torch.float32)
+        elif k in ("sparse",):
+            out[k] = torch.randint(0, cfg.vocab, tuple(m.shape),
+                                   generator=gen, device=DEV,
+                                   dtype=torch.int32)
+        elif k in ("items", "pos", "neg"):
+            t = torch.randint(0, cfg.vocab, tuple(m.shape), generator=gen,
+                              device=DEV, dtype=torch.int32)
+            # sessions of 1..max_len items, left-padded with -1
+            n = torch.randint(1, m.shape[1] + 1, (m.shape[0], 1),
+                              generator=gen, device=DEV)
+            pos = torch.arange(m.shape[1], device=DEV)[None]
+            out[k] = torch.where(pos >= m.shape[1] - n, t, -1)
+        else:
+            out[k] = torch.randn(tuple(m.shape), generator=gen, device=DEV,
+                                 dtype=m.dtype)
+    return out
+
+
+def registry_shape(spec) -> dict:
+    from repro_torch.configs import registry
+    return registry.get(spec["arch"]).SHAPES[spec["shape"]]
+
+
+def storage_bytes(torch, *trees) -> int:
+    """Bytes of the distinct storages of the tensors in ``trees`` (a
+    graph plan's index tensors too)."""
+    from repro_torch.train import tree
+
+    seen = {}
+    for t in trees:
+        for leaf in tree.leaves(t):
+            # a SegmentPlan holds its index tensors as attributes
+            for x in (vars(leaf).values() if hasattr(leaf, "__dict__")
+                      and not isinstance(leaf, torch.Tensor) else [leaf]):
+                if isinstance(x, torch.Tensor):
+                    st = x.untyped_storage()
+                    seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def cell_times(torch, call, calls: int, args):
+    """Run ``call(i)`` for i < calls: the first alone (its peak memory),
+    the rest back to back.  Returns (first result, stream ms and host ms
+    of a call, the mean over calls 2.. (or of the one call), the cell's
+    peak bytes, the bytes held apart from it, launches over every call).
+    The cell's peak is the card's peak less what it held at the start
+    beside the cell's arguments ``args`` (library workspaces, the
+    checks' reference copies), which no dry-run of the cell sees."""
+    from repro_torch.kernels import dispatch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    apart = max(torch.cuda.memory_allocated() - storage_bytes(torch, args),
+                0)
+    dispatch.reset_counters()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    first = call(0)
+    b.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    stream = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated()
+    if calls > 1:
+        t0 = time.perf_counter()
+        a.record()
+        for i in range(1, calls):
+            call(i)
+        b.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / (calls - 1)
+        stream = a.elapsed_time(b) / (calls - 1)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in dispatch.counters().items()
+                if c.launches}
+    return first, stream, host, peak - apart, apart, launches
+
+
+def all_finite(torch, out, what):
+    from repro_torch.train import tree
+    for t in tree.leaves(out):
+        if isinstance(t, torch.Tensor) and t.is_floating_point() and \
+                not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"[cells] {what}: an output is not finite")
+
+
+def cell_train(torch, spec, cell, mesh, cfg):
+    """A train cell: the reference step (``train.step.make_train_step``
+    outside the mesh) from fresh seeded parameters, then the cell's fn
+    from the same parameters on the same batch; first losses within
+    CELL_LOSS_RTOL.  Returns (times, peak, launches, first loss, note)."""
+    import functools
+
+    from repro_torch.configs import registry
+    from repro_torch.dist.api import sharding_rules
+    from repro_torch.launch import cells
+    from repro_torch.models import egnn
+    from repro_torch.train import step as st
+
+    arch, fam = spec["arch"], spec["family"]
+    mod = registry.get(arch)
+    batch = cell_batch(torch, spec, cfg, cell.args[1], cell_gen(torch, spec,
+                                                                1))
+    extra, note = {}, ""
+    if fam == "lm":
+        loss = functools.partial(st.lm_loss_fn, cfg=cfg)
+        accum, accum_dtype = mod.TRAIN_ACCUM_STEPS, mod.ACCUM_DTYPE
+    elif fam == "gnn":
+        geom = registry_shape(spec)
+        t0 = time.perf_counter()
+        plan = egnn.prepare(batch["edge_index"], batch["feat"].shape[0],
+                            batch.get("graph_ids"), geom.get("batch"))
+        extra["plan"] = plan
+        note = (f"; plan of {len(plan.edges.chunks)} edge chunk(s) in "
+                f"{time.perf_counter() - t0:.2f} s")
+        loss = functools.partial(st.egnn_loss_fn, cfg=cfg,
+                                 n_graphs=geom.get("batch"), plan=plan)
+        accum, accum_dtype = 1, torch.float32
+    else:
+        loss = functools.partial(
+            st.seqrec_loss_fn if arch in ("sasrec", "bert4rec")
+            else st.ctr_loss_fn, cfg=cfg)
+        accum, accum_dtype = 1, torch.float32
+
+    def fresh():
+        params = cell_params(torch, spec, cfg, cell_gen(torch, spec))
+        opt = cells.make_optimizer(mod.OPTIMIZER)
+        return {"params": params, "opt": opt.init(params)}, opt
+
+    state, opt = fresh()
+    ref_step = st.make_train_step(loss, opt, accum, accum_dtype)
+    _, m = ref_step(state, batch)
+    ref_loss = float(m["loss"])
+    del state, m, ref_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, _ = fresh()
+    check_tree(torch, state, cell.args[0], f"{arch}@{spec['shape']}")
+    losses = []
+
+    def call(i):
+        nonlocal state
+        with sharding_rules(mesh, cell.rules):
+            state, metrics = cell.fn(state, batch, **extra)
+        losses.append(metrics["loss"])
+        return metrics
+
+    metrics, stream, host, peak, apart, launches = cell_times(
+        torch, call, CELL_CALLS[fam], (state, batch, extra))
+    all_finite(torch, metrics, f"{arch}@{spec['shape']}")
+    losses = [float(x) for x in losses]
+    if not all(map(math.isfinite, losses)) or \
+            abs(losses[0] - ref_loss) > CELL_LOSS_RTOL * abs(ref_loss):
+        raise AssertionError(f"[cells] {arch}@{spec['shape']}: first loss "
+                             f"{losses[0]} != make_train_step's {ref_loss}")
+    note = (f"; loss {losses[0]:.6f} (make_train_step's {ref_loss:.6f})"
+            + (f" -> {losses[-1]:.6f} over {len(losses)} steps"
+               if len(losses) > 1 else "") + note)
+    del state, batch, extra
+    return stream, host, peak, apart, launches, note
+
+
+def cell_serve(torch, spec, cell, mesh, cfg):
+    """A serve / prefill / decode / retrieval cell: fn against the direct
+    model path (no mesh, no rules) on the same inputs, within 0 (top-k by
+    ``assert_topk_agree``).  Returns (times, peak, launches, note)."""
+    from repro_torch.configs import registry
+    from repro_torch.dist.api import sharding_rules
+    from repro_torch.kernels.parity import assert_topk_agree
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tf
+
+    arch, shape, fam = spec["arch"], spec["shape"], spec["family"]
+    what = f"{arch}@{shape}"
+    params = cell_params(torch, spec, cfg, cell_gen(torch, spec))
+    check_tree(torch, params, cell.args[0], what)
+    gen = cell_gen(torch, spec, 1)
+    rows = spec["rows"]
+    note = ""
+    if fam == "lm" and cell.kind == "prefill":
+        tok = cell_batch(torch, spec, cfg, {"tokens": cell.args[1]}, gen)
+        args = [(params, tok["tokens"])]
+
+        def direct(_p, t):
+            logits, _a, _h, caches = tf.forward(
+                params, t, cfg, return_kv=True, kv_len=spec["seq"])
+            return logits, caches
+    elif fam == "lm":
+        b, s = spec["batch"], spec["seq"]
+        caches = tf.init_kv_caches(cfg, b, s, device=DEV)
+        for group in caches:
+            for c in group:
+                c.normal_(0.0, 0.5, generator=gen)
+        token = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                              device=DEV, dtype=torch.int32)
+        ref_caches = [tuple(c.clone() for c in g) for g in caches]
+        cur = torch.tensor(s, dtype=torch.int32)
+        args = [(params, token, caches, cur)]
+        check_tree(torch, caches, cell.args[2], what)
+
+        def direct(_p, t, _c, n):
+            return tf.decode_step(params, t, ref_caches, int(n), cfg)
+    else:
+        names = {"dlrm-rm2": ("dense", "sparse"),
+                 "xdeepfm": ("sparse",)}.get(arch, ("items",))
+        total = cell_total_rows(spec)
+        full = cell_batch(torch, spec, cfg, {
+            k: torch.empty((total,) + tuple(m.shape[1:]), dtype=m.dtype,
+                           device="meta")
+            for k, m in zip(names, cell.args[1:])}, gen)
+        step = rows or total
+        args = [(params, *(full[k][lo:lo + step] for k in names))
+                for lo in range(0, total, step)]
+        if cell.kind == "serve" and arch in ("dlrm-rm2", "xdeepfm"):
+            fwd = rs.dlrm_forward if arch == "dlrm-rm2" else \
+                rs.xdeepfm_forward
+
+            def direct(p, *a):
+                return fwd(p, *a, cfg)
+        else:
+            table = params["item_emb"] if "item_emb" in params \
+                else params["tables"][0]
+            n_valid = None if cell.kind == "serve" else \
+                registry.RECSYS_SHAPES[shape]["n_candidates"]
+            index = rs.candidate_index(table, n_valid=n_valid, device=DEV)
+            k = 100 if cell.kind == "serve" else 1000
+
+            def direct(p, *a):
+                if arch == "dlrm-rm2":
+                    q = rs.dlrm_user_tower(p, *a, cfg)
+                elif arch == "xdeepfm":
+                    q = rs.xdeepfm_user_tower(p, *a, cfg)
+                else:
+                    q = rs.seqrec_session_repr(p, *a, cfg)
+                r = index.search(q, k)
+                return r.scores, r.ids
+    outs = []
+    n_calls = len(args) if rows else CELL_CALLS[fam]
+
+    def call(i):
+        with sharding_rules(mesh, cell.rules):
+            out = cell.fn(*args[i % len(args)])
+        if i < len(args):
+            outs.append(out)
+        return out
+
+    _, stream, host, peak, apart, launches = cell_times(torch, call,
+                                                        n_calls, args)
+    for a, got in zip(args, outs):
+        all_finite(torch, got, what)
+        want = direct(*a)
+        if cell.kind in ("serve", "retrieval") and isinstance(got, tuple):
+            assert_topk_agree(got[0], got[1], want[0], want[1], SCORE_TOL,
+                              f"[cells] {what}")
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"[cells] {what}: scores differ from "
+                                     f"the direct path's")
+        else:
+            from repro_torch.train import tree
+            for g, w in zip(tree.leaves(got), tree.leaves(want)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"[cells] {what}: output differs "
+                                         f"from the direct model path's")
+    if rows:
+        note = f"; {len(args)} chunks, each equal to the direct path's"
+    else:
+        note = "; output equal to the direct model path's"
+    if rows:
+        stream, host = stream * len(args), host * len(args)
+    del args, outs, params
+    return stream, host, peak, apart, launches, note
+
+
+def cell_total_rows(spec) -> int:
+    """A recsys cell's whole batch (before a row cut)."""
+    from repro_torch.configs import registry
+    return registry.RECSYS_SHAPES[spec["shape"]]["batch"]
+
+
+def cells_phase(torch, tmp):
+    """[cells]: every cell on the card (module comment above CELL_LM_CUTS),
+    each checked, timed and beside its dry-run estimate.  Returns
+    {"cells": {kernel: launches}}."""
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.roofline import Roofline
+
+    t_phase = time.perf_counter()
+    specs = cell_specs()
+    pool = mp.get_context("spawn").Pool(CELL_WORKERS)
+    pending = pool.map_async(cell_estimate, specs)
+    _flat, mesh = dist_group(torch, tmp)
+    rows, total = [], {}
+    try:
+        for spec in specs:
+            arch, shape = spec["arch"], spec["shape"]
+            mod = registry.get(arch)
+            if spec["family"] == "lm":
+                cfg = cell_config(spec)
+            elif spec["family"] == "gnn":
+                geom = registry_shape(spec)
+                cfg = mod.full_config(
+                    d_feat=geom["d_feat"],
+                    readout="graph" if geom["kind"] == "batched" else "node")
+            else:
+                cfg = mod.full_config()
+            t0 = time.perf_counter()
+            cell = build_spec_cell(spec, mesh)
+            runner = cell_train if cell.kind == "train" else cell_serve
+            stream, host, peak, apart, launches, note = runner(
+                torch, spec, cell, mesh, cfg)
+            for n, v in launches.items():
+                total[n] = total.get(n, 0) + v
+            # a cell run in row chunks: the whole shape's time and flops
+            chunks = (cell_total_rows(spec) // spec["rows"]
+                      if spec["rows"] and cell.kind == "serve" else 1)
+            rows.append({"cell": f"{arch}@{shape}", "kind": cell.kind,
+                         "reduced": cell_reduced(spec),
+                         "stream_ms": stream, "host_ms": host,
+                         "peak_gb": peak / 1e9, "apart_gb": apart / 1e9,
+                         "model_flops": cell.meta["model_flops"] * chunks,
+                         "chunks": chunks,
+                         "launches": launches,
+                         "wall_s": time.perf_counter() - t0, "note": note})
+            log(f"[cells] {arch}@{shape} ({cell.kind}; reduced: "
+                f"{rows[-1]['reduced']}): {stream:.4f} ms on the stream "
+                f"(CUDA events), {host:.4f} ms on the host clock a call; "
+                f"peak device memory {peak / 1e9:.3f} GB (beside "
+                f"{apart / 1e9:.3f} GB held apart from its arguments); "
+                f"kernel launches {launches}{note}")
+            del cell
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    estimates = pending.get(timeout=900)
+    pool.close()
+    pool.join()
+    for row, est in zip(rows, estimates):
+        # a cell run in row chunks: the dry-run traced one chunk
+        n = row["chunks"]
+        roof = Roofline(flops=est["flops"] * n, hbm_bytes=est["bytes"] * n,
+                        coll_bytes=est["coll"] * n,
+                        model_flops=row["model_flops"], n_devices=1)
+        row.update(est_gb=est["peak"] / 1e9, bound_ms=roof.bound_time * 1e3,
+                   dominant=roof.dominant,
+                   tflops=row["model_flops"] / row["host_ms"] / 1e9,
+                   trace_s=est["trace_s"])
+        log(f"[cells] {row['cell']}: model {row['model_flops']:.4g} flops, "
+            f"{row['tflops']:.4g} TFLOP/s on the host clock; roofline "
+            f"bound {row['bound_ms']:.4f} ms ({row['dominant']}; dry-run "
+            f"flops {est['flops'] * n:.4g}, bytes {est['bytes'] * n:.4g}); "
+            f"dry-run "
+            f"peak estimate {row['est_gb']:.3f} GB beside the measured "
+            f"{row['peak_gb']:.3f} GB (traced in {est['trace_s']:.1f} s)")
+        if est["peak"] < 0.5 * row["peak_gb"] * 1e9:
+            raise AssertionError(f"[cells] {row['cell']}: the dry-run's "
+                                 f"estimate {row['est_gb']:.3f} GB is under "
+                                 f"half the measured peak")
+    for row in rows:
+        # the kernels of each serving path: the kNN pair behind every
+        # retrieval and seqrec serve, the embedding bag behind the CTR
+        # models' pooling
+        arch, need = row["cell"].split("@")[0], ()
+        if row["kind"] == "retrieval" or (row["kind"] == "serve" and arch in
+                                          ("sasrec", "bert4rec")):
+            need = ("knn_score", "knn_select")
+        if row["kind"] in ("serve", "retrieval") and arch in ("dlrm-rm2",
+                                                              "xdeepfm"):
+            need += ("embedding_bag",)
+        if any(not row["launches"].get(n) for n in need):
+            raise AssertionError(f"[cells] {row['cell']}: launches "
+                                 f"{row['launches']}, missing one of {need}")
+    log("[cells] table " + json.dumps(rows))
+    log(f"[cells] {len(rows)} cells; launches {total}; phase in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"cells": total}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4804,7 +5288,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout holding src/repro_torch",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products accumulate in f32, as XLA's do
@@ -4891,6 +5374,12 @@ def main() -> int:
         import torch.distributed as dist
         dist.destroy_process_group()
         shutil.rmtree(dist_tmp, ignore_errors=True)
+    if "cells" in phases:      # last: a world of one of its own
+        gc.collect()
+        torch.cuda.empty_cache()
+        cells_tmp = tempfile.mkdtemp()
+        paths.update(cells_phase(torch, cells_tmp))
+        shutil.rmtree(cells_tmp, ignore_errors=True)
     log(f"[done] phases in {time.perf_counter() - t_start:.1f} s")
     if phases != set(PHASES):
         print(smi)

@@ -1,5 +1,6 @@
 """Architecture registry of the port: ``get(arch)`` for every arch of the
-JAX package's ``repro.configs.registry``.
+JAX package's ``repro.configs.registry``, and its 40 assigned cells
+(``all_cells``).
 
 ``RECSYS_SHAPES`` holds the recsys input shapes, copied from the JAX
 package's ``launch/cells.py`` (``RECSYS_SHAPE_DEFS``).  Each config module
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["PORTED", "RECSYS_SHAPES", "get"]
+__all__ = ["PORTED", "ASSIGNED", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES",
+           "get", "shapes_for", "all_cells"]
 
 PORTED = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
@@ -32,6 +34,14 @@ PORTED = {
     "egnn": "repro_torch.configs.egnn",
 }
 
+# the 40 assigned cells: every arch but the paper's encoder backbone, each
+# at its family's shapes (the JAX package's registry, in its order)
+ASSIGNED = ("deepseek-v3-671b", "llama4-scout-17b-16e", "chatglm3-6b",
+            "mistral-large-123b", "gemma2-9b", "egnn", "bert4rec", "xdeepfm",
+            "dlrm-rm2", "sasrec")
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+
 RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
     "serve_p99": dict(kind="serve", batch=512),
@@ -48,3 +58,14 @@ def get(arch_id: str):
     if arch_id not in PORTED:
         raise KeyError(f"unknown arch {arch_id!r}")
     return importlib.import_module(PORTED[arch_id])
+
+
+def shapes_for(arch_id: str) -> tuple:
+    fam = get(arch_id).FAMILY
+    return {"lm": LM_SHAPES, "gnn": GNN_SHAPES,
+            "recsys": tuple(RECSYS_SHAPES)}[fam]
+
+
+def all_cells() -> list:
+    """The 40 assigned (arch, shape) cells."""
+    return [(a, s) for a in ASSIGNED for s in shapes_for(a)]

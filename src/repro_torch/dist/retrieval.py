@@ -106,9 +106,10 @@ def make_batched_scorer(mesh, k: int, table_axes: Sequence[str] = ("model",),
 
     ``queries`` (B, D) split their rows over ``batch_axes``, ``table``
     (V, D) its rows over ``table_axes``.  Each rank scores and selects its
-    block through ``scan_topk`` (the kNN kernels on the card), rows at or
-    past ``n_valid`` masked (an uneven candidate set in a divisible
-    table), then the partials are all-gathered and merged.  Returns plain
+    block through ``scan_topk`` (the kNN kernels on the card; a block
+    narrower than the kernels' feature tile zero-padded to it, a copy),
+    rows at or past ``n_valid`` masked (an uneven candidate set in a
+    divisible table), then the partials are all-gathered and merged.  Returns plain
     (B, min(k, V)) tensors, the same on every rank; ids are row positions
     in ``table``.
     """
@@ -117,7 +118,10 @@ def make_batched_scorer(mesh, k: int, table_axes: Sequence[str] = ("model",),
     def scorer(queries, table, n_valid: Optional[int] = None):
         kk = min(k, table.shape[0])
         q = _local_rows(queries, mesh, b_axes).to(torch.float32)
+        # the kNN kernels' feature tile: a narrow table (SASRec's 50,
+        # xDeepFM's 10) is scored zero-padded, as candidate_index holds it
         t = _local_rows(table, mesh, t_axes)
+        t = pad_features(t, layout.phys_dim(t.shape[1]))
         idx, count = _block(mesh, t_axes)
         r0 = idx * (-(-table.shape[0] // count))
         ids = torch.arange(r0, r0 + t.shape[0], dtype=torch.int32,

@@ -139,6 +139,7 @@ def _decision(shape, device):
             stats[0].view(torch.float32), stats[1])
 
 
+@dispatch.kernel_extent
 def cache_probe(q_emb: torch.Tensor, psi: torch.Tensor, radius: torch.Tensor,
                 n_queries, epsilon, q_scale: torch.Tensor | None = None,
                 max_queries: int | None = None):
@@ -161,6 +162,7 @@ def cache_probe(q_emb: torch.Tensor, psi: torch.Tensor, radius: torch.Tensor,
     return out
 
 
+@dispatch.kernel_extent
 def cache_probe_batched(q_emb: torch.Tensor, psi: torch.Tensor,
                         radius: torch.Tensor, n_queries: torch.Tensor,
                         epsilon, q_scale: torch.Tensor | None = None,

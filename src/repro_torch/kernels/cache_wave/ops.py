@@ -169,6 +169,7 @@ def _launch(mode, counter, doc_emb, doc_ids, doc_scale, doc_stamp=None,
     return vals, ids, slots
 
 
+@dispatch.kernel_extent
 def wave_query_topk(doc_emb, doc_ids, doc_scale, psi, k: int, rows=None):
     """Per-row top-k over the cached docs.  doc_emb (W, Cp, Dp) — or the
     stacked payload with ``rows`` — doc_ids (W, Cp) with -1 empties,
@@ -197,6 +198,7 @@ def _insert(mode, counter, args, psi=None, k=0, rows=None):
     return None if psi is None else out
 
 
+@dispatch.kernel_extent
 def wave_insert_scatter(doc_emb, doc_ids, doc_stamp, doc_scale, q_emb,
                         q_radius, q_scale, emb_q, emb_scale, new_ids, pos,
                         psi_q, psi_scale, radius, rec, qslot, step,
@@ -211,6 +213,7 @@ def wave_insert_scatter(doc_emb, doc_ids, doc_stamp, doc_scale, q_emb,
              qslot, step), rows=rows)
 
 
+@dispatch.kernel_extent
 def wave_insert_query(doc_emb, doc_ids, doc_stamp, doc_scale, q_emb,
                       q_radius, q_scale, emb_q, emb_scale, new_ids, pos,
                       psi_q, psi_scale, radius, rec, qslot, step, psi,

@@ -14,16 +14,22 @@ Every kernel wrapper owns a ``KernelCounter`` with two plain integers:
 ``calls`` (wrapper entries on any device) and ``launches`` (CUDA launches).
 Router threads call ``DeviceShard`` concurrently, so both are updated under
 a lock.  ``counters()`` lists them by name for tests and ``chip_smoke.py``.
+
+Each public wrapper is decorated with ``kernel_extent``: while it runs,
+``in_kernel()`` is true on its thread.  ``kernels/op_trace`` leaves the
+ops inside that extent out of a trace (on the CPU the plain version runs
+there), as the JAX package's jaxpr walk skips a ``pallas_call``'s body.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
 
 __all__ = ["resolve_device", "is_kernel", "KernelCounter", "counter",
-           "counters", "reset_counters"]
+           "counters", "reset_counters", "kernel_extent", "in_kernel"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -84,3 +90,27 @@ def counters() -> dict[str, KernelCounter]:
 def reset_counters() -> None:
     for c in counters().values():
         c.reset()
+
+
+class _Extent(threading.local):
+    depth = 0
+
+
+_EXTENT = _Extent()
+
+
+def kernel_extent(fn):
+    """Mark ``fn`` (a kernel wrapper) as a kernel's extent."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        _EXTENT.depth += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _EXTENT.depth -= 1
+    return wrapper
+
+
+def in_kernel() -> bool:
+    """True inside a kernel wrapper on this thread."""
+    return _EXTENT.depth > 0

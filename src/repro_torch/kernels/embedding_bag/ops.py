@@ -58,6 +58,7 @@ def _validate(table, indices, weights, mode):
                          f"{tuple(weights.shape)} on {weights.device}")
 
 
+@dispatch.kernel_extent
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   weights: torch.Tensor | None = None,
                   mode: str = "sum") -> torch.Tensor:

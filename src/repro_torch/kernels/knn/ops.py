@@ -129,6 +129,7 @@ def _check_aligned(t, name):
                          f"tensor starts at a {t.data_ptr() % 16}-byte offset")
 
 
+@dispatch.kernel_extent
 def knn_score(docs, doc_ids, queries, scale=None, q_scale=None):
     """Masked (B, N) f32 scores; ``q_scale`` given means int8-dot queries."""
     b = queries.shape[0]
@@ -229,6 +230,7 @@ def two_stage_rows(n: int, tile_n: int, k_eff: int, k: int) -> int:
     return chunk_rows(n, row)
 
 
+@dispatch.kernel_extent
 def knn_select(scores, doc_ids, k: int):
     """Stable top-k of (B, N) scores, any 1 <= k <= N: (vals (B, k) f32,
     ids (B, k) int32)."""
@@ -258,6 +260,7 @@ def knn_select(scores, doc_ids, k: int):
     return vals, ids
 
 
+@dispatch.kernel_extent
 def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
                   scale=None, q_scale=None, gemv: bool | None = None):
     """Per-tile stable top ``k_eff`` of the masked scores, the corpus read
@@ -305,6 +308,7 @@ def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
     return vals.permute(1, 0, 2), pos.permute(1, 0, 2)
 
 
+@dispatch.kernel_extent
 def knn_tile_select(scores, k_eff: int, tile_n: int):
     """The kept pair's select on (B, N) f32 scores already computed (the
     launch it counts): (vals, positions), each the (tiles, B, k_eff) view
@@ -346,6 +350,7 @@ def merge_tiles(vals, pos, doc_ids, k: int):
     return top_s, top_i
 
 
+@dispatch.kernel_extent
 def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
                queries: torch.Tensor, k: int,
                scale: torch.Tensor | None = None,

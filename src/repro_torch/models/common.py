@@ -142,8 +142,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
     if g > 1:             # jnp.repeat(x, g, axis=2): heads h*g..h*g+g-1 <- h
-        kf = kf.repeat_interleave(g, dim=2)
-        vf = vf.repeat_interleave(g, dim=2)
+        # laid out as the query heads, so that a head-sharded gradient
+        # comes back to the KV layout before the repeat's backward
+        kf = constrain(kf.repeat_interleave(g, dim=2), "act_bshd")
+        vf = constrain(vf.repeat_interleave(g, dim=2), "act_bshd")
 
     outs = []
     for qi in range(nq):
@@ -225,9 +227,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     labels = torch.as_tensor(labels, device=logits.device)
-    ll = torch.gather(logits, -1,
-                      labels.clamp(min=0).long()[..., None])[..., 0]
-    nll = lse - ll
+    ll = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])
+    # the trailing dim dropped after the subtraction: a DTensor gather over
+    # a vocab-sharded dim leaves a pending reduction masked by that shape
+    nll = (lse[..., None] - ll)[..., 0]
     if z_loss:
         nll = nll + z_loss * lse ** 2
     mask = labels >= 0

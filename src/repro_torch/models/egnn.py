@@ -20,11 +20,17 @@ alone is 31.9 GB.  The JAX package shards edges across devices instead.
 
 Training differentiates the forward as it is: the plan's sums write each
 row to its own position of a fresh buffer and add it in (``index_put``),
-which autograd takes.  ``forward(remat=True)`` checkpoints each layer
-(``torch.utils.checkpoint``: a layer keeps its inputs and is recomputed in
-the backward), the JAX package's ``jax.checkpoint`` per layer.  On the
-card the backward of the gathers at edge endpoints adds with float
-atomics, so a gradient's last bits change from run to run.
+which autograd takes.  ``forward(remat=True)`` checkpoints each edge chunk
+of each layer (``torch.utils.checkpoint``, non-reentrant): the chunk's
+gathers, ``dx``, ``dist2``, phi_e, phi_x and the (rows, d + 3) values it
+hands to the plan are recomputed in the backward, so a layer keeps only
+its node-level tensors and its sums.  The JAX package checkpoints whole
+layers (``jax.checkpoint``) and shards the edges over devices; on one card
+at ``ogb_products`` one layer's edge activations alone are over 60 GB.
+The recompute replays the same operations into the same autograd graph,
+so the values and gradients equal the plain forward's.  On the card the
+backward of the gathers at edge endpoints adds with float atomics, so a
+gradient's last bits change from run to run.
 
 The products are plain ``torch`` calls (XLA's in the JAX package), float32
 with TF32 off.  The JAX package has no TPU kernel here, so neither has the
@@ -187,32 +193,45 @@ def prepare(edge_index, n_nodes: int, graph_ids=None,
     return GraphPlan(edges, graphs)
 
 
+def _edge_values(p: dict, h: torch.Tensor, x: torch.Tensor,
+                 src: torch.Tensor, dst: torch.Tensor,
+                 edge_attr: Optional[torch.Tensor], e: torch.Tensor):
+    """One edge chunk's (rows, d + 3) values: the message m beside the
+    coordinate term dx * phi_x(m), for the edges ``e`` (in plan order)."""
+    s, t = src[e].long(), dst[e].long()
+    dx = x[s] - x[t]                                        # (Ec, 3)
+    dist2 = torch.sum(dx * dx, dim=-1, keepdim=True)
+    feats = [h[s], h[t], dist2]
+    if edge_attr is not None:
+        feats.append(edge_attr[e])
+    m = constrain(_mlp(p["phi_e"], torch.cat(feats, dim=-1), last_act=True),
+                  "edges")
+    # equivariant: x_t += C * sum_j dx_ij * phi_x(m_ij)
+    coef = torch.clamp(_mlp(p["phi_x"], m), -100.0, 100.0)
+    return torch.cat([m, dx * coef], dim=-1)
+
+
 def egnn_layer(p: dict, h: torch.Tensor, x: torch.Tensor,
                edge_index: torch.Tensor, edge_attr: Optional[torch.Tensor],
                n_nodes: int, residual: bool = True, *,
-               plan: Optional[SegmentPlan] = None):
+               plan: Optional[SegmentPlan] = None, remat: bool = False):
     """h (N, d); x (N, 3); edge_index (2, E) [src, dst] (dst aggregates;
     src < 0 marks a padded edge).  ``plan``: the edges' ``SegmentPlan``
-    (None: built here).  Returns (h_new, x_new)."""
+    (None: built here).  ``remat``: each edge chunk's work is checkpointed
+    while autograd records.  Returns (h_new, x_new)."""
     if plan is None:
         plan = prepare(edge_index, n_nodes).edges
     src, dst = edge_index[0], edge_index[1]
     d = h.shape[1]
+    values = functools.partial(_edge_values, p, src=src, dst=dst,
+                               edge_attr=edge_attr)
+    if remat and torch.is_grad_enabled():
+        values = functools.partial(ckpt.checkpoint, values,
+                                   use_reentrant=False)
     # the message sums (N, d) and the coordinate sums (N, 3), side by side
     agg = h.new_zeros((n_nodes, d + x.shape[1]))
     for i, (lo, hi, *_) in enumerate(plan.chunks):
-        e = plan.rows[lo:hi]
-        s, t = src[e].long(), dst[e].long()
-        dx = x[s] - x[t]                                    # (Ec, 3)
-        dist2 = torch.sum(dx * dx, dim=-1, keepdim=True)
-        feats = [h[s], h[t], dist2]
-        if edge_attr is not None:
-            feats.append(edge_attr[e])
-        m = constrain(_mlp(p["phi_e"], torch.cat(feats, dim=-1),
-                           last_act=True), "edges")
-        # equivariant: x_t += C * sum_j dx_ij * phi_x(m_ij)
-        coef = torch.clamp(_mlp(p["phi_x"], m), -100.0, 100.0)
-        plan.add(agg, i, torch.cat([m, dx * coef], dim=-1))
+        plan.add(agg, i, values(h, x, e=plan.rows[lo:hi]))
     deg = plan.counts.to(x.dtype)
     x_new = x + agg[:, d:] / torch.clamp(deg, min=1.0)[:, None]
     m_agg = constrain(agg[:, :d], "nodes")
@@ -228,7 +247,7 @@ def forward(params: dict, node_feat, coords, edge_index, cfg: EGNNConfig,
     """Returns (logits, coords_out): logits (N, C) node-level or (G, C).
     Inputs (tensors or arrays) go to the parameters' device; ``plan``
     (None: built here, ``prepare``) is the graph's.  ``remat``
-    checkpoints each layer while autograd records."""
+    checkpoints each layer's edge chunks while autograd records."""
     dev = params["encoder"][0]["w"].device
     node_feat, coords, edge_index = (torch.as_tensor(a, device=dev)
                                      for a in (node_feat, coords, edge_index))
@@ -244,13 +263,8 @@ def forward(params: dict, node_feat, coords, edge_index, cfg: EGNNConfig,
     h = constrain(_mlp(params["encoder"], node_feat.to(cfg.dtype)), "nodes")
     x = coords.to(cfg.dtype)
     for p in params["layers"]:
-        layer = functools.partial(egnn_layer, p, edge_index=edge_index,
-                                  edge_attr=edge_attr, n_nodes=n,
-                                  residual=cfg.residual, plan=plan.edges)
-        if remat and torch.is_grad_enabled():
-            h, x = ckpt.checkpoint(layer, h, x, use_reentrant=False)
-        else:
-            h, x = layer(h, x)
+        h, x = egnn_layer(p, h, x, edge_index, edge_attr, n, cfg.residual,
+                          plan=plan.edges, remat=remat)
         h = constrain(h, "nodes")
     if cfg.readout == "graph":
         cnt = plan.graphs.counts.to(h.dtype)

@@ -135,7 +135,7 @@ def _aux_and_positions(probs: torch.Tensor, flat: torch.Tensor,
     e = cfg.n_experts
     # integer counts, exact in any order (bincount would wait for the card)
     counts = torch.zeros(e, dtype=flat.dtype, device=flat.device) \
-        .scatter_add_(0, flat, torch.ones_like(flat))
+        .scatter_add(0, flat, torch.ones_like(flat))
     ce = counts.to(torch.float32) / flat.numel()
     aux = cfg.aux_loss_weight * e * torch.sum(probs.mean(dim=0) * ce)
     # the JAX package's cumsum over a (T*K, E) one-hot, computed by a

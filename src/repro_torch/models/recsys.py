@@ -54,7 +54,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core import layout
 from repro_torch.core.cache_ops import pad_features
 from repro_torch.core.metric_index import MetricIndex
-from repro_torch.dist.api import constrain
+from repro_torch.dist.api import constrain, is_dtensor
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.models import common as cm
@@ -135,7 +135,8 @@ def _mlp(layers, x, final_act=False):
     for i, layer in enumerate(layers):
         x = torch.addmm(layer["b"], x, layer["w"])          # x @ w + b
         if i < len(layers) - 1 or final_act:
-            x = torch.relu_(x)
+            # out of place: a DTensor product may be a pending sum
+            x = torch.relu(x)
     return x
 
 
@@ -328,8 +329,14 @@ def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     sums the rows of each id in parallel: a quarter of a train batch's
     positions are pads, all reading row 0, and indexing's backward
     (``index_put_`` with accumulate) adds such a run one row at a time
-    (1.15 s of a 1.36 s SASRec step at 65,536 rows on the H100)."""
-    return torch.nn.functional.embedding(ids.clamp(min=0).long(), table)
+    (1.15 s of a 1.36 s SASRec step at 65,536 rows on the H100).  A
+    ``DTensor`` table is indexed: DTensor's vocab-parallel embedding keeps
+    one mask a gather, which a second use of the rows (the backward)
+    finds spent."""
+    ids = ids.clamp(min=0).long()
+    if is_dtensor(table):
+        return table[ids]
+    return torch.nn.functional.embedding(ids, table)
 
 
 def _encode(params: dict, items: torch.Tensor, cfg: SeqRecConfig):
@@ -399,6 +406,13 @@ def seqrec_score_candidates(params: dict, session: torch.Tensor,
     return session @ table.T
 
 
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log(sigmoid(x)) = min(x, 0) - log1p(exp(-|x|)), from pointwise ops
+    that a ``DTensor`` differentiates (it has no rule for
+    ``log_sigmoid_backward``)."""
+    return torch.clamp(x, max=0) - torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def seqrec_bce_loss(params: dict, items: torch.Tensor, pos: torch.Tensor,
                     neg: torch.Tensor, cfg: SeqRecConfig) -> torch.Tensor:
     """SASRec-style BCE, one positive and one sampled negative per
@@ -408,8 +422,7 @@ def seqrec_bce_loss(params: dict, items: torch.Tensor, pos: torch.Tensor,
     emb = params["item_emb"]
     s_pos = (hidden * _rows(emb, pos)).sum(dim=-1)
     s_neg = (hidden * _rows(emb, neg)).sum(dim=-1)
-    nls = torch.nn.functional.logsigmoid
-    loss = -(nls(s_pos) + nls(-s_neg))
+    loss = -(_log_sigmoid(s_pos) + _log_sigmoid(-s_neg))
     return (loss * valid).sum() / valid.sum().clamp(min=1)
 
 

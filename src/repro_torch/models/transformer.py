@@ -58,8 +58,8 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.dist.api import active_mesh, axis_sizes, constrain, \
-    data_axes
+from repro_torch.dist.api import active_mesh, active_rules, axis_sizes, \
+    constrain, data_axes, fit_spec, is_dtensor, to_placements
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn, \
@@ -282,8 +282,42 @@ def _rope(cfg: TransformerConfig, positions: torch.Tensor):
 
 def _write(cache: torch.Tensor, new: torch.Tensor, cur_len: int) -> None:
     """The new token's entry at position cur_len - 1 of a (B, Smax, ...)
-    cache, in place."""
-    cache[:, cur_len - 1:cur_len] = new
+    cache, in place.  A ``DTensor`` cache is written block by block: the
+    rank whose block of positions holds cur_len - 1 writes it there (a
+    sequence-sharded cache cannot take a sliced copy)."""
+    if not is_dtensor(cache):
+        cache[:, cur_len - 1:cur_len] = new
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = cache.device_mesh, list(cache.placements)
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * len(pl),
+                                 run_check=False)
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                          pl)
+    pos = cur_len - 1 - offset[1]
+    row = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in pl]).to_local()
+    if 0 <= pos < shape[1]:
+        cache.to_local()[:, pos:pos + 1] = row
+
+
+def _heads(t: torch.Tensor, n: int, dh: int, name: str) -> torch.Tensor:
+    """(b, s, n * dh) -> (b, s, n, dh).  A ``DTensor`` is first laid out
+    as the rule ``name`` lays out the heads: its flat dim cannot be split
+    in place where it is sharded over more ranks than the heads divide
+    (40 heads over a model axis of 16; GSPMD pads such a split)."""
+    b, s, _ = t.shape
+    spec = active_rules().get(name)
+    if spec is not None and is_dtensor(t):
+        mesh = active_mesh()
+        heads = fit_spec(spec, (b, s, n, dh), mesh)
+        if heads is not None:
+            t = t.redistribute(mesh, to_placements(
+                fit_spec(heads[:3], tuple(t.shape), mesh), mesh))
+    return t.view(b, s, n, dh)
 
 
 def _attn_gqa(p: dict, x: torch.Tensor, rope, window: int,
@@ -294,9 +328,9 @@ def _attn_gqa(p: dict, x: torch.Tensor, rope, window: int,
     keys and values (prefill) or the updated cache."""
     b, s, _d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).view(b, s, h, dh)
-    k = (x @ p["wk"]).view(b, s, kv, dh)
-    v = (x @ p["wv"]).view(b, s, kv, dh)
+    q = _heads(x @ p["wq"], h, dh, "act_bshd")
+    k = _heads(x @ p["wk"], kv, dh, "act_bskd")
+    v = _heads(x @ p["wv"], kv, dh, "act_bskd")
     q = constrain(cm.rotate(q, *rope, cfg.rope_interleaved), "act_bshd")
     k = constrain(cm.rotate(k, *rope, cfg.rope_interleaved), "act_bskd")
     v = constrain(v, "act_bskd")
@@ -304,7 +338,10 @@ def _attn_gqa(p: dict, x: torch.Tensor, rope, window: int,
         k_cache, v_cache = cache
         _write(k_cache, k, cur_len)
         _write(v_cache, v, cur_len)
-        o = cm.decode_attention(q, constrain(k_cache, "kv_cache"),
+        # the query's heads laid out as the cache's KV heads (each group
+        # of H / KV query heads reads one)
+        o = cm.decode_attention(constrain(q, "act_bskd"),
+                                constrain(k_cache, "kv_cache"),
                                 constrain(v_cache, "kv_cache"), cur_len,
                                 window=window, logit_cap=cfg.attn_softcap)
         new = cache
@@ -425,7 +462,7 @@ def _block(p: dict, x: torch.Tensor, rope, window: int,
         # every (batch, position) row is a token to the router, pads too
         b, s, d = f_in.shape
         f_out, aux = _moe(p["ffn"], f_in.reshape(b * s, d), cfg.moe)
-        f_out = f_out.view(b, s, d)
+        f_out = constrain(f_out, "moe_out").view(b, s, d)
     else:
         f_out = _dense_ffn(p["ffn"], f_in)
     if cfg.use_post_norm:

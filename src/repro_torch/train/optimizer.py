@@ -39,7 +39,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.dist.api import P
+from repro_torch.dist.api import P, is_dtensor
 from repro_torch.train import tree
 
 __all__ = ["OptState", "Optimizer", "adamw", "adafactor", "global_norm",
@@ -196,7 +196,9 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
             if gen is None:
                 # one stream per (seed, step), drawn leaf by leaf and
                 # slice by slice in JAX order: a resumed run draws alike
-                gen = torch.Generator(device=p.device)
+                # (a data-free meta tensor draws from a host generator)
+                dev = "cpu" if p.device.type == "meta" else p.device
+                gen = torch.Generator(device=dev)
                 gen.manual_seed(seed * 1_000_003 + int(step))
             return gen
 
@@ -230,7 +232,11 @@ def _stochastic_round_bf16(x32: torch.Tensor,
     bits = x32.view(torch.int32)
     noise = torch.randint(0, 1 << 16, x32.shape, generator=generator,
                           dtype=torch.int32, device=x32.device)
-    noise.add_(bits).bitwise_and_(-65536)
+    if is_dtensor(bits):
+        noise = bits + noise        # the sum in the DTensor's layout
+    else:
+        noise.add_(bits)
+    noise.bitwise_and_(-65536)
     return noise.view(F32).to(torch.bfloat16)
 
 

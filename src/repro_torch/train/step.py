@@ -21,7 +21,9 @@ there.  The update writes the parameters and moments in place (see
 structure, for parameters that are ``DTensor``s) pins the accumulator and
 each microbatch's gradients to those layouts before they are added, as
 the JAX step's ``with_sharding_constraint`` keeps them reduce-scattered
-onto the parameters' shardings; None leaves them as autograd gives them.
+onto the parameters' shardings (a plain tensor's gradient stays as it
+is); None pins a ``DTensor`` parameter's gradients to its own layout
+(autograd gives a replicated parameter's gradient as a pending sum).
 ``unroll_accum`` (an XLA knob) has no counterpart and is left out.
 """
 
@@ -32,6 +34,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.dist.api import is_dtensor
 from repro_torch.models import common as cm
 from repro_torch.models import egnn
 from repro_torch.models import recsys as rs
@@ -78,18 +81,24 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     ``train_step(state, batch) -> (state, metrics)``."""
     grad_fn = value_and_grad(loss_fn)
 
-    def pin(t):
-        # the accumulation's operands on the parameters' layouts
-        if grad_shardings is None:
-            return t
-        return tree.map(lambda g, s: g.redistribute(s.mesh, s.placements),
-                        t, grad_shardings)
+    def pin(t, params):
+        # the gradients on the parameters' layouts (``grad_shardings``, or
+        # each DTensor parameter's own: a replicated parameter's gradient
+        # comes back a pending sum); a plain tensor is the whole value on
+        # every rank, as under ``constrain``
+        if grad_shardings is not None:
+            return tree.map(lambda g, s: g.redistribute(s.mesh, s.placements)
+                            if is_dtensor(g) else g, t, grad_shardings)
+        return tree.map(lambda g, p: g.redistribute(p.device_mesh,
+                                                    p.placements)
+                        if is_dtensor(g) and is_dtensor(p) else g, t, params)
 
     def train_step(state, batch):
         params = state["params"]
         batch = _to_device(batch, tree.leaves(params)[0].device)
         if accum_steps == 1:
             (loss, metrics), grads = grad_fn(params, batch)
+            grads = pin(grads, params)
         else:
             def micro(i):
                 def rows(x):
@@ -102,13 +111,13 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
             with torch.no_grad():
                 acc = pin(tree.map(lambda p: (p * 0).to(accum_dtype),
-                                   params))
+                                   params), params)
             losses, metricses = [], []
             for i in range(accum_steps):
                 (l, m), g = grad_fn(params, micro(i))
                 with torch.no_grad():
                     tree.map(lambda a, b: a.add_(b.to(accum_dtype)), acc,
-                             pin(g))
+                             pin(g, params))
                 del g
                 losses.append(l)
                 metricses.append(m)
@@ -188,7 +197,7 @@ def egnn_loss_fn(params, batch, cfg: egnn.EGNNConfig,
                  plan: Optional[egnn.GraphPlan] = None):
     """EGNN (``feat``, ``coords``, ``edge_index``, ``labels``, and
     ``graph_ids`` for a graph readout): the CE of the logits over the
-    labels (< 0 masked), each layer checkpointed as the JAX forward's."""
+    labels (< 0 masked), each layer's edge chunks checkpointed."""
     logits, _ = egnn.forward(params, batch["feat"], batch["coords"],
                              batch["edge_index"], cfg,
                              graph_ids=batch.get("graph_ids"),

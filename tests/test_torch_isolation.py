@@ -54,12 +54,16 @@ def test_no_source_imports_repro_or_jax():
 
 
 def test_dist_and_launch_modules_are_scanned_and_launcher_is_lean():
-    """The distributed layer is among the modules scanned above, and the
-    launcher a spawned rank imports first needs only torch and the
-    standard library."""
+    """The distributed and launch layers and the op trace are among the
+    modules scanned above, and the launcher a spawned rank imports first
+    needs only torch and the standard library."""
     mods = _port_modules()
     for m in ("repro_torch.dist.api", "repro_torch.dist.sharding",
-              "repro_torch.dist.retrieval", "repro_torch.launch.hostdevices"):
+              "repro_torch.dist.retrieval", "repro_torch.launch.hostdevices",
+              "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+              "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+              "repro_torch.launch.calibrate",
+              "repro_torch.kernels.op_trace"):
         assert m in mods
     src = (PORT / "launch" / "hostdevices.py").read_text()
     tops = {m.group(1).split(".")[0] for m in re.finditer(
