@@ -2893,9 +2893,9 @@ def main_phase(torch, corpus, streams):
         f"hit rate {engine.hit_rate():.4f} (turns 2-10 of the conversations "
         f"alone: {np.mean(conv):.4f}); tiers {engine.tier_counts()}")
     log("[main] telemetry (s) " + json.dumps(
-        {"turn": summ["spans"]["total_s"], "tiers": summ["tiers"],
-         "wave_size": summ["wave_size"],
-         "wave_service": summ["wave_service_s"]}))
+        {"turn": summ["turn_total_s"], "waves": summ["waves"],
+         "spans": {n: v for n, v in summ["spans"].items()
+                   if not n.startswith("serve.sync.")}}))
     log(f"[main] peak device memory over the serve {serve_peak / 1e9:.2f} "
         f"GB (the run's peak before it: {before / 1e9:.2f} GB; after it, "
         f"with the exact check of the miss turns: "

@@ -106,11 +106,22 @@ class BatchedMetricCache:
         self.device = self.state.doc_ids.device
         self.total_dropped = 0
 
-    def _idx(self, sessions, dtype=np.int64) -> torch.Tensor:
+    def check(self, sessions, dtype=np.int64) -> np.ndarray:
+        """``sessions`` as a host index array, checked against the slots."""
         idx = np.asarray(sessions, dtype)
         if idx.size and (idx.min() < 0 or idx.max() >= self.n_sessions):
             raise IndexError(f"sessions {idx} outside [0, {self.n_sessions})")
-        return torch.as_tensor(idx, device=self.device)
+        return idx
+
+    def _idx(self, sessions, dtype=np.int64) -> torch.Tensor:
+        """A device index of ``sessions``: an index tensor already on the
+        device is taken as is (its caller checked and copied it)."""
+        if isinstance(sessions, torch.Tensor) and \
+                sessions.device == self.device:
+            return sessions.to(torch.int32 if dtype == np.int32
+                               else torch.int64)
+        return torch.as_tensor(self.check(sessions, dtype),
+                               device=self.device)
 
     def wave_rows(self, sessions) -> torch.Tensor:
         """The sessions' int32 payload rows: the cache ops' ``rows``."""
@@ -175,7 +186,8 @@ class BatchedMetricCache:
 
     def scatter(self, sessions, sub: CacheState, rows=None):
         """Write a wave's updated sub-state back, in place: its rows
-        ``rows`` (all by default) to the given sessions.  A payload that
+        ``rows`` (all by default; host or device indices) to the given
+        sessions.  A payload that
         ``sub`` shares with the stacked state was written in place.  The
         sessions must be distinct: with a repeated index the card keeps an
         unspecified one of its rows."""

@@ -250,12 +250,15 @@ def probe_batched(state: CacheState, psi: torch.Tensor, epsilon,
 def _apply_query_touch(state: CacheState, ids: torch.Tensor,
                        slots: torch.Tensor) -> None:
     """The query's state update: stamp the returned REAL docs with the
-    row's step (empty-slot answers are not touched), then bump step."""
-    rows = torch.arange(ids.shape[0], device=ids.device)[:, None] \
-        .expand_as(ids)
-    live = ids >= 0
-    r = rows[live]
-    state.doc_stamp[r, slots[live].long()] = state.step[r]
+    row's step (empty-slot answers are not touched), then bump step.  The
+    touched slots are marked by a scatter of counts rather than found with
+    a mask, which would wait for the device."""
+    touched = torch.zeros(state.doc_stamp.shape, dtype=torch.int32,
+                          device=ids.device)
+    touched.scatter_add_(1, slots.long().clamp(0, touched.shape[1] - 1),
+                         (ids >= 0).to(torch.int32))
+    state.doc_stamp.copy_(torch.where(touched > 0, state.step[:, None],
+                                      state.doc_stamp))
     state.step.add_(1)
 
 

@@ -35,6 +35,12 @@ from repro_torch.core.cache_ops import pad_features
 from repro_torch.core.metric_index import SearchResult, _as_result, scan_topk
 from repro_torch.dist.api import active_mesh, axis_sizes, mesh_device
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.serve.telemetry import SPANS, sync_site
+
+_SCAN = SPANS.kind("serve.scan")
+_SHARD_QUERIES = sync_site("shard_queries")
+_SHARD_SCORES = sync_site("shard_scores")
+_SHARD_IDS = sync_site("shard_ids")
 
 __all__ = ["make_batched_scorer", "sharded_nn", "shard_corpus", "ShardTopK",
            "DeviceShard", "make_device_shards"]
@@ -282,13 +288,15 @@ class DeviceShard:
         self.n_docs = int(docs.shape[0])
 
     def __call__(self, queries, k: int) -> ShardTopK:
-        q = torch.as_tensor(np.asarray(queries, np.float32),
-                            device=self.device)
-        if q.ndim == 1:
-            q = q[None]
-        scores, ids = scan_topk(self.docs, self.doc_ids, q, int(k),
-                                scale=self.scale, int8_dot=self.int8_dot)
-        return ShardTopK(scores.cpu().numpy(), ids.cpu().numpy())
+        with _SCAN:
+            q = _SHARD_QUERIES.device(np.asarray(queries, np.float32),
+                                      self.device)
+            if q.ndim == 1:
+                q = q[None]
+            scores, ids = scan_topk(self.docs, self.doc_ids, q, int(k),
+                                    scale=self.scale, int8_dot=self.int8_dot)
+            return ShardTopK(_SHARD_SCORES.host(scores),
+                             _SHARD_IDS.host(ids))
 
 
 def make_device_shards(docs, doc_ids=None, *, devices=None,

@@ -58,6 +58,13 @@ from repro_torch.dist.api import constrain, is_dtensor
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.models import common as cm
+from repro_torch.serve.telemetry import SPANS, sync_site
+
+# a retrieval request's spans (see serve.telemetry): the history encoder,
+# the index scan, and the copy of the histories to the card
+_ENCODE = SPANS.kind("serve.encode")
+_SCAN = SPANS.kind("serve.scan")
+_ITEMS = sync_site("items")
 
 __all__ = ["flatten_fields", "field_pool", "DLRMConfig", "dlrm_init",
            "dlrm_interact", "dlrm_forward", "dlrm_user_tower",
@@ -559,7 +566,8 @@ class SeqRec(_Recsys):
         return seqrec_encode(self.params, self._put(items), self.cfg)
 
     def session_repr(self, items) -> torch.Tensor:
-        return seqrec_session_repr(self.params, self._put(items), self.cfg)
+        items = _ITEMS.device(items, next(self.parameters()).device)
+        return seqrec_session_repr(self.params, items, self.cfg)
 
     def score_candidates(self, session, cand_ids=None) -> torch.Tensor:
         return seqrec_score_candidates(self.params, self._put(session),
@@ -585,5 +593,9 @@ class SeqRec(_Recsys):
     def retrieve(self, items, k: int, n_valid: Optional[int] = None):
         """(scores (B, k) descending, ids (B, k) item rows) of each
         session's top-k items."""
-        res = self.index(n_valid).search(self.session_repr(items), k)
+        req = SPANS.new_id()
+        with _ENCODE.of(req):
+            q = self.session_repr(items)
+        with _SCAN.of(req):
+            res = self.index(n_valid).search(q, k)
         return res.scores, res.ids

@@ -48,6 +48,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.serve.telemetry import SPANS
+
 __all__ = ["ShardAnswer", "RouterStats", "CircuitBreaker", "ShardedRouter",
            "AnswerValidationError", "validate_answer"]
 
@@ -215,6 +217,10 @@ class CircuitBreaker:
                 self._transition("open")
 
 
+_SEARCH = SPANS.kind("serve.search")
+_MERGE = SPANS.kind("serve.merge")
+
+
 def _discard(future: cf.Future) -> bool:
     """Drop a future we no longer want: cancel if not started, otherwise
     attach a consumer so its result/exception is drained, never merged.
@@ -320,11 +326,20 @@ class ShardedRouter:
 
     # ------------------------------------------------------------ search
     def _call(self, i: int, queries: np.ndarray, k: int, call_id: int,
-              deadline: float) -> ShardAnswer:
+              deadline: float, span: int = -1) -> ShardAnswer:
         """One shard call with validation + bounded backoff retry, run on
-        a pool thread.  Records every attempt's outcome into the shard's
-        breaker; raises only once the retry budget (or the remaining
-        deadline) is exhausted."""
+        a pool thread for the search span ``span`` (its spans are that
+        span's children, in its wave).  Records every attempt's outcome
+        into the shard's breaker; raises only once the retry budget (or
+        the remaining deadline) is exhausted."""
+        SPANS.adopt(span)
+        try:
+            return self._attempts(i, queries, k, call_id, deadline)
+        finally:
+            SPANS.adopt(-1)
+
+    def _attempts(self, i: int, queries: np.ndarray, k: int, call_id: int,
+                  deadline: float) -> ShardAnswer:
         attempt = 0
         while True:
             try:
@@ -368,6 +383,11 @@ class ShardedRouter:
         future is running), so a shard's answer is merged at most once
         and the loop never stalls waiting on a hedge loser.
         """
+        with _SEARCH as span:
+            return self._search(queries, k, span)
+
+    def _search(self, queries: np.ndarray, k: int,
+                span: int) -> tuple[ShardAnswer, bool]:
         self.stats.bump("calls")
         call_id = self.stats.calls
         answers: dict[int, ShardAnswer] = {}
@@ -378,7 +398,8 @@ class ShardedRouter:
         for i, _ in enumerate(self.shards):
             if self.breakers[i].allow():
                 pending[self.pool.submit(
-                    self._call, i, queries, k, call_id, deadline)] = i
+                    self._call, i, queries, k, call_id, deadline,
+                    span)] = i
             else:
                 self.stats.bump("breaker_skips")
                 self.stats.shard_bump(i, "breaker_skips")
@@ -418,7 +439,8 @@ class ShardedRouter:
                         hedged.add(i)
                         self.stats.bump("hedges")
                         pending[self.pool.submit(
-                            self._call, i, queries, k, call_id, deadline)] = i
+                            self._call, i, queries, k, call_id, deadline,
+                            span)] = i
                 hedge_at = float("inf")
         # shards still pending at the deadline are written off as
         # timeouts — the breaker hears about them (a shard that never
@@ -434,7 +456,9 @@ class ShardedRouter:
             self.stats.bump("degraded")
         if not answers:
             raise TimeoutError("all index shards failed or timed out")
-        return self._merge(list(answers.values()), k), degraded
+        with _MERGE:
+            merged = self._merge(list(answers.values()), k)
+        return merged, degraded
 
     @staticmethod
     def _merge(parts: list[ShardAnswer], k: int) -> ShardAnswer:

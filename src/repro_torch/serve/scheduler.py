@@ -25,7 +25,16 @@ the port so the port imports nothing of the JAX package.
     (``EngineTurn.latency_s`` is admission-to-resolution);
   * **drains per slot** — ``drain_slot`` executes only the closing
     session's pending turns (bypassing any hold), leaving other sessions'
-    queued turns to their own schedule.
+    queued turns to their own schedule;
+  * **records its loop** — each pass of the worker's loop is a
+    ``serve.loop`` span of the process's span log, so every second of the
+    worker is named; inside it ``serve.await_turns`` (waiting for turns,
+    and for the lock, with ``serve.admit`` choosing the wave), the
+    engine's phase spans, ``serve.join_backend`` (waiting for the wave's
+    search on the back-end thread) and ``serve.deliver`` (resolving the
+    wave's futures, whose callbacks run there).  Time in ``serve.loop``
+    outside its children is the worker's glue, or its wait for the
+    interpreter's lock.
 """
 
 from __future__ import annotations
@@ -35,9 +44,15 @@ import threading
 import time
 from typing import Callable, Optional
 
-from repro_torch.serve.telemetry import ServeTelemetry
+from repro_torch.serve.telemetry import SPANS, ServeTelemetry
 
 __all__ = ["ContinuousScheduler"]
+
+_LOOP = SPANS.kind("serve.loop")
+_AWAIT_TURNS = SPANS.kind("serve.await_turns")
+_ADMIT = SPANS.kind("serve.admit")
+_JOIN_BACKEND = SPANS.kind("serve.join_backend")
+_DELIVER = SPANS.kind("serve.deliver")
 
 
 class _Item:
@@ -227,7 +242,7 @@ class ContinuousScheduler:
     def _adapt_locked(self) -> None:
         if not self.adaptive or self.telemetry.arrivals.count < 8:
             return
-        p99 = (self.telemetry.spans["total_s"].percentile(99)
+        p99 = (self.telemetry.total_s.percentile(99)
                if self.target_p99_s is not None else None)
         self.wave_limit = self._target_limit(
             self.telemetry.arrivals.rate(), self._service_ewma, p99)
@@ -288,27 +303,29 @@ class ContinuousScheduler:
     def _loop(self):
         inflight: Optional[_Inflight] = None
         while True:
-            batch = None
-            with self._cond:
-                while True:
-                    batch, wait_s = self._select_locked()
-                    if batch is not None or inflight is not None:
-                        break
-                    if self._closed and not self._queue:
-                        self._cond.notify_all()
-                        return
-                    self._cond.wait(timeout=wait_s)
-            nxt = None
-            if batch is not None:
-                if self._engine is None:
-                    self._run_fn_wave(batch)
-                else:
-                    # probe wave t+1 NOW: it only reads cache state, and
-                    # wave t's back-end search is still in flight
-                    nxt = self._begin_wave(batch)
-            if inflight is not None:
-                self._finish_wave(inflight)
-            inflight = nxt
+            with _LOOP:
+                batch = None
+                with _AWAIT_TURNS, self._cond:
+                    while True:
+                        with _ADMIT:
+                            batch, wait_s = self._select_locked()
+                        if batch is not None or inflight is not None:
+                            break
+                        if self._closed and not self._queue:
+                            self._cond.notify_all()
+                            return
+                        self._cond.wait(timeout=wait_s)
+                nxt = None
+                if batch is not None:
+                    if self._engine is None:
+                        self._run_fn_wave(batch)
+                    else:
+                        # probe wave t+1 NOW: it only reads cache state,
+                        # and wave t's back-end search is still in flight
+                        nxt = self._begin_wave(batch)
+                if inflight is not None:
+                    self._finish_wave(inflight)
+                inflight = nxt
 
     # ------------------------------------------------------ fn-mode wave
     def _run_fn_wave(self, batch: list) -> None:
@@ -353,22 +370,23 @@ class ContinuousScheduler:
         """Join the back-end phase, run the fill phase, resolve waiters.
         An engine exception fails this wave's futures only — the loop
         never wedges."""
+        wave = infl.ws.wave_id
         try:
             if infl.backend_future is not None:
-                infl.backend_future.result()
+                with _JOIN_BACKEND.of(wave):
+                    infl.backend_future.result()
             else:
                 self._engine.backend_wave(infl.ws)
             turns = self._engine.fill_wave(infl.ws)
         except Exception as e:                 # noqa: BLE001
-            for it in infl.items:
-                it.future.set_exception(e)
-        else:
+            turns = [e] * len(infl.items)
+        with _DELIVER.of(wave):
             for it, res in zip(infl.items, turns):
                 if isinstance(res, BaseException):
                     it.future.set_exception(res)
                 else:
                     it.future.set_result(res)
-        self._wave_done(infl.items, time.perf_counter() - infl.t_start)
+            self._wave_done(infl.items, time.perf_counter() - infl.t_start)
 
     def _wave_done(self, batch: list, service_s: float) -> None:
         self.telemetry.record_wave(len(batch), service_s)

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -68,9 +67,43 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.serve.engine import EngineTurn, radius_from_scores
 from repro_torch.serve.router import ShardedRouter
 from repro_torch.serve.scheduler import ContinuousScheduler
-from repro_torch.serve.telemetry import ServeTelemetry, TurnSpans
+from repro_torch.serve.telemetry import (SPANS, ServeTelemetry, TurnSpans,
+                                         sync_site)
 
 __all__ = ["BatchedEngine", "SessionManager", "WaveState"]
+
+# a wave's spans (each wave numbered by SPANS.new_id; see serve.telemetry)
+_PROBE_WAVE = SPANS.kind("serve.probe_wave")
+_ENCODE = SPANS.kind("serve.encode")
+_PROBE = SPANS.kind("serve.probe")
+_BACKEND_WAVE = SPANS.kind("serve.backend_wave")
+_PUT_DOCS = SPANS.kind("serve.put_docs")
+_FILL_WAVE = SPANS.kind("serve.fill_wave")
+_INSERT_QUERY = SPANS.kind("serve.insert_query")
+_SCATTER = SPANS.kind("serve.scatter")
+_RESOLVE = SPANS.kind("serve.resolve")
+_OPEN = SPANS.kind("serve.open")
+# every place where the wave's host waits for the device
+_QUERIES = sync_site("queries")
+_GATHER_IDX = sync_site("gather_idx")
+_PROBE_N_QUERIES = sync_site("probe_n_queries")
+_PROBE_HIT = sync_site("probe_hit")
+_PROBE_PSI = sync_site("probe_psi")
+_L2_HIT = sync_site("l2_hit")
+_L2_IDS = sync_site("l2_ids")
+_DOC_RUNS = sync_site("doc_runs")
+_PUT_IDS = sync_site("put_ids")
+_PUT_ROWS = sync_site("put_rows")
+_OUTAGE_N_DOCS = sync_site("outage_n_docs")
+_FILL_RADIUS = sync_site("fill_radius")
+_FILL_NEW_IDS = sync_site("fill_new_ids")
+_FILL_DO = sync_site("fill_do")
+_FILL_RECORD = sync_site("fill_record")
+_FILL_DROPPED = sync_site("fill_dropped")
+_SCATTER_ROWS = sync_site("scatter_rows")
+_FILL_IDS = sync_site("fill_ids")
+_FILL_SCORES = sync_site("fill_scores")
+_OPEN_IDX = sync_site("open_idx")
 
 
 @dataclasses.dataclass
@@ -85,6 +118,7 @@ class WaveState:
 
     sids: np.ndarray                 # (wave,) real session slots
     pad_sids: np.ndarray             # (bucket,) padded slot row
+    idx: torch.Tensor                # pad_sids on the device (int64)
     wave: int
     bucket: int
     psi: torch.Tensor                # (bucket, dim) transformed queries
@@ -111,6 +145,7 @@ class WaveState:
     outage: Optional[BaseException] = None
     probe_s: float = 0.0
     backend_s: float = 0.0
+    wave_id: int = -1                # the wave's id in the span log
 
 
 class BatchedEngine:
@@ -176,7 +211,8 @@ class BatchedEngine:
         self._gen = np.zeros((n_sessions,), np.int64)
 
     def start_session(self, session: int):
-        self.cache.reset([session])
+        self.cache.reset(_OPEN_IDX.device(self.cache.check([session]),
+                                          self.device))
         self.turns[session] = []
         self._prefetched[session].clear()
         self._gen[session] += 1
@@ -217,9 +253,9 @@ class BatchedEngine:
         rows = np.concatenate([np.full(len(i), r) for r, _, i in runs])
         cols = np.concatenate([np.arange(c, c + len(i)) for _, c, i in runs])
         ids = np.concatenate([i for _, _, i in runs])
-        t = lambda x: torch.as_tensor(x, dtype=torch.int64,  # noqa: E731
-                                      device=self.device)
-        new_emb[t(rows), t(cols)] = self.doc_embeddings[t(ids)]
+        rows, cols, ids = _DOC_RUNS.device(np.stack([rows, cols, ids]),
+                                           self.device, torch.int64)
+        new_emb[rows, cols] = self.doc_embeddings[ids]
 
     # ------------------------------------------------------- probe phase
     def probe_wave(self, sessions, queries,
@@ -228,7 +264,15 @@ class BatchedEngine:
         """Phase 1: encoder + L1 probe over the wave's gathered cache rows
         (every leaf but the payload), then the tiered L2 lookups.  Never
         writes L1."""
-        t_start = time.perf_counter()
+        wave_id = SPANS.new_id()
+        with _PROBE_WAVE.of(wave_id) as tok:
+            ws = self._probe(sessions, queries, admitted_at,
+                             SPANS.start_s(tok))
+            ws.wave_id = wave_id
+        ws.probe_s = SPANS.duration_s(tok)
+        return ws
+
+    def _probe(self, sessions, queries, admitted_at, t_start) -> WaveState:
         self._waves += 1
         if self.validate_every and self._waves % self.validate_every == 0:
             self.quarantine_invalid()
@@ -241,24 +285,27 @@ class BatchedEngine:
                     if admitted_at is None
                     else np.asarray(admitted_at, np.float64))
         pad_sids = np.concatenate([sids, np.repeat(sids[:1], bucket - wave)])
-        q = torch.stack([torch.as_tensor(np.asarray(x), device=self.device)
-                         for x in queries])
+        q = _QUERIES.device(np.stack([np.asarray(x) for x in queries]),
+                            self.device)
         q = torch.cat([q, q[:1].expand((bucket - wave,) + q.shape[1:])])
-        psi = (self.encoder(q) if self.encoder else q).to(torch.float32)
+        with _ENCODE:
+            psi = (self.encoder(q) if self.encoder else q).to(torch.float32)
 
-        sub = self.cache.gather(pad_sids, payload=False)
-        # launch 1: the L1 LowQuality probe over the wave's session rows
-        pr = probe_batched(sub, psi, self.epsilon,
-                           max_queries=self.cache.cfg.max_queries)
-        n_queries = sub.n_queries.cpu().numpy()
-        need = np.logical_or(n_queries == 0, ~pr.hit.cpu().numpy())
+        with _PROBE:
+            idx = _GATHER_IDX.device(self.cache.check(pad_sids), self.device)
+            sub = self.cache.gather(idx, payload=False)
+            # launch 1: the L1 LowQuality probe over the wave's session rows
+            pr = probe_batched(sub, psi, self.epsilon,
+                               max_queries=self.cache.cfg.max_queries)
+            n_queries = _PROBE_N_QUERIES.host(sub.n_queries)
+            need = np.logical_or(n_queries == 0, ~_PROBE_HIT.host(pr.hit))
         need[wave:] = False
         tier = np.where(need, "backend", "l1").astype(object)
         width = self.k_c + self.prefetch_width
         ws = WaveState(
-            sids=sids, pad_sids=pad_sids, wave=wave, bucket=bucket,
-            psi=psi, psi_np=psi.cpu().numpy(), sub=sub,
-            rows=self.cache.wave_rows(pad_sids), need=need, tier=tier,
+            sids=sids, pad_sids=pad_sids, idx=idx, wave=wave, bucket=bucket,
+            psi=psi, psi_np=_PROBE_PSI.host(psi), sub=sub,
+            rows=idx.to(torch.int32), need=need, tier=tier,
             reuse=np.zeros((bucket,), bool), l2hit=np.zeros((bucket,), bool),
             new_ids=np.full((bucket, width), -1, np.int64),
             new_emb=torch.zeros((bucket, width,
@@ -278,7 +325,6 @@ class BatchedEngine:
                     ws.need = self._probe_shared(ws)
             ws.tier[ws.reuse] = "l2_reuse"
             ws.tier[ws.l2hit] = "l2"
-        ws.probe_s = time.perf_counter() - t_start
         return ws
 
     def _probe_shared(self, ws: WaveState) -> np.ndarray:
@@ -311,12 +357,12 @@ class BatchedEngine:
             # rows (the whole bucket; results masked to the residual misses)
             shards = l2.route(ws.psi_np)
             l2pr = l2.probe_rows(ws.psi, shards)
-            ws.l2hit[:] = np.logical_and(l2pr.hit.cpu().numpy(), rem)
+            ws.l2hit[:] = np.logical_and(_L2_HIT.host(l2pr.hit), rem)
             if ws.l2hit.any():
                 # covered by a shared claim: the shard's top k (one
                 # wave-kernel launch, only when L2 serves someone)
                 _s2, _d2, i2, _sl2 = l2.query_rows(ws.psi, shards, self.k)
-                i2_np = i2.cpu().numpy()
+                i2_np = _L2_IDS.host(i2)
                 for i in np.nonzero(ws.l2hit)[0]:
                     row = i2_np[i][i2_np[i] >= 0]
                     n = min(self.k_c, row.shape[0])
@@ -333,61 +379,66 @@ class BatchedEngine:
         failure walks the degradation ladder and raises only when every
         real row failed; a fenced back end (every breaker open) load-sheds
         the wave without searching."""
-        t0 = time.perf_counter()
-        need, wave = ws.need, ws.wave
+        tok = -1
         try:
-            if need.any():
-                if getattr(self.router, "backend_open", False):
-                    ws.shed = True
-                    self.telemetry.record_fault("shed_waves")
-                    self.telemetry.record_fault(
-                        "shed_turns", int(need[:wave].sum()))
-                    self._outage_fallback(ws, TimeoutError(
-                        "back end fenced: load-shed wave"))
-                    if ws.failed[:wave].all():
-                        raise ws.outage
-                    return ws
-                miss = np.nonzero(need)[0]
-                try:
-                    ans, degraded = self.router.search(
-                        ws.psi_np[miss], self.k_c)
-                    ws.degraded = degraded
-                    n_valid = (ans.ids >= 0).sum(axis=1)
-                    if (n_valid == 0).any():
-                        raise TimeoutError(
-                            "back-end answer holds no valid docs")
-                    # r_a from the last VALID column of each row
-                    radii = radius_from_scores(np.take_along_axis(
-                        ans.scores, n_valid[:, None] - 1, axis=1)[:, 0])
-                    ws.new_ids[miss, :self.k_c] = ans.ids
-                    idx = torch.as_tensor(np.maximum(ans.ids, 0),
-                                          device=self.device)
-                    ws.new_emb[torch.as_tensor(miss, device=self.device),
-                               :self.k_c] = self.doc_embeddings[idx]
-                    ws.rad[miss] = radii
-                    # a degraded merge misses shards: keep the docs, skip
-                    # the (psi, r_a) record so no cache learns a false claim
-                    ws.rec_np[miss] = not degraded
-                    ws.backend_ok = need.copy()
-                    if self.shared is not None and not degraded:
-                        # fresh retrievals feed the shared tier: memoized
-                        # for reuse, offered toward admission
-                        with self._shared_lock:
-                            for j, i in enumerate(miss):
-                                tok = self._token(ws.pad_sids[i])
-                                self.shared.memo_record(
-                                    tok, ws.psi_np[i], ans.ids[j],
-                                    ans.scores[j], float(radii[j]))
-                                self.shared.offer(
-                                    tok, ws.psi_np[i], float(radii[j]),
-                                    ws.new_emb[i], ws.new_ids[i])
-                except TimeoutError as e:
-                    self._outage_fallback(ws, e)
-                    if ws.failed[:wave].all():
-                        raise
-            return ws
+            with _BACKEND_WAVE.of(ws.wave_id) as tok:
+                return self._backend(ws)
         finally:
-            ws.backend_s = time.perf_counter() - t0
+            ws.backend_s = SPANS.duration_s(tok)
+
+    def _backend(self, ws: WaveState) -> WaveState:
+        need, wave = ws.need, ws.wave
+        if need.any():
+            if getattr(self.router, "backend_open", False):
+                ws.shed = True
+                self.telemetry.record_fault("shed_waves")
+                self.telemetry.record_fault(
+                    "shed_turns", int(need[:wave].sum()))
+                self._outage_fallback(ws, TimeoutError(
+                    "back end fenced: load-shed wave"))
+                if ws.failed[:wave].all():
+                    raise ws.outage
+                return ws
+            miss = np.nonzero(need)[0]
+            try:
+                ans, degraded = self.router.search(
+                    ws.psi_np[miss], self.k_c)
+                ws.degraded = degraded
+                n_valid = (ans.ids >= 0).sum(axis=1)
+                if (n_valid == 0).any():
+                    raise TimeoutError(
+                        "back-end answer holds no valid docs")
+                # r_a from the last VALID column of each row
+                radii = radius_from_scores(np.take_along_axis(
+                    ans.scores, n_valid[:, None] - 1, axis=1)[:, 0])
+                ws.new_ids[miss, :self.k_c] = ans.ids
+                with _PUT_DOCS:
+                    idx = _PUT_IDS.device(np.maximum(ans.ids, 0),
+                                          self.device)
+                    ws.new_emb[_PUT_ROWS.device(miss, self.device),
+                               :self.k_c] = self.doc_embeddings[idx]
+                ws.rad[miss] = radii
+                # a degraded merge misses shards: keep the docs, skip
+                # the (psi, r_a) record so no cache learns a false claim
+                ws.rec_np[miss] = not degraded
+                ws.backend_ok = need.copy()
+                if self.shared is not None and not degraded:
+                    # fresh retrievals feed the shared tier: memoized
+                    # for reuse, offered toward admission
+                    with self._shared_lock:
+                        for j, i in enumerate(miss):
+                            tok = self._token(ws.pad_sids[i])
+                            self.shared.memo_record(
+                                tok, ws.psi_np[i], ans.ids[j],
+                                ans.scores[j], float(radii[j]))
+                            self.shared.offer(
+                                tok, ws.psi_np[i], float(radii[j]),
+                                ws.new_emb[i], ws.new_ids[i])
+            except TimeoutError as e:
+                self._outage_fallback(ws, e)
+                if ws.failed[:wave].all():
+                    raise
+        return ws
 
     def _outage_fallback(self, ws: WaveState, e: BaseException) -> None:
         """The degradation ladder of a shed or failed search: warm-cache
@@ -397,7 +448,8 @@ class BatchedEngine:
         recorded), and only rows with neither fail."""
         ws.degraded = True
         ws.outage = e
-        failed = np.logical_and(ws.need, ws.sub.n_docs.cpu().numpy() == 0)
+        failed = np.logical_and(ws.need,
+                                _OUTAGE_N_DOCS.host(ws.sub.n_docs) == 0)
         if self.shared is not None and failed.any():
             runs: list = []
             with self._shared_lock:
@@ -426,7 +478,10 @@ class BatchedEngine:
         payload, the scatter back of the small leaves, the admission flush,
         and one ``EngineTurn`` per real session in input order (a
         ``TimeoutError`` for a failed one)."""
-        t0 = time.perf_counter()
+        with _FILL_WAVE.of(ws.wave_id) as tok:
+            return self._fill(ws, SPANS.start_s(tok))
+
+    def _fill(self, ws: WaveState, t0: float) -> list:
         if self.prefetch_width:
             # widen each fresh back-end answer by its cluster's nearest
             # documents (the extra buffer columns, the same fused launch);
@@ -447,66 +502,78 @@ class BatchedEngine:
                     ws.rad[i] = bound
             self._put_docs(ws.new_emb, runs)
         fill = ws.reuse | ws.l2hit | ws.backend_ok
-        if fill.any():
-            self.insert_traffic_docs += int((ws.new_ids[fill] >= 0).sum())
-            # the last launch of the wave: insert + answer query, fused
-            (scores, _dists, ids, _slots), sub, dropped = \
-                insert_query_batched(
-                    ws.sub, self.cache.cfg, ws.psi, torch.as_tensor(ws.rad),
-                    ws.new_emb, torch.as_tensor(ws.new_ids), self.k,
-                    do=torch.as_tensor(fill), record=torch.as_tensor(ws.rec_np),
-                    rows=ws.rows)
-            self.cache.total_dropped += int(dropped.sum())
-        else:   # missless (or outage) wave: probe -> query
-            (scores, _dists, ids, _slots), sub = query_batched(
-                ws.sub, ws.psi, self.k, rows=ws.rows)
-        able = np.nonzero(~ws.failed[:ws.wave])[0]
-        # write back only real, answerable rows (padded rows shadow row 0)
-        self.cache.scatter(ws.sids[able], sub, rows=able)
+        dev = self.device
+        with _INSERT_QUERY:
+            if fill.any():
+                self.insert_traffic_docs += int((ws.new_ids[fill] >= 0).sum())
+                # the last launch of the wave: insert + answer query, fused
+                (scores, _dists, ids, _slots), sub, dropped = \
+                    insert_query_batched(
+                        ws.sub, self.cache.cfg, ws.psi,
+                        _FILL_RADIUS.device(ws.rad, dev), ws.new_emb,
+                        _FILL_NEW_IDS.device(ws.new_ids, dev), self.k,
+                        do=_FILL_DO.device(fill, dev),
+                        record=_FILL_RECORD.device(ws.rec_np, dev),
+                        rows=ws.rows)
+                self.cache.total_dropped += int(
+                    _FILL_DROPPED.host(dropped.sum()))
+            else:   # missless (or outage) wave: probe -> query
+                (scores, _dists, ids, _slots), sub = query_batched(
+                    ws.sub, ws.psi, self.k, rows=ws.rows)
+        with _SCATTER:
+            # write back only real, answerable rows (padded rows shadow
+            # row 0)
+            able = _SCATTER_ROWS.device(
+                np.nonzero(~ws.failed[:ws.wave])[0], dev)
+            self.cache.scatter(ws.idx[able], sub, rows=able)
         if self.shared is not None:
             # end of wave: promote the admitted answers into their shards
             with self._shared_lock:
                 self.shared.flush_admissions()
-        ids_np, scores_np = ids.cpu().numpy(), scores.cpu().numpy()
+        ids_np, scores_np = _FILL_IDS.host(ids), _FILL_SCORES.host(scores)
 
-        resolved = time.perf_counter()
-        insert_s = resolved - t0
-        out: list = []
-        for i, s in enumerate(ws.sids):
-            if ws.failed[i]:
-                self.telemetry.record_fault("failed_turns")
-                out.append(TimeoutError(
-                    f"session {int(s)}: back-end down and cache empty"
-                    f" ({ws.outage})"))
-                continue
-            real = ids_np[i] >= 0
-            row_ids = ids_np[i][real]
-            row_tier = str(ws.tier[i])
-            pre = self._prefetched[int(s)]
-            n_pre = (sum(1 for d in row_ids.tolist() if d in pre)
-                     if pre else 0)
-            if n_pre and row_tier != "backend":
-                self.prefetch_warm_hits += n_pre
-            spans = TurnSpans(
-                queue_wait_s=max(ws.t_start - float(ws.admitted_at[i]), 0.0),
-                probe_s=ws.probe_s, backend_s=ws.backend_s,
-                insert_s=insert_s,
-                total_s=resolved - float(ws.admitted_at[i]), tier=row_tier)
-            # a degraded wave degrades its backend rows and any row served
-            # stale-while-error (fresh tier hits stay first-class)
-            turn = EngineTurn(ids=row_ids, scores=scores_np[i][real],
-                              hit=row_tier != "backend",
-                              degraded=bool(ws.degraded
-                                            and (row_tier == "backend"
-                                                 or ws.stale[i])),
-                              latency_s=spans.total_s, tier=row_tier,
-                              queue_wait_s=spans.queue_wait_s, spans=spans,
-                              prefetch_hits=n_pre)
-            if turn.degraded:
-                self.telemetry.record_fault("degraded_turns")
-            self.telemetry.record_turn(spans)
-            self.turns[int(s)].append(turn)
-            out.append(turn)
+        with _RESOLVE as tok:
+            resolved = SPANS.start_s(tok)
+            insert_s = resolved - t0
+            out: list = []
+            for i, s in enumerate(ws.sids):
+                if ws.failed[i]:
+                    self.telemetry.record_fault("failed_turns")
+                    out.append(TimeoutError(
+                        f"session {int(s)}: back-end down and cache empty"
+                        f" ({ws.outage})"))
+                    continue
+                real = ids_np[i] >= 0
+                row_ids = ids_np[i][real]
+                row_tier = str(ws.tier[i])
+                pre = self._prefetched[int(s)]
+                n_pre = (sum(1 for d in row_ids.tolist() if d in pre)
+                         if pre else 0)
+                if n_pre and row_tier != "backend":
+                    self.prefetch_warm_hits += n_pre
+                spans = TurnSpans(
+                    queue_wait_s=max(
+                        ws.t_start - float(ws.admitted_at[i]), 0.0),
+                    probe_s=ws.probe_s, backend_s=ws.backend_s,
+                    insert_s=insert_s,
+                    total_s=resolved - float(ws.admitted_at[i]),
+                    tier=row_tier)
+                # a degraded wave degrades its backend rows and any row
+                # served stale-while-error (fresh tier hits stay
+                # first-class)
+                turn = EngineTurn(ids=row_ids, scores=scores_np[i][real],
+                                  hit=row_tier != "backend",
+                                  degraded=bool(ws.degraded
+                                                and (row_tier == "backend"
+                                                     or ws.stale[i])),
+                                  latency_s=spans.total_s, tier=row_tier,
+                                  queue_wait_s=spans.queue_wait_s,
+                                  spans=spans, prefetch_hits=n_pre)
+                if turn.degraded:
+                    self.telemetry.record_fault("degraded_turns")
+                self.telemetry.record_turn(spans)
+                self.turns[int(s)].append(turn)
+                out.append(turn)
         return out
 
     def answer_batch(self, sessions, queries) -> list:
@@ -588,7 +655,8 @@ class SessionManager:
         if not self._free:
             raise RuntimeError("no free session slots")
         slot = self._free.pop()
-        self.engine.start_session(slot)
+        with _OPEN:
+            self.engine.start_session(slot)
         self._slots[key] = slot
         return slot
 

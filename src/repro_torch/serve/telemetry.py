@@ -1,48 +1,58 @@
-"""Serving telemetry: per-turn latency spans and streaming percentiles.
+"""Serving telemetry: spans of the serving path, per-turn latency and rates.
 
 The paper's case is *latency* — the cache exists so a conversational turn
 answers fast — so the serving tier must be able to state a p99 for a
-single turn, not just a closed-loop throughput.  This module is the
-measurement substrate the continuous scheduler and ``serve_bench``'s
-open-loop harness share:
+single turn, and say where a slow turn's time went: in the device's work,
+in the host's launches, in a blocking copy between the two, or in a pass
+of Python's collector.
 
+  * ``SPANS`` — the process's one ``SpanLog``: every layer boundary of the
+    serving path records a span (name, start, end, thread, parent span,
+    and the wave or request it belongs to) into a preallocated ring of
+    numpy arrays.  Names start with ``serve.``; ``serve.sync.<site>`` is a
+    blocking host<->device copy (``SyncSite``), ``serve.gc`` a pass of the
+    collector.  While a ``torch.profiler`` runs each span also opens a
+    profiler range under its name, which puts the program's spans on the
+    device trace's clock.
   * ``TurnSpans`` — one turn's latency decomposition: queue wait
-    (admission -> wave start), probe (L1/L2 cache launches), backend
-    (router round-trip over the miss subset), insert (fused insert+query
-    close), and the admission-to-resolution total.  Spans other than
-    queue wait are wave-level (every turn of a wave shares them); the
-    queue wait and total are strictly per turn.
+    (admission -> wave start), probe (the encoder and the L1/L2 cache
+    launches), backend (router round-trip over the miss subset), insert
+    (fused insert+query close), and the admission-to-resolution total.
+    Spans other than queue wait are wave-level (every turn of a wave
+    shares them, read off the wave's phase spans); the queue wait and
+    total are strictly per turn.
   * ``RingPercentiles`` — a fixed-capacity ring buffer with nearest-rank
-    percentile estimates over the most recent window.  O(1) insertion on
-    the serving path; sorting is deferred to ``percentile()``/
-    ``summary()`` (telemetry readers, not the hot loop).
+    percentile estimates over the most recent window.
   * ``EwmaRate`` — an exponentially weighted arrival-rate estimator whose
     smoothing follows a wall-clock *horizon* (irregular arrival spacing is
     handled by weighting each observation with ``1 - exp(-dt/horizon)``).
     The scheduler sizes wave buckets and active engine slots from it.
-  * ``ServeTelemetry`` — the aggregate the engine/scheduler write into:
-    one ring per span kind, one ring of totals per serving tier
-    (l1 / l2 / l2_reuse / backend), wave-size and wave-service histories,
-    and a ``summary()`` that flattens to the p50/p95/p99 columns
-    ``BENCH_serve.json`` commits and ``check_regression.py`` gates.
+  * ``ServeTelemetry`` — what the engine and scheduler write per turn and
+    per wave (counts, the turn totals the scheduler's p99 back-off reads,
+    arrivals, faults), and ``summary()``: the operator's view, every span
+    name's count and p50/p95/p99 from the span log beside those.
 
-Everything here is plain host-side Python, so recording a span never
-touches the device.  A copy of ``repro.serve.telemetry``, kept in the
-port so the port imports nothing of the JAX package.
+Recording a span never touches the device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import itertools
 import math
 import threading
 import time
 from typing import Optional
 
-__all__ = ["TurnSpans", "RingPercentiles", "EwmaRate", "ServeTelemetry",
-           "TIERS"]
+import numpy as np
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
-TIERS = ("l1", "l2", "l2_reuse", "backend")
+__all__ = ["TurnSpans", "RingPercentiles", "EwmaRate", "ServeTelemetry",
+           "SpanLog", "SpanKind", "SyncSite", "Spans", "SPANS",
+           "strict_syncs"]
 
 
 @dataclasses.dataclass
@@ -175,30 +185,331 @@ class EwmaRate:
             return self._rate * math.exp(-silence / self.horizon_s)
 
 
-class ServeTelemetry:
-    """Aggregate serving telemetry: spans, per-tier totals, wave shape.
+# ------------------------------------------------------------------ spans
+_clock = time.perf_counter_ns
+_thread_id = threading.get_ident
 
-    Writers: ``BatchedEngine.fill_wave`` records one ``TurnSpans`` per
-    resolved turn; ``ContinuousScheduler`` records arrivals (for the EWMA)
-    and per-wave (size, service seconds) samples.  Readers: the
-    scheduler's sizing policy (``arrivals.rate()``, ``wave_service``),
-    ``serve_bench``'s open-loop harness, and operators via ``summary()``.
+
+def _open_range(name: str):
+    """A profiler range under ``name``, entered (only while a profiler
+    runs).  A function-scope range: it lies on the host's timeline of the
+    trace, the same clock as the device's activities, and projects no
+    range of its own onto the device's timeline."""
+    rf = torch._C._profiler._RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
+class _ThreadState(threading.local):
+    cur = -1        # token of the innermost span open on this thread, or
+                    # of the span adopted from the thread it works for
+    wave = -1       # id of the wave or request the thread works for
+
+
+@dataclasses.dataclass
+class Spans:
+    """Spans read out of the log, one entry each (numpy arrays), in the
+    order they began; a span still open has ``end < start``."""
+
+    names: list          # kind id -> span name
+    token: np.ndarray    # the span's number in the log
+    kind: np.ndarray
+    start: np.ndarray    # time.perf_counter_ns
+    end: np.ndarray
+    thread: np.ndarray   # threading.get_ident of its thread
+    parent: np.ndarray   # the parent span's token, -1 for none
+    wave: np.ndarray     # the wave's or request's id, -1 for none
+
+    def of(self, name: str) -> np.ndarray:
+        """Mask of the closed spans named ``name``, or, for a name ending
+        in a dot such as ``serve.sync.``, of that family."""
+        ids = [i for i, n in enumerate(self.names) if n == name
+               or (name.endswith(".") and n.startswith(name))]
+        return np.isin(self.kind, ids) & (self.end >= self.start)
+
+    def seconds(self) -> np.ndarray:
+        return (self.end - self.start) * 1e-9
+
+
+class SpanLog:
+    """A ring of the most recent ``capacity`` spans in preallocated numpy
+    arrays, written by any thread.  Recording a span stores into the
+    arrays and keeps no Python object: a span costs two clock reads, the
+    check of whether a profiler runs, and the stores.
+
+    ``kind(name)`` makes a span name's ``SpanKind`` (once, at import);
+    ``with kind:`` records one span on this thread, a child of the span
+    open there, in the wave or request the thread works for;
+    ``with kind.of(wave):`` names the wave.  ``new_id()`` numbers a wave or
+    request.  Work handed to another thread carries ``current()`` along,
+    and the other thread ``adopt``s it: its spans then name that span as
+    their parent and belong to its wave.
+
+    ``SPANS`` records each pass of Python's collector as ``serve.gc`` on
+    the thread it holds up, through the one ``gc.callbacks`` entry the
+    module installs.
     """
 
-    SPAN_KEYS = ("queue_wait_s", "probe_s", "backend_s", "insert_s",
-                 "total_s")
+    def __init__(self, capacity: int = 1 << 17):
+        cap = 1 << max(int(capacity) - 1, 1).bit_length()
+        self.capacity, self._mask = cap, cap - 1
+        self._seq = np.full((cap,), -1, np.int64)
+        self._kind = np.zeros((cap,), np.int32)
+        self._start = np.zeros((cap,), np.int64)
+        self._end = np.zeros((cap,), np.int64)
+        self._thread = np.zeros((cap,), np.int64)
+        self._parent = np.full((cap,), -1, np.int64)
+        self._wave = np.full((cap,), -1, np.int64)
+        # writers store through memoryviews of the arrays (the cheaper
+        # store); readers copy the arrays
+        self._w_seq, self._w_kind, self._w_start, self._w_end, \
+            self._w_thread, self._w_parent, self._w_wave = (
+                memoryview(a) for a in (self._seq, self._kind, self._start,
+                                        self._end, self._thread,
+                                        self._parent, self._wave))
+        self._tokens = itertools.count()
+        self._ids = itertools.count()
+        self._tls = _ThreadState()
+        self._names: list = []
+        self._kinds: dict = {}
+        self._kind_lock = threading.Lock()
+        self._ranges: dict = {}          # token -> open profiler range
+        self._strict = False
+        self._relaxed = 0
+        self._strict_lock = threading.Lock()
+        self._gc_token = -1
+        self._gc = self.kind("serve.gc")
+
+    # ------------------------------------------------------------ writers
+    def kind(self, name: str, cls=None) -> "SpanKind":
+        """The span kind named ``name`` (one per name)."""
+        with self._kind_lock:
+            k = self._kinds.get(name)
+            if k is None:
+                k = (cls or SpanKind)(self, len(self._names), name)
+                self._names.append(name)
+                self._kinds[name] = k
+            return k
+
+    def new_id(self) -> int:
+        """A fresh id for a wave or a request."""
+        return next(self._ids)
+
+    def current(self) -> int:
+        """The token of the span open on this thread (-1: none)."""
+        return self._tls.cur
+
+    def adopt(self, tok: int) -> None:
+        """Work on this thread for span ``tok`` of another thread (or, -1,
+        for none): later spans here are its children, in its wave."""
+        tls = self._tls
+        tls.cur = tok
+        i = tok & self._mask
+        tls.wave = self._w_wave[i] if tok >= 0 and self._w_seq[i] == tok \
+            else -1
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_token = self._gc.__enter__()
+        elif self._gc_token >= 0:
+            self._gc_token = -1
+            self._gc.__exit__()
+
+    # ------------------------------------------------------------ readers
+    def duration_s(self, tok: int) -> float:
+        """Seconds span ``tok`` lasted (NaN if open or overwritten)."""
+        i = tok & self._mask
+        if self._w_seq[i] != tok or self._w_end[i] < self._w_start[i]:
+            return float("nan")
+        return (self._w_end[i] - self._w_start[i]) * 1e-9
+
+    def start_s(self, tok: int) -> float:
+        """Span ``tok``'s start on ``time.perf_counter``'s scale (NaN if
+        overwritten)."""
+        i = tok & self._mask
+        if self._w_seq[i] != tok:
+            return float("nan")
+        return self._w_start[i] * 1e-9
+
+    def window(self, t0_ns: int, t1_ns: int) -> Optional[Spans]:
+        """The spans that began in [t0_ns, t1_ns] (``perf_counter_ns``),
+        or None when the ring no longer holds all of them."""
+        seq = self._seq.copy()
+        held = seq >= 0
+        if not held.any():
+            return self._select(held)
+        n = int(seq.max()) + 1
+        if n > self.capacity:
+            oldest = (n - self.capacity) & self._mask
+            if int(self._start[oldest]) > t0_ns:
+                return None
+        start = self._start.copy()
+        return self._select(held & (start >= t0_ns) & (start <= t1_ns),
+                            seq, start)
+
+    def all(self) -> Spans:
+        """Every span the ring holds."""
+        return self._select(self._seq >= 0)
+
+    def _select(self, mask, seq=None, start=None) -> Spans:
+        seq = self._seq if seq is None else seq
+        start = self._start if start is None else start
+        order = np.argsort(seq[mask], kind="stable")
+        pick = lambda a: a[mask][order]          # noqa: E731
+        return Spans(names=list(self._names), token=pick(seq),
+                     kind=pick(self._kind), start=pick(start),
+                     end=pick(self._end), thread=pick(self._thread),
+                     parent=pick(self._parent), wave=pick(self._wave))
+
+    def summary(self) -> dict:
+        """{span name: count and nearest-rank p50/p95/p99 seconds} over
+        the closed spans the ring holds."""
+        sp = self.all()
+        done = sp.end >= sp.start
+        out = {}
+        for k, name in enumerate(sp.names):
+            xs = np.sort(sp.seconds()[done & (sp.kind == k)])
+            if xs.size:
+                out[name] = {"count": int(xs.size), **{
+                    f"p{p}": float(xs[max(1, math.ceil(p / 100 * xs.size))
+                                      - 1]) for p in (50, 95, 99)}}
+        return out
+
+    # -------------------------------------------------- strict sync checks
+    def _relax(self, d: int) -> None:
+        with self._strict_lock:
+            self._relaxed += d
+            if self._strict:
+                torch.cuda.set_sync_debug_mode(
+                    0 if self._relaxed else "error")
+
+
+class SpanKind:
+    """A span name of the log; see ``SpanLog``.  ``__enter__`` opens a
+    span on this thread and returns its token; ``__exit__`` closes the
+    thread's open span, and the thread returns to its parent span and the
+    parent's wave."""
+
+    __slots__ = ("log", "id", "name", "_tls")
+
+    def __init__(self, log: SpanLog, kind_id: int, name: str):
+        self.log, self.id, self.name = log, kind_id, name
+        self._tls = log._tls
+
+    def of(self, wave: int) -> "SpanKind":
+        """The next span of this kind on this thread belongs to ``wave``."""
+        self._tls.wave = wave
+        return self
+
+    def __enter__(self) -> int:
+        # a slot's old end needs no clearing: it predates the new start
+        log, tls = self.log, self._tls
+        tok = next(log._tokens)
+        i = tok & log._mask
+        log._w_seq[i] = tok
+        log._w_kind[i] = self.id
+        log._w_thread[i] = _thread_id()
+        log._w_parent[i] = tls.cur
+        log._w_wave[i] = tls.wave
+        tls.cur = tok
+        if _autograd_profiler._is_profiler_enabled:
+            log._ranges[tok] = _open_range(self.name)
+        log._w_start[i] = _clock()
+        return tok
+
+    def __exit__(self, *exc) -> None:
+        t = _clock()
+        log, tls = self.log, self._tls
+        tok = tls.cur
+        if log._ranges:
+            rf = log._ranges.pop(tok, None)
+            if rf is not None:
+                rf.__exit__(None, None, None)
+        i = tok & log._mask
+        if log._w_seq[i] != tok:         # overwritten while open
+            tls.cur = tls.wave = -1
+            return
+        log._w_end[i] = t
+        p = log._w_parent[i]
+        tls.cur = p
+        j = p & log._mask
+        tls.wave = log._w_wave[j] if p >= 0 and log._w_seq[j] == p else -1
+
+
+class SyncSite(SpanKind):
+    """One place where the host waits for the device: a blocking copy,
+    recorded as a ``serve.sync.<site>`` span.  Every blocking copy of the
+    serving path goes through ``host`` or ``device``, so the waits of a
+    wave are counted and timed where they happen."""
+
+    __slots__ = ()
+
+    def host(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` on the host, as numpy."""
+        with self:
+            return t.cpu().numpy()
+
+    def device(self, x, device, dtype=None) -> torch.Tensor:
+        """``x`` (host data) as a tensor on ``device``."""
+        with self:
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+    def __enter__(self) -> int:
+        tok = SpanKind.__enter__(self)
+        if self.log._strict:
+            self.log._relax(1)
+        return tok
+
+    def __exit__(self, *exc) -> None:
+        if self.log._strict:
+            self.log._relax(-1)
+        SpanKind.__exit__(self)
+
+
+def sync_site(site: str) -> SyncSite:
+    """The sync site ``serve.sync.<site>``."""
+    return SPANS.kind(f"serve.sync.{site}", SyncSite)
+
+
+@contextlib.contextmanager
+def strict_syncs():
+    """On the card: any blocking host<->device sync outside a
+    ``serve.sync.*`` span raises (CUDA's sync debug mode at "error",
+    relaxed inside the sync spans).  The mode is the process's, so a sync
+    span open on one thread lets another thread's sync pass too."""
+    SPANS._strict = True
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        SPANS._strict = False
+        torch.cuda.set_sync_debug_mode(0)
+
+
+SPANS = SpanLog()
+gc.callbacks.append(SPANS._on_gc)
+
+
+class ServeTelemetry:
+    """What the serving path writes per turn and per wave, and the
+    operator's ``summary()``.
+
+    Writers: ``BatchedEngine.fill_wave`` records one ``TurnSpans`` per
+    resolved turn (its total feeds ``total_s``, which the scheduler's
+    ``target_p99_s`` back-off reads); ``ContinuousScheduler`` records
+    arrivals (for the EWMA) and one call per wave; the router and engine
+    count faults.  Spans go to the process's ``SPANS``, which every
+    ``ServeTelemetry`` shares.
+    """
 
     def __init__(self, capacity: int = 4096, ewma_horizon_s: float = 1.0):
-        self.spans = {k: RingPercentiles(capacity) for k in self.SPAN_KEYS}
-        self.tier_total = {t: RingPercentiles(capacity) for t in TIERS}
+        self.total_s = RingPercentiles(capacity)
         self.arrivals = EwmaRate(ewma_horizon_s)
-        self.wave_sizes = RingPercentiles(capacity)
-        self.wave_service = RingPercentiles(capacity)
         self.turns = 0
         self.waves = 0
         # fault-domain counters (breaker transitions, shed / degraded /
         # rejected-answer / stale-served / quarantined events) — written
-        # by the router and engine, read by serve_bench --chaos
+        # by the router and engine
         self.faults: dict = {}
         self.breaker_log: list = []      # (shard, old_state, new_state)
         self.breaker_transitions = 0     # monotone (the log is bounded)
@@ -226,22 +537,16 @@ class ServeTelemetry:
 
     def record_turn(self, spans: TurnSpans) -> None:
         self.turns += 1
-        for k in self.SPAN_KEYS:
-            self.spans[k].add(getattr(spans, k))
-        ring = self.tier_total.get(spans.tier)
-        if ring is not None:
-            ring.add(spans.total_s)
+        self.total_s.add(spans.total_s)
 
     def record_wave(self, size: int, service_s: float) -> None:
         self.waves += 1
-        self.wave_sizes.add(float(size))
-        self.wave_service.add(service_s)
 
     # ------------------------------------------------------------ readers
     def summary(self) -> dict:
-        """Nested summary: per-span and per-tier p50/p95/p99 (+ wave
-        shape).  Latency values stay in seconds; presentation layers
-        (serve_bench) convert to ms."""
+        """Turns, waves, the arrival rate, the turn totals' p50/p95/p99,
+        every span name's count and p50/p95/p99 (``SPANS.summary()``, the
+        process's spans), and the fault counters.  Seconds throughout."""
         with self._fault_lock:
             faults = dict(self.faults)
             transitions = self.breaker_transitions
@@ -249,11 +554,8 @@ class ServeTelemetry:
             "turns": self.turns,
             "waves": self.waves,
             "arrival_rate_hz": self.arrivals.rate(),
-            "spans": {k: r.summary() for k, r in self.spans.items()},
-            "tiers": {t: r.summary() for t, r in self.tier_total.items()
-                      if len(r)},
-            "wave_size": self.wave_sizes.summary(),
-            "wave_service_s": self.wave_service.summary(),
+            "turn_total_s": self.total_s.summary(),
+            "spans": SPANS.summary(),
             "faults": faults,
             "breaker_transitions": transitions,
         }
