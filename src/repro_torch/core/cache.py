@@ -105,6 +105,14 @@ class BatchedMetricCache:
         self.state = init_batched_cache(cfg, n_sessions, device)
         self.device = self.state.doc_ids.device
         self.total_dropped = 0
+        # one empty row, kept: the sentinels every per-session reset writes
+        self._empty = list(init_cache(cfg, self.device))
+        # its leaves by dtype: a _foreach_copy_ over one dtype takes
+        # PyTorch's fused path, one launch rather than one a leaf
+        by_dtype: dict = {}
+        for i, x in enumerate(self._empty):
+            by_dtype.setdefault(x.dtype, []).append(i)
+        self._dtype_groups = list(by_dtype.values())
 
     def check(self, sessions, dtype=np.int64) -> np.ndarray:
         """``sessions`` as a host index array, checked against the slots."""
@@ -128,16 +136,21 @@ class BatchedMetricCache:
         return self._idx(sessions, np.int32)
 
     def reset(self, sessions=None):
-        """Reset all sessions, or just the given session indices (in place)."""
+        """Reset all sessions, or just the given host slots, in place: the
+        kept empty row is copied into each slot's row views, one
+        ``_foreach_copy_`` a dtype, with no index copy, sync or allocation.
+        It runs on the current stream, so it lands before any later wave's
+        read of the slot."""
         if sessions is None:
             self.state = init_batched_cache(self.cfg, self.n_sessions,
                                             self.device)
             self.total_dropped = 0
             return
-        idx = self._idx(sessions)
-        fresh = init_batched_cache(self.cfg, 1, self.device)
-        for full, one in zip(self.state, fresh):
-            full[idx] = one
+        for slot in self.check(sessions).reshape(-1).tolist():
+            rows = [x[slot] for x in self.state]
+            for group in self._dtype_groups:
+                torch._foreach_copy_([rows[i] for i in group],
+                                     [self._empty[i] for i in group])
 
     @property
     def n_docs(self) -> np.ndarray:

@@ -103,7 +103,6 @@ _FILL_DROPPED = sync_site("fill_dropped")
 _SCATTER_ROWS = sync_site("scatter_rows")
 _FILL_IDS = sync_site("fill_ids")
 _FILL_SCORES = sync_site("fill_scores")
-_OPEN_IDX = sync_site("open_idx")
 
 
 @dataclasses.dataclass
@@ -211,8 +210,11 @@ class BatchedEngine:
         self._gen = np.zeros((n_sessions,), np.int64)
 
     def start_session(self, session: int):
-        self.cache.reset(_OPEN_IDX.device(self.cache.check([session]),
-                                          self.device))
+        """Empty ``session``'s slot for a new conversation.  The cache row is
+        reset in place from the host slot alone (no sync, no allocation), on
+        the current stream, which orders it before the slot's first wave:
+        ``submit`` follows ``open`` on the caller's thread."""
+        self.cache.reset(int(session))
         self.turns[session] = []
         self._prefetched[session].clear()
         self._gen[session] += 1
@@ -226,8 +228,8 @@ class BatchedEngine:
             n_corpus=int(self.doc_embeddings.shape[0]))
         bad = np.nonzero(~np.asarray(ok))[0]
         if bad.size:
-            self.cache.reset(bad.tolist())
             for s in bad:
+                self.cache.reset(int(s))
                 self._prefetched[int(s)].clear()
             self.quarantined += int(bad.size)
             self.telemetry.record_fault("quarantined_slots", int(bad.size))

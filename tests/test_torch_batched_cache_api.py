@@ -151,10 +151,10 @@ def test_hit_sessions_state_untouched_as_in_jax():
     assert tcache.total_dropped == jc.total_dropped
 
 
-def test_reset_sessions_isolates_one_session_as_in_jax():
+def _filled_caches(S=3, KC=4):
+    """A JAX and a port cache of S sessions after one insert each."""
     kw = dict(capacity=16, dim=DIM)
     jcfg, tcfg = J.CacheConfig(**kw), tc.CacheConfig(**kw)
-    S, KC = 3, 4
     rng = np.random.default_rng(2)
     args = (_unit(rng, S), np.full(S, 0.5, np.float32),
             _unit(rng, S * KC).reshape(S, KC, DIM),
@@ -164,6 +164,26 @@ def test_reset_sessions_isolates_one_session_as_in_jax():
     jc.insert(*(jnp.asarray(a) for a in args))
     tcache.insert(*args)
     assert tcache.n_docs.tolist() == [KC] * S
+    return jcfg, tcfg, jc, tcache
+
+
+def _reset_one_in_place(tcache, sessions, slot, tcfg):
+    """``tcache.reset(sessions)`` empties ``slot`` in place: the row equals
+    ``init_cache``, every other row and every leaf's storage is unchanged."""
+    before = [x.clone() for x in tcache.state]
+    ptrs = [x.data_ptr() for x in tcache.state]
+    tcache.reset(sessions)
+    assert [x.data_ptr() for x in tcache.state] == ptrs
+    _states_equal(tc.CacheState(*(x[slot] for x in tcache.state)),
+                  tc.init_cache(tcfg, "cpu"), tcfg)
+    for f, a, b in zip(tc.CacheState._fields, before, tcache.state):
+        keep = [s for s in range(tcache.n_sessions) if s != slot]
+        assert torch.equal(a[keep], b[keep]), f
+
+
+def test_reset_sessions_isolates_one_session_as_in_jax():
+    jcfg, tcfg, jc, tcache = _filled_caches()
+    KC = 4
     mask = np.array([False, True, False])
     # the functional reset of the JAX package, the in-place one here
     jstate = J.reset_sessions(jc.state, jcfg, jnp.asarray(mask))
@@ -171,13 +191,52 @@ def test_reset_sessions_isolates_one_session_as_in_jax():
     assert tc.reset_sessions(tstate, tcfg, mask) is tstate
     _states_equal(tstate, jstate, tcfg)
     jc.reset([1])
-    tcache.reset([1])
+    _reset_one_in_place(tcache, [1], 1, tcfg)
     assert tcache.n_docs.tolist() == [KC, 0, KC]
     assert tcache.n_queries.tolist() == [1, 0, 1]
     _states_equal(tcache.state, jc.state, tcfg)
     _states_equal(tc.CacheState(*(x[1] for x in tcache.state)),
                   J.init_cache(jcfg), tcfg)
     _states_equal(tstate, tcache.state, tcfg)
+
+
+@pytest.mark.parametrize("sessions", [1, np.int64(1), torch.tensor([1])],
+                         ids=["int", "np_int", "index_tensor"])
+def test_reset_one_slot_in_place_as_list_and_jax(sessions):
+    """A host slot given as an ``int`` (the open's), a numpy integer or a
+    one-element host index resets the row as ``reset([1])`` does, here and
+    in the JAX package; a slot outside the cache is refused."""
+    _, tcfg, jc, tcache = _filled_caches()
+    *_, twin = _filled_caches()
+    _reset_one_in_place(tcache, sessions, 1, tcfg)
+    twin.reset([1])
+    jc.reset([1])
+    for a, b in zip(tcache.state, twin.state):
+        assert torch.equal(a, b)
+    _states_equal(tcache.state, jc.state, tcfg)
+    with pytest.raises(IndexError):
+        tcache.reset(3)
+    with pytest.raises(IndexError):
+        tcache.reset(-1)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_reset_one_slot_in_place_at_each_storage_dtype(dtype):
+    """With a narrower payload the row's leaves span three dtypes, one
+    ``_foreach_copy_`` each; the host slot's reset equals the list's."""
+    cfg = tc.CacheConfig(capacity=16, dim=DIM, store_dtype=dtype)
+    rng = np.random.default_rng(4)
+    args = (_unit(rng, 3), np.full(3, 0.5, np.float32),
+            _unit(rng, 12).reshape(3, 4, DIM),
+            np.arange(12, dtype=np.int32).reshape(3, 4))
+    a, b = (BatchedMetricCache(cfg, 3, "cpu") for _ in range(2))
+    for c in (a, b):
+        c.insert(*args)
+    assert len({x.dtype for x in a.state}) == 3
+    _reset_one_in_place(a, 2, 2, cfg)
+    b.reset([2])
+    for x, y in zip(a.state, b.state):
+        assert torch.equal(x, y)
 
 
 def test_gather_scatter_roundtrip_as_in_jax():

@@ -135,6 +135,57 @@ def test_session_manager_serves_waves(world):
         assert eng.hit_rate() == ref.hit_rate()
 
 
+def test_recycled_slot_opens_empty_as_in_jax(world):
+    """A key closed after two turns hands its slot to the next key opened:
+    the reset row equals a fresh one, the other slot's row is untouched,
+    the generation is bumped, and the new key's first turn (the old key's
+    query, which the old cache holds) is a miss.  Every turn's decision
+    and ids equal the JAX engine's on the same turns."""
+    from repro_torch.core.cache_ops import init_cache
+
+    _w, docs, streams = world
+    ids = np.arange(docs.shape[0], dtype=np.int32)
+    dim = docs.shape[1]
+    q0, q1 = streams[0][0], streams[0][1]
+    before = [("a", q0), ("a", q0), ("c", streams[1][0])]
+    after = [("b", q0), ("b", q1), ("b", q1)]
+    slot = {"a": 0, "c": 1, "b": 0}
+    with JRouter([JShard(docs, ids, backend="ref", dtype="fp32")],
+                 deadline_s=30) as jr, \
+            ShardedRouter([DeviceShard(docs, ids, device="cpu",
+                                       dtype="fp32")], deadline_s=30) as tr:
+        jeng = JEngine(jr, docs, dim=dim, n_sessions=2, k=K, k_c=KC,
+                       capacity=CAP, backend="ref", dtype="fp32")
+        want = []
+        for part, opened in ((before, (0, 1)), (after, (0,))):
+            for s in opened:
+                jeng.start_session(s)
+            want += [jeng.answer_batch([slot[key]], [jnp.asarray(q)])[0]
+                     for key, q in part]
+        eng = BatchedEngine(tr, docs, dim=dim, n_sessions=2, k=K, k_c=KC,
+                            capacity=CAP, dtype="fp32", device="cpu")
+        fresh = init_cache(eng.cache.cfg, "cpu")
+        with SessionManager(eng) as mgr:
+            assert (mgr.open("a"), mgr.open("c")) == (0, 1)
+            got = [mgr.submit(key, q).result(timeout=60)
+                   for key, q in before]
+            other = [x[1].clone() for x in eng.cache.state]
+            mgr.close("a")
+            assert mgr.open("b") == 0 and eng._gen.tolist() == [2, 1]
+            for f, a, b in zip(fresh._fields, fresh, eng.cache.state):
+                assert torch.equal(b[0], a), f
+            got += [mgr.submit(key, q).result(timeout=60)
+                    for key, q in after]
+            for f, a, b in zip(fresh._fields, other, eng.cache.state):
+                assert torch.equal(b[1], a), f
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.ids, a.ids)
+        assert (b.hit, b.tier) == (a.hit, a.tier)
+    assert [t.tier for t in got[:4]] == ["backend", "l1", "backend",
+                                         "backend"]
+    assert got[5].tier == "l1"
+
+
 def test_two_shards_and_outage(world):
     """A corpus split over two shards answers as one shard does; with the
     back end down, warm sessions answer from their caches (degraded) and a

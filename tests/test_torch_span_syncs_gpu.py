@@ -13,6 +13,7 @@ or on the router's pool, where the router counts a failed shard call.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -81,8 +82,13 @@ def test_a_sessions_wave_syncs_only_in_sync_spans(card):
     waves = [list(_tokens(rng, cfg.vocab_size)) for _ in range(4)]
     with router, SessionManager(eng, max_slots=WAVE) as mgr:
         with strict_syncs():
+            t_open = time.perf_counter_ns()
+            made = torch.cuda.memory_stats()["allocation.all.allocated"]
             for key in slots:
                 mgr.open(key)
+            assert torch.cuda.memory_stats()[
+                "allocation.all.allocated"] == made
+            opened = SPANS.window(t_open, time.perf_counter_ns())
             turns = eng.answer_batch(slots, waves[0])      # all misses
             turns += eng.answer_batch(slots, waves[0])     # all hits
             for w in waves[1:]:
@@ -102,7 +108,9 @@ def test_a_sessions_wave_syncs_only_in_sync_spans(card):
     # probe 5; with misses the scan's 3 and the documents' 2, and the
     # fill's 8; without, the fill's 3
     assert sorted(set(per_wave.values())) == [8, 18], per_wave
-    assert sp.of("serve.sync.open_idx").sum() == WAVE
+    # the opens reset their slots in place: no sync, no allocation
+    assert opened.of("serve.open").sum() == WAVE
+    assert not opened.of("serve.sync.").any()
 
 
 def test_a_seqrec_request_syncs_only_in_sync_spans(card):
