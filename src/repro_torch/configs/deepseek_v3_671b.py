@@ -1,7 +1,10 @@
 """deepseek-v3-671b [arXiv:2412.19437]: 61L d7168, MLA (128 heads), MoE
 256 routed experts top-8 + 1 shared, first 3 layers dense (d_ff 18432),
 MTP depth 1, vocab 129280.
-The torch twin of ``repro.configs.deepseek_v3_671b``."""
+The torch twin of ``repro.configs.deepseek_v3_671b``: it routes by the JAX
+package's softmax top-k into capacity slots, not by DeepSeek-V3's sigmoid
+scores with a correction bias (``MoEConfig.scoring`` "sigmoid", which
+``moonlight_16b_a3b`` uses), so that it keeps its parity with the twin."""
 
 import torch
 

@@ -3,12 +3,26 @@
 The port of ``repro.models.moe`` (its single-device path, ``moe_ffn``).
 Routing is a softmax over the experts, the stable top-k of it, optionally
 renormalised over the chosen k (DeepSeek), and the Switch / GShard
-auxiliary load-balancing loss.  Each (token, choice) takes the next slot of
-its expert's queue in token-major order; a choice past ``capacity`` is
-dropped.  The expert product is batched over all E experts, each on its
-(capacity, d) slot buffer, as the JAX package computes it: a decode step
-of a few tokens reads every expert's weights.  Shared experts (DeepSeek,
-Llama 4) run densely beside the routed path.
+auxiliary load-balancing loss.  ``MoEConfig.scoring`` "sigmoid" is
+DeepSeek-V3's router instead (``noaux_tc`` with one group): sigmoid
+scores in f32, the k experts chosen by score + a learned correction bias
+(``score_bias``), the chosen *unbiased* scores as gates, renormalised
+over the k and scaled by ``routed_scale``.  Each (token, choice) takes
+the next slot of its expert's queue in token-major order; a choice past
+``capacity`` is dropped.  The expert product is batched over all E
+experts, each on its (capacity, d) slot buffer, as the JAX package
+computes it: a decode step of a few tokens reads every expert's weights.
+Shared experts (DeepSeek, Llama 4) run densely beside the routed path.
+
+``moe_ffn_dropless`` is the serving form, chosen by ``capacity_factor``
+None: no choice is dropped and pad rows are neither routed nor computed.
+The real tokens' (token, choice) pairs are sorted by expert, the routed
+products run as one grouped product over the experts with the group ends
+kept on the device (``expert_products``: ``torch._grouped_mm`` on the
+card, a loop on the CPU), and the results combine in choice order in f32
+with no atomics.  It takes no host sync and allocates by shape alone.
+Each call is a ``serve.moe`` span and adds its routed real tokens per
+expert to ``serve.telemetry.EXPERT_LOAD``.
 
 ``moe_ffn_sharded`` is the expert-parallel form over a ``DeviceMesh``
 (the JAX package's ``shard_map`` version): tokens split over the data
@@ -16,7 +30,7 @@ axes, experts over ``"model"``, each model rank running its own experts on
 its data rank's tokens and the partial outputs summed over ``"model"``.
 
 The products are plain ``torch`` calls (XLA's in the JAX package); there
-is no kernel.
+is no kernel of the port.
 """
 
 from __future__ import annotations
@@ -31,7 +45,8 @@ from repro_torch.dist.api import P, axis_sizes, constrain, data_axes, \
 from repro_torch.models import common as cm
 
 __all__ = ["MoEConfig", "init_moe", "MoEOut", "Routing", "capacity_for",
-           "route", "moe_ffn", "moe_ffn_sharded"]
+           "route", "moe_ffn", "moe_ffn_dropless", "expert_products",
+           "moe_ffn_sharded"]
 
 
 class MoEConfig(NamedTuple):
@@ -40,10 +55,13 @@ class MoEConfig(NamedTuple):
     d_ff: int                    # per routed expert
     n_shared: int = 0
     d_ff_shared: int = 0         # defaults to d_ff * n_shared when 0
-    capacity_factor: float = 1.25
+    # slots an expert per even share; None: ``moe_ffn_dropless``
+    capacity_factor: Optional[float] = 1.25
     aux_loss_weight: float = 1e-3
     norm_topk: bool = True       # renormalize selected gates (DeepSeek)
     router_dtype: torch.dtype = torch.float32
+    scoring: str = "softmax"     # "sigmoid": DeepSeek-V3's biased choice
+    routed_scale: float = 1.0    # gates times this (routed_scaling_factor)
 
 
 def init_moe(cfg: MoEConfig, d_model: int, dtype, *, lead=(), device=None,
@@ -59,6 +77,13 @@ def init_moe(cfg: MoEConfig, d_model: int, dtype, *, lead=(), device=None,
         "wi": cm.normal(lead + (e, d_model, 2 * f), d_model ** -0.5, **kw),
         "wo": cm.normal(lead + (e, f, d_model), f ** -0.5, **kw),
     }
+    if cfg.scoring == "sigmoid":
+        # DeepSeek-V3's e_score_correction_bias: zero until trained
+        p["score_bias"] = torch.zeros(lead + (e,), dtype=torch.float32,
+                                      device=device)
+    elif cfg.scoring != "softmax":
+        raise ValueError(f"scoring {cfg.scoring!r}: expected softmax or "
+                         f"sigmoid")
     if cfg.n_shared:
         fs = cfg.d_ff_shared or f * cfg.n_shared
         p["shared_wi"] = cm.normal(lead + (d_model, 2 * fs),
@@ -101,16 +126,38 @@ def route(params: dict, x: torch.Tensor, cfg: MoEConfig,
           capacity: Optional[int] = None) -> Routing:
     """The router of ``moe_ffn`` on x (T, d)."""
     capacity = capacity_for(x.shape[0], cfg, capacity)
-    # the router's product in f32 (x.astype(f32) @ router in the JAX package)
-    logits = x.to(cfg.router_dtype) @ params["router"]               # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = _top_k(probs, cfg)
-
+    probs, gate_vals, expert_ids = _router(params, x, cfg)
     flat = expert_ids.reshape(-1)                                    # (T*K,)
     aux, pos = _aux_and_positions(probs, flat, cfg)
     keep = pos < capacity
     return Routing(flat, pos, keep, gate_vals.reshape(-1) * keep, capacity,
                    aux.to(torch.float32))
+
+
+def _router(params: dict, x: torch.Tensor, cfg: MoEConfig):
+    """(the router's scores (T, E), the chosen gates and experts (T, K)
+    each) of x (T, d): the product in f32 (x.astype(f32) @ router in the
+    JAX package), then the softmax's top k, or DeepSeek-V3's choice."""
+    logits = x.to(cfg.router_dtype) @ params["router"]               # (T, E)
+    if cfg.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        return (scores,) + _biased_top_k(scores, params["score_bias"], cfg)
+    probs = torch.softmax(logits, dim=-1)
+    return (probs,) + _top_k(probs, cfg)
+
+
+def _biased_top_k(scores: torch.Tensor, bias: torch.Tensor, cfg: MoEConfig):
+    """DeepSeek-V3's choice (``noaux_tc`` with one group, which selects
+    nothing): the stable top k of ``scores + bias``, the chosen unbiased
+    scores as gates, over their sum (+ 1e-20) when ``norm_topk``, times
+    ``routed_scale``."""
+    _, expert_ids = torch.sort(scores + bias, dim=-1, descending=True,
+                               stable=True)
+    expert_ids = expert_ids[:, :cfg.top_k]
+    gate_vals = torch.gather(scores, 1, expert_ids)
+    if cfg.norm_topk:
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-20)
+    return gate_vals * cfg.routed_scale, expert_ids
 
 
 def _top_k(probs: torch.Tensor, cfg: MoEConfig):
@@ -190,6 +237,85 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     return MoEOut(y, r.aux_loss)
 
 
+def expert_products(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                    ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SwiGLU experts over the rows of x (M, d).
+
+    With ``ends`` (G,) int32 on x's device, the rows [ends[g - 1],
+    ends[g]) go through expert g of ``wi`` (G, d, 2f) and ``wo`` (G, f,
+    d): on the card two grouped products (``torch._grouped_mm``, the group
+    ends read on the device), on the CPU a loop over the experts.  Rows
+    past ends[-1] are not computed and their output rows are left
+    undefined.  Without ``ends``, every row through the one expert ``wi``
+    (d, 2f), ``wo`` (f, d).
+
+    The serving path calls it by its module name, so a caller can wrap it
+    (the benchmark puts a range around each call)."""
+    if ends is None:
+        return _swiglu(x, wi, wo)
+    if x.is_cuda:
+        gate, up = torch._grouped_mm(x, wi, offs=ends).chunk(2, dim=-1)
+        return torch._grouped_mm(torch.nn.functional.silu(gate) * up, wo,
+                                 offs=ends)
+    out = x.new_zeros((x.shape[0], wo.shape[-1]))
+    lo = 0
+    for g, hi in enumerate(ends.tolist()):
+        if hi > lo:
+            out[lo:hi] = _swiglu(x[lo:hi], wi[g], wo[g])
+        lo = hi
+    return out
+
+
+def moe_ffn_dropless(params: dict, x: torch.Tensor, cfg: MoEConfig,
+                     real: Optional[torch.Tensor] = None,
+                     layer: Optional[int] = None) -> MoEOut:
+    """x: (T, d) token-major; ``real`` (T,) bool marks the real tokens
+    (None: every row).  Every real token's k choices are computed; a pad
+    row is neither routed nor computed and its routed part is zero (its
+    shared experts run, as its attention does).  Returns the output and a
+    zero aux loss (the serving form; DeepSeek-V3 balances by its bias).
+
+    The (token, choice) pairs are sorted by expert, pads' after every
+    expert's, and gathered into one (T * K, d) block; ``expert_products``
+    runs the experts over their runs of it, with the runs' ends as a
+    device tensor.  The combine gathers each token's k results back in
+    choice order and sums them, times their gates, in f32.  With ``layer``
+    the routed real tokens per expert go into ``EXPERT_LOAD`` (on the
+    device)."""
+    # imported here: the serving package imports this module
+    from repro_torch.serve.telemetry import EXPERT_LOAD, SPANS
+    with SPANS.kind("serve.moe"):
+        t, d = x.shape
+        e, k = cfg.n_experts, cfg.top_k
+        _scores, gates, ids = _router(params, x, cfg)
+        flat = ids.reshape(-1)                                       # (T*K,)
+        if real is not None:
+            # a pad's choices go to bucket E, past every expert's run
+            flat = torch.where(real[:, None].expand(t, k).reshape(-1), flat,
+                               e)
+        counts = torch.zeros(e + 1, dtype=torch.int64, device=x.device) \
+            .scatter_add_(0, flat, torch.ones_like(flat))
+        order = torch.argsort(flat, stable=True)
+        out = expert_products(x[order // k], params["wi"], params["wo"],
+                              torch.cumsum(counts[:e], 0).to(torch.int32))
+        # where each (token, choice) went in the sorted block
+        pos = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=x.device)).view(t, k)
+        y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+        for kk in range(k):
+            y = y + out[pos[:, kk]].to(torch.float32) * gates[:, kk, None]
+        if real is not None:
+            # pads read rows past the last run, which hold no result
+            y = torch.where(real[:, None], y, 0.0)
+        y = constrain(y.to(x.dtype), "moe_out")
+        if "shared_wi" in params:
+            y = y + expert_products(x, params["shared_wi"],
+                                    params["shared_wo"])
+        if layer is not None:
+            EXPERT_LOAD.add(layer, counts, k)
+    return MoEOut(y, torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def _moe_local(x: torch.Tensor, router: torch.Tensor, wi: torch.Tensor,
                wo: torch.Tensor, cfg: MoEConfig, e0: int, capacity: int):
     """One rank's share of ``moe_ffn_sharded``: its data rank's tokens x
@@ -247,6 +373,9 @@ def moe_ffn_sharded(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh,
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
+    if cfg.scoring != "softmax" or cfg.capacity_factor is None:
+        raise ValueError("the expert-parallel form routes by softmax into "
+                         "capacity slots")
     sizes = axis_sizes(mesh)
     names = tuple(sizes)
     dp = data_axes(mesh)

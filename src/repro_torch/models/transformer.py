@@ -8,10 +8,13 @@ JAX package's LM architectures:
   * MLA latent attention (deepseek-v3): the prefill up-projects the
     latent to per-head keys and values, the decode step attends in the
     latent space against the (c_kv, k_rope) cache (the absorbed form);
+    with ``q_lora_rank`` None (Moonlight) q is one projection of x;
   * MoE FFN with shared experts (``models.moe``: deepseek 256 experts
     top-8 + 1 shared, llama4-scout 16 top-1 + 1 shared) after
     ``n_dense_layers`` dense ones, and deepseek's MTP head
-    (``mtp_logits``);
+    (``mtp_logits``); a dropless MoE config (``capacity_factor`` None)
+    gets the real-token mask of the rows (ids >= 0), so that pads are
+    neither routed nor computed, and nothing else builds it;
   * RoPE (full, chatglm's interleaved half), per-layer local / global
     window schedules, attention and final logit softcaps, pre + post and
     zero-centred RMSNorms (gemma2), scaled embeddings, tied or untied head;
@@ -63,7 +66,7 @@ from repro_torch.dist.api import active_mesh, active_rules, axis_sizes, \
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models.moe import MoEConfig, init_moe, moe_ffn, \
-    moe_ffn_sharded
+    moe_ffn_dropless, moe_ffn_sharded
 
 __all__ = ["REMAT_POLICIES", "MLAConfig", "TransformerConfig",
            "init_params", "param_count", "active_param_count",
@@ -75,7 +78,7 @@ __all__ = ["REMAT_POLICIES", "MLAConfig", "TransformerConfig",
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
-    q_lora_rank: int = 1536
+    q_lora_rank: Optional[int] = 1536       # None: q = x @ wq, no latent
     kv_lora_rank: int = 512
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
@@ -161,11 +164,15 @@ def _init_attn(cfg: TransformerConfig, lead: tuple, kw: dict) -> dict:
         dn, dr, dv, r = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
                          m.kv_lora_rank)
         ones = dict(dtype=torch.float32, device=kw["device"])
+        if m.q_lora_rank is None:
+            q = {"wq": cm.normal(lead + (d, h * (dn + dr)), s, **kw)}
+        else:
+            q = {"wdq": cm.normal(lead + (d, m.q_lora_rank), s, **kw),
+                 "q_norm": torch.ones(lead + (m.q_lora_rank,), **ones),
+                 "wuq": cm.normal(lead + (m.q_lora_rank, h * (dn + dr)),
+                                  m.q_lora_rank ** -0.5, **kw)}
         return {
-            "wdq": cm.normal(lead + (d, m.q_lora_rank), s, **kw),
-            "q_norm": torch.ones(lead + (m.q_lora_rank,), **ones),
-            "wuq": cm.normal(lead + (m.q_lora_rank, h * (dn + dr)),
-                             m.q_lora_rank ** -0.5, **kw),
+            **q,
             "wdkv": cm.normal(lead + (d, r), s, **kw),
             "kv_norm": torch.ones(lead + (r,), **ones),
             "wkr": cm.normal(lead + (d, dr), s, **kw),
@@ -367,8 +374,11 @@ def _attn_mla(p: dict, x: torch.Tensor, rope, window: int,
     h = cfg.n_heads
     dn, dr, dv, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
 
-    cq = cm.rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    qall = (cq @ p["wuq"]).view(b, s, h, dn + dr)
+    if m.q_lora_rank is None:
+        qall = (x @ p["wq"]).view(b, s, h, dn + dr)
+    else:
+        cq = cm.rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+        qall = (cq @ p["wuq"]).view(b, s, h, dn + dr)
     q_nope = qall[..., :dn]
     q_rope = cm.rotate(qall[..., dn:], *rope)
     ckv = cm.rms_norm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)    # (b,s,r)
@@ -424,11 +434,16 @@ def _dense_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wo"]
 
 
-def _moe(p: dict, x: torch.Tensor, cfg: MoEConfig):
-    """The MoE FFN of x (T, d): ``moe_ffn_sharded`` under an active mesh
-    of more than one rank whose ``"model"`` axis divides the experts and
-    whose data ranks divide the tokens (the JAX package's rule: a tiny
-    decode batch takes ``moe_ffn``), else ``moe_ffn``."""
+def _moe(p: dict, x: torch.Tensor, cfg: MoEConfig,
+         real: Optional[torch.Tensor] = None, layer: Optional[int] = None):
+    """The MoE FFN of x (T, d): ``moe_ffn_dropless`` for a dropless config
+    (``real`` the real-token mask, ``layer`` the layer's index), else
+    ``moe_ffn_sharded`` under an active mesh of more than one rank whose
+    ``"model"`` axis divides the experts and whose data ranks divide the
+    tokens (the JAX package's rule: a tiny decode batch takes
+    ``moe_ffn``), else ``moe_ffn``."""
+    if cfg.capacity_factor is None:
+        return moe_ffn_dropless(p, x, cfg, real, layer)
     mesh = active_mesh()
     if mesh is not None:
         sizes = axis_sizes(mesh)
@@ -444,9 +459,11 @@ def _moe(p: dict, x: torch.Tensor, cfg: MoEConfig):
 
 def _block(p: dict, x: torch.Tensor, rope, window: int,
            cfg: TransformerConfig, kind: str, masks: dict, cache=None,
-           cur_len: Optional[int] = None):
+           cur_len: Optional[int] = None,
+           real: Optional[torch.Tensor] = None, layer: Optional[int] = None):
     """One layer.  Returns (x, aux loss or None for a dense layer, the
-    attention's (k, v) / latent pair or the updated cache)."""
+    attention's (k, v) / latent pair or the updated cache).  ``real`` (B *
+    S,) and ``layer`` go to a dropless MoE layer."""
     def norm(t, scale):
         return cm.rms_norm(t, scale, cfg.norm_eps, cfg.zero_centered_norm)
 
@@ -459,9 +476,11 @@ def _block(p: dict, x: torch.Tensor, rope, window: int,
     f_in = norm(x, p["pre_ffn_norm"])
     aux = None
     if kind == "moe":
-        # every (batch, position) row is a token to the router, pads too
+        # every (batch, position) row is a token to the router, pads too,
+        # unless the dropless path is given the real-token mask
         b, s, d = f_in.shape
-        f_out, aux = _moe(p["ffn"], f_in.reshape(b * s, d), cfg.moe)
+        f_out, aux = _moe(p["ffn"], f_in.reshape(b * s, d), cfg.moe, real,
+                          layer)
         f_out = constrain(f_out, "moe_out").view(b, s, d)
     else:
         f_out = _dense_ffn(p["ffn"], f_in)
@@ -529,6 +548,9 @@ def _trunk(params: dict, tokens, cfg: TransformerConfig,
     rope = _rope(cfg, torch.arange(s, device=x.device))
     windows = cfg.window_schedule()
     masks: dict = {}
+    # the dropless MoE path alone reads which rows are real
+    real = (tokens.reshape(-1) >= 0 if cfg.moe is not None
+            and cfg.moe.capacity_factor is None else None)
     kv_names = (("mla_cache", "mla_cache_r") if cfg.attention == "mla"
                 else ("kv_cache", "kv_cache"))
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -540,7 +562,8 @@ def _trunk(params: dict, tokens, cfg: TransformerConfig,
         for i in range(count):
             block = functools.partial(_block, _layer(stack, i),
                                       rope=rope, window=windows[base + i],
-                                      cfg=cfg, kind=kind, masks=masks)
+                                      cfg=cfg, kind=kind, masks=masks,
+                                      real=real, layer=base + i)
             if kv_len is None:
                 x, aux = _remat(lambda x, f=block: f(x)[:2], remat)(x)
                 kv = None
@@ -567,7 +590,9 @@ def hidden_states(params: dict, tokens: torch.Tensor,
     """Final-normed hidden states (B, S, D) of a causal forward over
     ``tokens`` (B, S) on the parameters' device: ``forward`` without the
     head.  With right padding (-1), causal attention keeps pads out of
-    every real position; MoE routing does not (they take capacity)."""
+    every real position; so does a dropless MoE config, which neither
+    routes nor computes them.  On the capacity path (the JAX package's)
+    pads are tokens to the router and take capacity."""
     return _trunk(params, tokens, cfg)[0]
 
 

@@ -27,10 +27,15 @@ of Python's collector.
     smoothing follows a wall-clock *horizon* (irregular arrival spacing is
     handled by weighting each observation with ``1 - exp(-dt/horizon)``).
     The scheduler sizes wave buckets and active engine slots from it.
+  * ``EXPERT_LOAD`` — the process's one ``ExpertLoad``: the routed real
+    tokens of each (layer, expert) of the dropless MoE path
+    (``models.moe.moe_ffn_dropless``), and the pad rows it skipped, summed
+    on the device with no sync.
   * ``ServeTelemetry`` — what the engine and scheduler write per turn and
     per wave (counts, the turn totals the scheduler's p99 back-off reads,
     arrivals, faults), and ``summary()``: the operator's view, every span
-    name's count and p50/p95/p99 from the span log beside those.
+    name's count and p50/p95/p99 from the span log beside those, and the
+    expert load.
 
 Recording a span never touches the device.
 """
@@ -52,7 +57,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["TurnSpans", "RingPercentiles", "EwmaRate", "ServeTelemetry",
            "SpanLog", "SpanKind", "SyncSite", "Spans", "SPANS",
-           "strict_syncs"]
+           "strict_syncs", "ExpertLoad", "EXPERT_LOAD"]
 
 
 @dataclasses.dataclass
@@ -490,6 +495,85 @@ SPANS = SpanLog()
 gc.callbacks.append(SPANS._on_gc)
 
 
+class ExpertLoad:
+    """Routed real tokens of each (layer, expert), summed on the device.
+
+    ``add(layer, counts, top_k)`` takes a MoE layer's (E + 1,) int64
+    choice counts on the device, the last entry its pad rows' choices
+    (``top_k`` a pad row), and adds them in place to the row of ``layer``:
+    one launch, no sync (the table grows, with an allocation, only when a
+    layer or width is new: in a model's first forward).  ``snapshot()`` is
+    a device copy of the table (no sync); ``read(since, until)`` brings the
+    table (or the snapshot ``until``), less the snapshot ``since``, to the
+    host (a sync: read it after the window)."""
+
+    def __init__(self):
+        self._counts: Optional[torch.Tensor] = None   # (layers, E + 1)
+        self._top_k: dict = {}                        # layer -> top_k
+        self._lock = threading.Lock()
+
+    def add(self, layer: int, counts: torch.Tensor, top_k: int) -> None:
+        c = self._counts
+        if c is None or layer >= c.shape[0] or c.shape[1] != counts.numel() \
+                or c.device != counts.device:
+            with self._lock:
+                c = self._grow(layer, counts)
+        self._top_k[layer] = top_k
+        c[layer].add_(counts)
+
+    def _grow(self, layer: int, counts: torch.Tensor) -> torch.Tensor:
+        """A table with a row for ``layer``, kept rows carried over; a
+        normal tensor even under ``inference_mode`` (the encoder's), so
+        that a forward outside it can add to it too."""
+        c = self._counts
+        with torch.inference_mode(False):
+            new = torch.zeros((layer + 1, counts.numel()), dtype=torch.int64,
+                              device=counts.device)
+            if c is not None and c.shape[1] == counts.numel() \
+                    and c.device == counts.device:
+                new[:c.shape[0]] = c
+        self._counts = new
+        return new
+
+    def snapshot(self) -> Optional[torch.Tensor]:
+        c = self._counts
+        return None if c is None else c.clone()
+
+    def read(self, since: Optional[torch.Tensor] = None,
+             until: Optional[torch.Tensor] = None) -> Optional[dict]:
+        """{"routed": (layers, E) routed real tokens, "pad_rows": (layers,)
+        pad rows skipped}, as numpy, of the MoE layers seen (the rows of
+        other layers are zero), less ``since``; None before any."""
+        c = self._counts if until is None else until
+        if c is None:
+            return None
+        c = c.cpu().numpy()
+        if since is not None:
+            s = since.cpu().numpy()
+            c = c - np.pad(s, ((0, c.shape[0] - s.shape[0]), (0, 0)))
+        k = np.array([self._top_k.get(i, 1) for i in range(c.shape[0])])
+        return {"routed": c[:, :-1], "pad_rows": c[:, -1] // k}
+
+    def summary(self) -> Optional[dict]:
+        """Per MoE layer: the routed real tokens, the busiest expert's over
+        the mean, and the pad rows skipped (None before any)."""
+        got = self.read()
+        if got is None:
+            return None
+        out = {}
+        for layer in sorted(self._top_k):
+            r = got["routed"][layer]
+            mean = r.mean()
+            out[layer] = {"routed": int(r.sum()),
+                          "max_over_mean": float(r.max() / mean) if mean
+                          else float("nan"),
+                          "pad_rows": int(got["pad_rows"][layer])}
+        return out
+
+
+EXPERT_LOAD = ExpertLoad()
+
+
 class ServeTelemetry:
     """What the serving path writes per turn and per wave, and the
     operator's ``summary()``.
@@ -546,7 +630,9 @@ class ServeTelemetry:
     def summary(self) -> dict:
         """Turns, waves, the arrival rate, the turn totals' p50/p95/p99,
         every span name's count and p50/p95/p99 (``SPANS.summary()``, the
-        process's spans), and the fault counters.  Seconds throughout."""
+        process's spans), the fault counters, and the dropless MoE path's
+        load per layer (``EXPERT_LOAD.summary()``, read from the device:
+        call it after the window).  Seconds throughout."""
         with self._fault_lock:
             faults = dict(self.faults)
             transitions = self.breaker_transitions
@@ -558,4 +644,5 @@ class ServeTelemetry:
             "spans": SPANS.summary(),
             "faults": faults,
             "breaker_transitions": transitions,
+            "expert_load": EXPERT_LOAD.summary(),
         }

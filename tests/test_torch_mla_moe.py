@@ -183,6 +183,9 @@ def test_config_twins_equal_jax(arch):
         ja, tb = a.pop("moe")._asdict(), b.pop("moe")._asdict()
         assert jnp.dtype(ja.pop("router_dtype")).name == \
             str(tb.pop("router_dtype")).removeprefix("torch.")
+        # the port's DeepSeek-V3 router fields, left at the JAX softmax
+        assert (tb.pop("scoring"), tb.pop("routed_scale")) == \
+            ("softmax", 1.0)
         assert ja == tb
         assert a == b
         assert (tc_.head_dim, tc_.v_head_dim, tc_.layer_groups()) == \

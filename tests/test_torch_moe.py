@@ -214,6 +214,8 @@ def test_config_and_init_mirror_jax(name):
     a, b = jcfg._asdict(), cfg._asdict()
     assert jnp.dtype(a.pop("router_dtype")).name == \
         str(b.pop("router_dtype")).removeprefix("torch.")
+    # the port's DeepSeek-V3 router fields, left at the JAX package's rule
+    assert (b.pop("scoring"), b.pop("routed_scale")) == ("softmax", 1.0)
     assert a == b
     want = jax.eval_shape(lambda: jmoe.init_moe(jax.random.key(0), jcfg, D,
                                                 jnp.bfloat16))

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import star_encoder
+from repro_torch.configs import moonlight_16b_a3b, star_encoder
 from repro_torch.core.embedding import transform_documents
 from repro_torch.dist.retrieval import DeviceShard
 from repro_torch.models.recsys import SeqRec, SeqRecConfig
@@ -55,22 +55,24 @@ def _window_since(t0):
     return SPANS.window(int(t0) + 1, 2 ** 62)
 
 
-def test_a_sessions_wave_syncs_only_in_sync_spans(card):
-    gen, rng = card, np.random.default_rng(0)
-    cfg = dataclasses.replace(star_encoder.full_config(), n_layers=2)
+def _waves_sync_only_in_sync_spans(gen, cfg, out_dim):
+    """Waves of the encoder of ``cfg`` through ``BatchedEngine`` and
+    ``SessionManager`` under ``strict_syncs``: every sync in a sync span,
+    18 a wave with misses and 8 without; the span log of the waves."""
+    rng = np.random.default_rng(0)
     model = Transformer(cfg, generator=gen)
-    proj = torch.randn((cfg.d_model, cfg.d_model), generator=gen,
+    proj = torch.randn((cfg.d_model, out_dim), generator=gen,
                        device="cuda") * cfg.d_model ** -0.5
     encode = make_lm_query_encoder(model.params, cfg, proj)
-    raw = torch.randn((N_DOCS, cfg.d_model), generator=gen, device="cuda")
+    raw = torch.randn((N_DOCS, out_dim), generator=gen, device="cuda")
     corpus = torch.zeros((N_DOCS, WIDTH), device="cuda")
-    corpus[:, :cfg.d_model + 1] = transform_documents(raw)[0]
+    corpus[:, :out_dim + 1] = transform_documents(raw)[0]
     del raw
     ids = torch.arange(N_DOCS, dtype=torch.int32, device="cuda")
     router = ShardedRouter([DeviceShard(corpus, ids, dtype="fp32")],
                            deadline_s=60, hedge_after_s=60, max_retries=0,
                            n_docs=N_DOCS)
-    eng = BatchedEngine(router, corpus, dim=cfg.d_model + 1,
+    eng = BatchedEngine(router, corpus, dim=out_dim + 1,
                         n_sessions=2 * WAVE, k=10, k_c=1000, epsilon=0.04,
                         capacity=16_000, encoder=encode, dtype="fp32")
     slots = list(range(WAVE))
@@ -111,6 +113,23 @@ def test_a_sessions_wave_syncs_only_in_sync_spans(card):
     # the opens reset their slots in place: no sync, no allocation
     assert opened.of("serve.open").sum() == WAVE
     assert not opened.of("serve.sync.").any()
+    return sp
+
+
+def test_a_sessions_wave_syncs_only_in_sync_spans(card):
+    cfg = dataclasses.replace(star_encoder.full_config(), n_layers=2)
+    _waves_sync_only_in_sync_spans(card, cfg, cfg.d_model)
+
+
+def test_a_dropless_moe_wave_syncs_only_in_sync_spans(card):
+    """Moonlight's layers at their published widths (the dense one and two
+    MoE layers of 64 experts, bf16): the dropless path's sort, grouped
+    products and combine add no sync to a wave, and each MoE layer of
+    each encoder call is one ``serve.moe`` span."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(moonlight_16b_a3b.full_config(), n_layers=3)
+    sp = _waves_sync_only_in_sync_spans(card, cfg, 768)
+    assert sp.of("serve.moe").sum() == 2 * sp.of("serve.encode").sum() > 0
 
 
 def test_a_seqrec_request_syncs_only_in_sync_spans(card):
