@@ -3829,6 +3829,16 @@ def profile_split(torch, encode, tokens, parts=None):
     return len(device), split, top
 
 
+def encoder_graphs():
+    """The query encoder's graph counts (``ENCODER_GRAPHS.summary()``), or
+    None for a package that keeps none."""
+    try:
+        from repro_torch.serve.telemetry import ENCODER_GRAPHS
+    except ImportError:
+        return None
+    return ENCODER_GRAPHS.summary()
+
+
 def encoder_phase(torch, corpus):
     """The paper's query encoder at the STAR encoder's full width, then
     both engines driven by token turns through it.  Returns {path:
@@ -3906,8 +3916,9 @@ def encoder_phase(torch, corpus):
         tok = rows(b, ENC_SEQ, cfg.vocab_size, [ENC_SEQ] * b).to(DEV)
         ops, nbytes = encoder_ops(cfg, b, ENC_SEQ)
         bms, by = bound(nbytes, ops, F32_OPS)
-        # one forward a reading: its ~700 launches fit the launch queue
-        # behind the sleep, where 50 fill it and the enqueue blocks
+        # one forward a reading: one replay (or, eager, ~700 launches)
+        # fits the launch queue behind the sleep, where 50 eager forwards
+        # fill it and the enqueue blocks
         got = [timed_device(torch, lambda: encode(tok), 1, strict=False)
                for _ in range(reps)]
         got = [ms for ms in got if ms is not None]
@@ -3919,16 +3930,18 @@ def encoder_phase(torch, corpus):
             f"bound {bms:.4f} ms ({by}: {ops / 1e9:.2f} GFLOP at "
             f"{F32_OPS / 1e12:.0f} TFLOP/s f32, {nbytes / 1e6:.0f} MB of "
             f"layer weights at {HBM_BPS / 1e12:.2f} TB/s)")
-    split = profile_split(torch, encode, tok)
+    # a graphed encoder's replay names no operator: split its eager body
+    eager = torch.inference_mode()(getattr(encode, "body", encode))
+    split = profile_split(torch, eager, tok)
     if split is None:
         log("[encoder] profiler split: the profiler saw no device activity "
             "(not measured)")
     else:
-        log(f"[encoder] profiler, one B={S} forward: {split[0]} "
+        log(f"[encoder] profiler, one eager B={S} forward: {split[0]} "
             f"device activities (kernels, copies, fills); device ms by part "
             + json.dumps({k: round(v, 4) for k, v in split[1].items()}))
-        b1 = profile_split(torch, encode, tok[:1])
-        log(f"[encoder] profiler, one B=1 forward: "
+        b1 = profile_split(torch, eager, tok[:1])
+        log(f"[encoder] profiler, one eager B=1 forward: "
             f"{b1[0] if b1 else 'not measured'} device activities; device "
             f"ms by part " + (json.dumps({k: round(v, 4) for k, v in
                                           b1[1].items()}) if b1 else "—"))
@@ -3974,7 +3987,9 @@ def encoder_phase(torch, corpus):
                 out_.append([eng.answer(tok) for tok in conv])
             return out_
 
+    graphs0 = encoder_graphs()
     sessions, launches = counted(torch, one_session)
+    graphs1 = encoder_graphs()
     turns = [t for c in sessions for t in c]
     misses = sum(not t.hit for t in turns)
     want = {name: 0 for name in launches}
@@ -4001,12 +4016,21 @@ def encoder_phase(torch, corpus):
         f"turns {[ENC_REPEATS[t] for t in sorted(ENC_REPEATS)]}): "
         f"{int(hit.sum())} hits, {misses} misses, {checked} miss turns "
         f"equal the exact top-{K} over {n} docs; launches {launches}")
-    p50 = {kind: (np.percentile(lat[m], 50), np.percentile(enc[m], 50))
-           for kind, m in (("hit", hit), ("miss", ~hit))}
-    log("[encoder] one session: turn p50 " + ", ".join(
-        f"{kind} {t:.3f} ms (encoder {e:.3f} ms of it, {e / t:.0%})"
-        for kind, (t, e) in p50.items())
-        + "; host clock, the encoder timed to the device's finish")
+    for q in (50, 95):
+        got = {kind: (np.percentile(lat[m], q), np.percentile(enc[m], q))
+               for kind, m in (("hit", hit), ("miss", ~hit))}
+        log(f"[encoder] one session: turn p{q} " + ", ".join(
+            f"{kind} {t:.3f} ms (encoder {e:.3f} ms of it, {e / t:.0%})"
+            for kind, (t, e) in got.items())
+            + "; host clock, the encoder timed to the device's finish")
+    if graphs0 is None:
+        log("[encoder] one session: the encoder keeps no graph counts")
+    else:
+        log(f"[encoder] one session: {len(turns)} encoder calls, "
+            f"{graphs1['captures'] - graphs0['captures']} graph captures, "
+            f"{graphs1['replays'] - graphs0['replays']} replays, "
+            f"{graphs1['eager'] - graphs0['eager']} eager; shapes held "
+            f"{graphs1['shapes']}")
     paths["encoder_session"] = launches
     del sessions, turns
     gc.collect()
@@ -4380,7 +4404,9 @@ def lm_encoder(torch, params, cfg, gen):
                 out.append([eng.answer(t) for t in conv])
             return out
 
+    graphs0 = encoder_graphs()
     sessions, launches = counted(torch, one_session)
+    graphs1 = encoder_graphs()
     turns = [t for c in sessions for t in c]
     misses = sum(not t.hit for t in turns)
     want = {name: 0 for name in launches}

@@ -27,9 +27,14 @@ from repro_torch.core.cache_ops import CacheConfig
 from repro_torch.core.embedding import transform_queries
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.serve.telemetry import ENCODER_GRAPHS, SPANS, sync_site
 
-__all__ = ["make_lm_query_encoder", "EngineTurn", "ConversationalEngine",
-           "radius_and_docs", "radius_from_scores"]
+__all__ = ["make_lm_query_encoder", "graphable", "pad_length",
+           "EngineTurn", "ConversationalEngine", "radius_and_docs",
+           "radius_from_scores"]
+
+_CAPTURE = SPANS.kind("serve.encoder_capture")
+_CAPTURE_SYNC = sync_site("encoder_capture")
 
 
 def make_lm_query_encoder(params: dict, cfg, proj, *,
@@ -44,14 +49,25 @@ def make_lm_query_encoder(params: dict, cfg, proj, *,
     or a multiple of it), and returns psi (B, l + 1) f32 on the device.
     It runs ``hidden_states``, never the head: no logits.  One session's
     engine takes ``lambda t: encode(t[None])[0]``.
+
+    On a card, a trunk that ``graphable`` admits runs the whole body
+    (hidden states, pool, projection, transform) as one CUDA graph for
+    each batch size, power-of-two row length and dtype of ``tokens``,
+    captured the first time it is seen (``_GraphedEncoder``): a call then
+    costs the host one pad, one copy, one replay and one clone instead of
+    a launch per op.  Its psi is the eager forward's bit for bit where S
+    is a power of two, and to rounding where the pad widens the rows
+    (causal attention and the masked pool keep pads out of every real
+    row).  A trunk with MoE layers stays eager: each of its layers
+    records a ``serve.moe`` span and adds to ``EXPERT_LOAD`` on the host,
+    which a replay would not.  So does the CPU, unpadded.
+    ``serve.telemetry.ENCODER_GRAPHS`` counts either way.
     """
     dev = resolve_device(device)
     params = _to_device(params, dev)
     proj = torch.as_tensor(proj, device=dev)
 
-    @torch.inference_mode()
-    def encode(tokens) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens, device=dev)
+    def body(tokens: torch.Tensor) -> torch.Tensor:
         hidden = tf.hidden_states(params, tokens, cfg)
         mask = (tokens >= 0)[..., None]
         pooled = (hidden * mask).sum(1) / torch.clamp(mask.sum(1), min=1)
@@ -59,7 +75,96 @@ def make_lm_query_encoder(params: dict, cfg, proj, *,
         dt = torch.promote_types(pooled.dtype, proj.dtype)
         return transform_queries(pooled.to(dt) @ proj.to(dt))
 
+    if dev.type == "cuda" and graphable(cfg):
+        return _GraphedEncoder(body, dev, (cfg.q_chunk, cfg.kv_chunk))
+
+    @torch.inference_mode()
+    def encode(tokens) -> torch.Tensor:
+        ENCODER_GRAPHS.count("eager")
+        return body(torch.as_tensor(tokens, device=dev))
+
     return encode
+
+
+def graphable(cfg) -> bool:
+    """Whether the query encoder replays ``cfg``'s trunk from a CUDA graph
+    on a card: a trunk without MoE layers.  The dropless MoE layer's
+    ``serve.moe`` spans and ``EXPERT_LOAD`` adds are host work per layer
+    and call, which a replay skips."""
+    return cfg.moe is None
+
+
+class _GraphedEncoder:
+    """``body(tokens)`` replayed from one CUDA graph per shape and dtype
+    of ``tokens`` right-padded with -1 to a power-of-two length
+    (``pad_length``), all in one memory pool: a caller that varies S,
+    such as one session's engine at B = 1, gets a graph for each power of
+    two, not for each S.
+
+    A new shape is captured inside a ``serve.encoder_capture`` span: two
+    eager passes on a side stream (cuBLAS makes its workspace for that
+    stream there), a device sync (``serve.sync.encoder_capture``), then
+    the capture in thread-local mode, so that other threads launching work
+    meanwhile neither break it nor land in it.  A call copies the tokens
+    into the graph's input, replays on the caller's stream and returns a
+    clone of the output, which the next call cannot overwrite.  A graph
+    reuses its input and output, and the graphs share their scratch, so
+    calls are made on one stream, one after another (as the engines make
+    them); a graph keeps the math settings (TF32) in force when it was
+    captured.  ``body`` is the eager forward, op by op."""
+
+    WARMUP = 2
+
+    def __init__(self, body: Callable, dev: torch.device, chunks: tuple):
+        self.body, self._dev, self._chunks = body, dev, chunks
+        self._graphs: dict = {}          # (shape, dtype) -> (graph, in, out)
+        self._stream = torch.cuda.Stream(dev)
+        self._pool = torch.cuda.graph_pool_handle()
+
+    @torch.inference_mode()
+    def __call__(self, tokens) -> torch.Tensor:
+        tokens = pad_length(torch.as_tensor(tokens, device=self._dev),
+                            self._chunks)
+        key = (tokens.shape, tokens.dtype)
+        held = self._graphs.get(key)
+        if held is None:
+            with _CAPTURE:
+                held = self._graphs[key] = self._record(tokens)
+            ENCODER_GRAPHS.count("captures", tuple(tokens.shape))
+        graph, static_in, static_out = held
+        static_in.copy_(tokens)
+        graph.replay()
+        ENCODER_GRAPHS.count("replays")
+        return static_out.clone()
+
+    def _record(self, tokens: torch.Tensor) -> tuple:
+        static_in = tokens.clone()
+        self._stream.wait_stream(torch.cuda.current_stream(self._dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._stream):
+            for _ in range(self.WARMUP):
+                self.body(static_in)
+            with _CAPTURE_SYNC:
+                torch.cuda.synchronize(self._dev)
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                static_out = self.body(static_in)
+            finally:
+                graph.capture_end()
+        return graph, static_in, static_out
+
+
+def pad_length(tokens: torch.Tensor, chunks: tuple = ()) -> torch.Tensor:
+    """(B, S) token rows right-padded with -1 to the next power-of-two
+    length: ``tokens`` itself where S is one, or where that length would
+    be neither within nor a multiple of one of ``chunks`` (the attention's
+    query and KV chunks, powers of two in every config)."""
+    s = tokens.shape[-1]
+    width = 1 << max(s - 1, 0).bit_length()
+    if width == s or any(width > c and width % c for c in chunks):
+        return tokens
+    return torch.nn.functional.pad(tokens, (0, width - s), value=-1)
 
 
 def _to_device(tree, dev):

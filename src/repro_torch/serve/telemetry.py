@@ -31,11 +31,15 @@ of Python's collector.
     tokens of each (layer, expert) of the dropless MoE path
     (``models.moe.moe_ffn_dropless``), and the pad rows it skipped, summed
     on the device with no sync.
+  * ``ENCODER_GRAPHS`` — the process's one ``EncoderGraphs``: how the
+    query encoder (``serve.engine.make_lm_query_encoder``) answered its
+    calls: CUDA graphs captured and replayed, calls run eagerly, and the
+    input shapes the graphs were captured for.
   * ``ServeTelemetry`` — what the engine and scheduler write per turn and
     per wave (counts, the turn totals the scheduler's p99 back-off reads,
     arrivals, faults), and ``summary()``: the operator's view, every span
-    name's count and p50/p95/p99 from the span log beside those, and the
-    expert load.
+    name's count and p50/p95/p99 from the span log beside those, the
+    expert load and the encoder's graphs.
 
 Recording a span never touches the device.
 """
@@ -57,7 +61,8 @@ import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["TurnSpans", "RingPercentiles", "EwmaRate", "ServeTelemetry",
            "SpanLog", "SpanKind", "SyncSite", "Spans", "SPANS",
-           "strict_syncs", "ExpertLoad", "EXPERT_LOAD"]
+           "strict_syncs", "ExpertLoad", "EXPERT_LOAD", "EncoderGraphs",
+           "ENCODER_GRAPHS"]
 
 
 @dataclasses.dataclass
@@ -574,6 +579,36 @@ class ExpertLoad:
 EXPERT_LOAD = ExpertLoad()
 
 
+class EncoderGraphs:
+    """Counts of how the query encoder answered: ``captures`` (a CUDA
+    graph captured for a new input shape), ``replays`` (a call answered by
+    replaying one), ``eager`` (a call run op by op: on the CPU, or a trunk
+    with MoE layers), and the (B, S) shapes captured.  Host counts under a
+    lock; nothing touches the device."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts = {"captures": 0, "replays": 0, "eager": 0}
+        self._shapes: set = set()
+
+    def count(self, what: str, shape: Optional[tuple] = None) -> None:
+        """One more of ``what`` (a key of ``summary()``'s counts); a
+        capture names its ``shape``."""
+        with self._lock:
+            self._counts[what] += 1
+            if shape is not None:
+                self._shapes.add(tuple(shape))
+
+    def summary(self) -> dict:
+        """{"captures", "replays", "eager": counts since the process began,
+        "shapes": the captured (B, S) shapes, sorted}."""
+        with self._lock:
+            return {**self._counts, "shapes": sorted(self._shapes)}
+
+
+ENCODER_GRAPHS = EncoderGraphs()
+
+
 class ServeTelemetry:
     """What the serving path writes per turn and per wave, and the
     operator's ``summary()``.
@@ -630,9 +665,10 @@ class ServeTelemetry:
     def summary(self) -> dict:
         """Turns, waves, the arrival rate, the turn totals' p50/p95/p99,
         every span name's count and p50/p95/p99 (``SPANS.summary()``, the
-        process's spans), the fault counters, and the dropless MoE path's
+        process's spans), the fault counters, the dropless MoE path's
         load per layer (``EXPERT_LOAD.summary()``, read from the device:
-        call it after the window).  Seconds throughout."""
+        call it after the window), and the query encoder's graph counts
+        (``ENCODER_GRAPHS.summary()``).  Seconds throughout."""
         with self._fault_lock:
             faults = dict(self.faults)
             transitions = self.breaker_transitions
@@ -645,4 +681,5 @@ class ServeTelemetry:
             "faults": faults,
             "breaker_transitions": transitions,
             "expert_load": EXPERT_LOAD.summary(),
+            "encoder_graphs": ENCODER_GRAPHS.summary(),
         }

@@ -17,6 +17,9 @@ engines do: the same hits, tiers and ids, scores within 1e-5, and the same
 cache slots (doc ids per slot).
 """
 
+import importlib
+import pkgutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,15 +40,20 @@ from repro.serve.engine import ConversationalEngine as JConvEngine
 from repro.serve.engine import make_lm_query_encoder as j_make_encoder
 from repro.serve.router import ShardedRouter as JRouter
 from repro.serve.session import BatchedEngine as JBatchedEngine
+import repro_torch.configs
 from repro_torch import convert
 from repro_torch.configs import (chatglm3_6b, deepseek_v3_671b, gemma2_9b,
                                  llama4_scout_17b_a16e, mistral_large_123b,
                                  star_encoder)
 from repro_torch.dist.retrieval import DeviceShard
 from repro_torch.kernels import dispatch
+from repro_torch.models import transformer as ttf
+from repro_torch.models.transformer import TransformerConfig
 from repro_torch.serve import (BatchedEngine, ConversationalEngine,
-                               SessionManager, ShardedRouter,
+                               ServeTelemetry, SessionManager, ShardedRouter,
                                make_lm_query_encoder)
+from repro_torch.serve.engine import graphable, pad_length
+from repro_torch.serve.telemetry import ENCODER_GRAPHS, SPANS
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -301,3 +309,95 @@ def test_session_manager_with_encoder(star, corpus):
                     np.testing.assert_array_equal(a.ids, b.ids)
                     assert a.tier == b.tier
         assert eng.hit_rate() == ref.hit_rate()
+
+
+# --------------------------------------------- the encoder's CUDA graphs
+LM_CONFIGS = sorted(
+    m.name for m in pkgutil.iter_modules(repro_torch.configs.__path__)
+    if getattr(importlib.import_module(f"repro_torch.configs.{m.name}"),
+               "FAMILY", None) == "lm")
+
+
+def test_the_lm_configs_are_found():
+    assert {"star_encoder", "moonlight_16b_a3b", "deepseek_v3_671b",
+            "llama4_scout_17b_a16e"} <= set(LM_CONFIGS)
+
+
+def test_graphs_for_dense_trunks_and_eager_for_moe():
+    """The rule reads the layers: every config with MoE layers stays
+    eager, every dense one is graphed on a card; STAR's are graphed."""
+    for name in LM_CONFIGS:
+        mod = importlib.import_module(f"repro_torch.configs.{name}")
+        for cfg in (mod.full_config(), mod.smoke_config()):
+            assert isinstance(cfg, TransformerConfig)
+            moe = any(kind == "moe" for kind, _ in cfg.layer_groups())
+            assert graphable(cfg) is not moe, (name, cfg.name)
+            if name in ("moonlight_16b_a3b", "deepseek_v3_671b",
+                        "llama4_scout_17b_a16e"):
+                assert not graphable(cfg), name
+            if name == "star_encoder":
+                assert graphable(cfg)
+
+
+@pytest.mark.parametrize("s, width", [(1, 1), (3, 4), (16, 16), (17, 32),
+                                      (40, 64), (64, 64), (65, 128)])
+def test_pad_length_widens_rows_to_a_power_of_two(s, width):
+    tok = torch.arange(2 * s).reshape(2, s)
+    got = pad_length(tok, (16, 32))
+    assert got.shape == (2, width)
+    assert torch.equal(got[:, :s], tok) and (got[:, s:] == -1).all()
+    if width == s:
+        assert got is tok
+
+
+def test_pad_length_keeps_a_width_the_chunks_forbid():
+    """A length past a chunk that is no power of two stays as it is: the
+    attention takes S within a chunk or a multiple of it."""
+    tok = torch.zeros((1, 40), dtype=torch.int64)
+    assert pad_length(tok, (24, 24)) is tok
+    assert pad_length(tok, (64, 128)).shape == (1, 64)
+
+
+def test_a_padded_row_encodes_as_the_unpadded_one(star):
+    """The graphed encoder pads each row to a power-of-two length: the
+    eager forward of the padded rows gives the unpadded rows' psi, to
+    rounding, since causal attention and the masked pool keep pads out."""
+    _jenc, tenc, cfg = star
+    tok = torch.as_tensor(_rows(8, 3, 48, cfg.vocab_size, [48, 33, 5]))
+    padded = pad_length(tok, (cfg.q_chunk, cfg.kv_chunk))
+    assert padded.shape == (3, 64)
+    torch.testing.assert_close(tenc(padded), tenc(tok), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("tmod", [star_encoder, deepseek_v3_671b])
+def test_the_cpu_encoder_never_captures(tmod):
+    """On the CPU every call runs eagerly, a dense trunk's too: the counter
+    counts the eager calls, and no capture span is recorded."""
+    cfg = tmod.smoke_config()
+    params = ttf.init_params(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(5))
+    proj = torch.randn((cfg.d_model, L), generator=torch.Generator()
+                       .manual_seed(6)) * cfg.d_model ** -0.5
+    encode = make_lm_query_encoder(params, cfg, proj, device="cpu")
+    before = ENCODER_GRAPHS.summary()
+    t0 = SPANS._start.max()
+    for b in (1, 3, 3):
+        psi = encode(_rows(b, b, 16, cfg.vocab_size, [16] * b))
+        assert psi.shape == (b, L + 1) and psi.device.type == "cpu"
+    after = ENCODER_GRAPHS.summary()
+    assert after["eager"] - before["eager"] == 3
+    assert after["captures"] == before["captures"]
+    assert after["replays"] == before["replays"]
+    assert after["shapes"] == before["shapes"]
+    sp = SPANS.window(int(t0) + 1, 2 ** 62)
+    assert not sp.of("serve.encoder_capture").any()
+    assert not sp.of("serve.sync.encoder_capture").any()
+
+
+def test_serve_telemetry_summary_carries_the_encoder_graphs(star):
+    _jenc, tenc, cfg = star
+    tenc(_rows(7, 2, 16, cfg.vocab_size, [16, 4]))
+    got = ServeTelemetry().summary()["encoder_graphs"]
+    assert got == ENCODER_GRAPHS.summary()
+    assert set(got) == {"captures", "replays", "eager", "shapes"}
+    assert got["eager"] >= 1

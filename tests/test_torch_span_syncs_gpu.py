@@ -27,7 +27,7 @@ from repro_torch.models.transformer import Transformer
 from repro_torch.serve.engine import make_lm_query_encoder
 from repro_torch.serve.router import ShardedRouter
 from repro_torch.serve.session import BatchedEngine, SessionManager
-from repro_torch.serve.telemetry import SPANS, strict_syncs
+from repro_torch.serve.telemetry import ENCODER_GRAPHS, SPANS, strict_syncs
 
 pytestmark = pytest.mark.gpu
 
@@ -57,8 +57,11 @@ def _window_since(t0):
 
 def _waves_sync_only_in_sync_spans(gen, cfg, out_dim):
     """Waves of the encoder of ``cfg`` through ``BatchedEngine`` and
-    ``SessionManager`` under ``strict_syncs``: every sync in a sync span,
-    18 a wave with misses and 8 without; the span log of the waves."""
+    ``SessionManager`` under ``strict_syncs``, every power-of-two wave
+    warmed first (a dense trunk's encoder captures its graphs there):
+    every sync in a sync span, 18 a wave with misses and 8 without.
+    Returns the span log of the waves, the encoder, and
+    ``ENCODER_GRAPHS``' counts over the waves."""
     rng = np.random.default_rng(0)
     model = Transformer(cfg, generator=gen)
     proj = torch.randn((cfg.d_model, out_dim), generator=gen,
@@ -76,11 +79,15 @@ def _waves_sync_only_in_sync_spans(gen, cfg, out_dim):
                         n_sessions=2 * WAVE, k=10, k_c=1000, epsilon=0.04,
                         capacity=16_000, encoder=encode, dtype="fp32")
     slots = list(range(WAVE))
-    eng.answer_batch(slots, list(_tokens(rng, cfg.vocab_size)))   # warm
+    b = 1
+    while b <= WAVE:                                              # warm
+        eng.answer_batch(slots[:b], list(_tokens(rng, cfg.vocab_size))[:b])
+        b *= 2
     for s in slots:
         eng.start_session(s)
     torch.cuda.synchronize()
     t0 = SPANS._start.max()
+    graphs0 = ENCODER_GRAPHS.summary()
     waves = [list(_tokens(rng, cfg.vocab_size)) for _ in range(4)]
     with router, SessionManager(eng, max_slots=WAVE) as mgr:
         with strict_syncs():
@@ -97,6 +104,8 @@ def _waves_sync_only_in_sync_spans(gen, cfg, out_dim):
                 futs = [mgr.submit(key, q) for key, q in zip(slots, w)]
                 turns += [f.result(timeout=120) for f in futs]
         torch.cuda.synchronize()
+    graphs = {k: ENCODER_GRAPHS.summary()[k] - graphs0[k]
+              for k in ("captures", "replays", "eager")}
     assert len(turns) == 5 * WAVE and not any(t.degraded for t in turns)
     assert all(t.hit for t in turns[WAVE:2 * WAVE])
     assert router.stats.failures == 0 and router.stats.rejected == 0
@@ -113,12 +122,29 @@ def _waves_sync_only_in_sync_spans(gen, cfg, out_dim):
     # the opens reset their slots in place: no sync, no allocation
     assert opened.of("serve.open").sum() == WAVE
     assert not opened.of("serve.sync.").any()
-    return sp
+    assert not sp.of("serve.encoder_capture").any()
+    return sp, encode, graphs
 
 
 def test_a_sessions_wave_syncs_only_in_sync_spans(card):
+    """STAR's layers replay their graphs in every wave; a shape first seen
+    under ``strict_syncs`` captures with its one sync in a sync span."""
     cfg = dataclasses.replace(star_encoder.full_config(), n_layers=2)
-    _waves_sync_only_in_sync_spans(card, cfg, cfg.d_model)
+    sp, encode, graphs = _waves_sync_only_in_sync_spans(card, cfg,
+                                                         cfg.d_model)
+    n = int(sp.of("serve.encode").sum())
+    assert graphs == {"captures": 0, "replays": n, "eager": 0}, (graphs, n)
+    tok = torch.as_tensor(_tokens(np.random.default_rng(5),
+                                  cfg.vocab_size)[:3], device="cuda")
+    t0 = SPANS._start.max()
+    with strict_syncs():
+        psi = encode(tok)
+    torch.cuda.synchronize()
+    cap = _window_since(t0)
+    assert cap.of("serve.encoder_capture").sum() == 1
+    assert cap.of("serve.sync.encoder_capture").sum() == 1
+    assert cap.of("serve.sync.").sum() == 1
+    assert psi.shape == (3, cfg.d_model + 1)
 
 
 def test_a_dropless_moe_wave_syncs_only_in_sync_spans(card):
@@ -128,8 +154,10 @@ def test_a_dropless_moe_wave_syncs_only_in_sync_spans(card):
     each encoder call is one ``serve.moe`` span."""
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = dataclasses.replace(moonlight_16b_a3b.full_config(), n_layers=3)
-    sp = _waves_sync_only_in_sync_spans(card, cfg, 768)
+    sp, _encode, graphs = _waves_sync_only_in_sync_spans(card, cfg, 768)
     assert sp.of("serve.moe").sum() == 2 * sp.of("serve.encode").sum() > 0
+    n = int(sp.of("serve.encode").sum())
+    assert graphs == {"captures": 0, "replays": 0, "eager": n}, (graphs, n)
 
 
 def test_a_seqrec_request_syncs_only_in_sync_spans(card):

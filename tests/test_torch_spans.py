@@ -280,9 +280,11 @@ def test_summary_rests_on_the_span_log(monkeypatch):
     out = tel.summary()
     assert set(out) == {"turns", "waves", "arrival_rate_hz", "turn_total_s",
                         "spans", "faults", "breaker_transitions",
-                        "expert_load"}
-    # the dropless MoE path's counter, the process's as the span log is
+                        "expert_load", "encoder_graphs"}
+    # the dropless MoE path's counter and the query encoder's graph
+    # counts, the process's as the span log is
     assert out["expert_load"] == telemetry.EXPERT_LOAD.summary()
+    assert out["encoder_graphs"] == telemetry.ENCODER_GRAPHS.summary()
     assert out["turns"] == 2 and out["waves"] == 1
     assert out["turn_total_s"]["p99"] == 0.065
     assert out["spans"] == s and out["faults"] == {"shed_waves": 1}
