@@ -32,8 +32,7 @@ Run from the repository root.  Phases, each fatal on failure:
      bit, and the two-stage scan (k=1000 at N=1,000,000, B=64: fp32 and
      int8-dot with the tuned tile, a cluster of 2 and of 4 blocks; fp32
      with tile_n=256 and 100, whole tiles a block; bf16 at 4096, a cluster
-     of 16; fp32 at 8192, the kept pair; and B=4 at 512, a query tile
-     mostly empty).  Each is timed
+     of 16; and B=4 at 512, a query tile mostly empty).  Each is timed
      with CUDA events beside its plain version, its bound and, where one
      PyTorch call computes the same function, that call.
      probe   — (also part of kernels) the probe's times through the entries
@@ -151,9 +150,8 @@ Run from the repository root.  Phases, each fatal on failure:
      1000 (one launch of the fused tile kernel, one of the merge's
      select), against the fused search and the plain two-stage version;
      its peak memory above the corpus; timed apart: the fused tile kernel,
-     the merge (beside its plain sort and ``torch.topk``), the kept pair
-     (``knn_score`` + ``knn_tile_select``) on the same queries, and the
-     whole two-stage search beside the fused one.
+     the merge (beside its plain sort and ``torch.topk``), and the whole
+     two-stage search beside the fused one.
   9. main    — the batched serving path: ``SessionManager`` ->
      ``BatchedEngine(64 sessions, k=10, k_c=1000, epsilon=0.04, capacity=
      16000)`` -> ``ShardedRouter([DeviceShard(fp32)])`` serves the 10 turns
@@ -2521,14 +2519,13 @@ def knn_phase(torch, rep: Report, corpus, streams):
         torch.cuda.empty_cache()
     # the two-stage scan at N_SMALL: the tuned tile (fp32 512: a cluster
     # of 2, k_eff < k; int8-dot 1024: 4), narrow tiles (256 and 100: whole
-    # tiles a block), a cluster of 16 (4096), the kept pair (8192) and 4
-    # queries (a query tile mostly empty)
+    # tiles a block), a cluster of 16 (4096) and 4 queries (a query tile
+    # mostly empty)
     for dtype, i8, tile_n, nq in (("fp32", False, None, 64),
                                   ("int8", True, None, 64),
                                   ("fp32", False, 256, 64),
                                   ("fp32", False, 100, 64),
                                   ("bf16", False, 4096, 64),
-                                  ("fp32", False, 8192, 64),
                                   ("fp32", False, 512, 4)):
         qc = quant.quantize(sub, dtype)
         err, t_n, k_eff, _ = two_stage_check(
@@ -2644,8 +2641,7 @@ def ab_phase(torch, rep: Report, corpus, streams):
     fused tile kernel and the merge's select), its peak memory above the
     corpus, against the fused search and the plain two-stage version; then
     the ``knn_tile_topk`` row at this shape, and apart: the fused tile
-    kernel, the merge, the kept pair (``knn_score`` + ``knn_tile_select``)
-    on the same queries, the fused tile kernel at B = 1, and the whole
+    kernel, the merge, the fused tile kernel at B = 1, and the whole
     two-stage search beside the fused one."""
     import numpy as np
 
@@ -2707,14 +2703,6 @@ def ab_phase(torch, rep: Report, corpus, streams):
     merge_bound = bound(flat.numel() * 4, 0, F32_OPS)[0]
     del tv, tp, flat
     torch.cuda.empty_cache()
-    # the kept pair on the same queries: the score into the (B, N) scratch,
-    # then the tile select on it
-    scores = knn_ops.knn_score(corpus, ids, qq)
-    score_ms = timed(torch, lambda: knn_ops.knn_score(corpus, ids, qq), 3)
-    pair_ms = timed(torch, lambda: knn_ops.knn_tile_select(
-        scores, k_eff, tile_n), 3)
-    del scores
-    torch.cuda.empty_cache()
     search_ms = timed(torch, lambda: knn_ops.knn_search(
         corpus, ids, q, KC, two_stage=True), 3)
     fused_ms = timed(torch, lambda: knn_ops.knn_search(corpus, ids, q, KC),
@@ -2723,11 +2711,9 @@ def ab_phase(torch, rep: Report, corpus, streams):
     log(f"[ab] knn_tile_topk apart: the fused tile kernel {ms:.3f} ms; the "
         f"merge through knn_select {merge_ms:.3f} ms (bound "
         f"{merge_bound:.3f}, bytes; its plain stable sort {merge_plain:.3f}, "
-        f"torch.topk over the same candidates {merge_lib:.3f}); the kept "
-        f"pair knn_score {score_ms:.3f} + knn_tile_select {pair_ms:.3f} = "
-        f"{score_ms + pair_ms:.3f} ms (the same function as the fused "
-        f"kernel: plain {plain:.3f}, library {lib:.3f}); the fused tile "
-        f"kernel at B=1 {ms1:.3f} ms (the B=1 score alone {gemv1:.3f}; "
+        f"torch.topk over the same candidates {merge_lib:.3f}); the fused "
+        f"tile kernel's plain version {plain:.3f}, library {lib:.3f}; the "
+        f"fused tile kernel at B=1 {ms1:.3f} ms (the B=1 score alone {gemv1:.3f}; "
         f"plain {plain1:.3f}, library topk(mm.view(1, tiles, {tile_n})) "
         f"{lib1:.3f})")
     log(f"[ab] two-stage knn_search {search_ms:.3f} ms, the fused search "

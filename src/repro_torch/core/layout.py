@@ -5,7 +5,8 @@ The cache's logical extents (``capacity``, ``dim``, ``max_queries`` in
 ``CacheState`` leaves are allocated once at padded physical extents so the
 CUDA kernels read aligned rows and no launch pads the stacked state:
 
-  * feature dim rounded to ``FEAT`` = 32 elements (769 -> 800): every row
+  * feature dim rounded to ``FEAT`` = 32 elements (769 -> 800), the kNN
+    score's feature tile (``kernels/_build.py`` owns the number): every row
     then starts on a 32-byte boundary for int8, bf16 and fp32 payloads, so
     a thread can move it in 16-byte vectors, and a later ``wgmma`` K step
     of 32 bytes divides it;
@@ -20,21 +21,28 @@ package's TPU rule (``LANE`` = 128) is not used here.
 
 from __future__ import annotations
 
-FEAT = 32       # feature-axis multiple (elements)
-RING = 8        # query-record ring multiple
+from repro_torch.kernels import _build
 
-__all__ = ["FEAT", "RING", "round_up", "wave_tile", "phys_capacity",
-           "phys_dim", "phys_queries"]
+FEAT = _build.FEAT   # feature-axis multiple (elements)
+RING = 8             # query-record ring multiple
+
+__all__ = ["FEAT", "RING", "round_up", "next_pow2", "wave_tile",
+           "phys_capacity", "phys_dim", "phys_queries"]
 
 
 def round_up(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
 
 
+def next_pow2(n: int) -> int:
+    """The least power of two >= ``n``: 1 for any ``n`` <= 1."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
 def wave_tile(capacity: int) -> int:
     """Capacity tile: one power of two <= 512 (the whole cache when
     smaller)."""
-    pow2 = max(RING, 1 << max(capacity - 1, 1).bit_length())
+    pow2 = max(RING, next_pow2(capacity))
     return min(512, pow2)
 
 

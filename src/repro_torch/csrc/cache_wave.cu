@@ -58,8 +58,16 @@
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
+#ifndef REPRO_WAVE_CHUNK_ALIGN
+#error "REPRO_WAVE_CHUNK_ALIGN is set by kernels/_build.py"
+#endif
+#ifndef REPRO_WAVE_BLOCKS_PER_SM
+#error "REPRO_WAVE_BLOCKS_PER_SM is set by kernels/_build.py"
+#endif
+constexpr int WARPS = REPRO_WAVE_CHUNK_ALIGN;  // the wrapper's chunks are whole multiples
+constexpr int THREADS = 32 * WARPS;
+constexpr int BLOCKS_PER_SM = REPRO_WAVE_BLOCKS_PER_SM;  // the wrapper sizes its grid by it
+static_assert(THREADS <= 1024, "a block holds at most 1024 threads");
 constexpr int IN_FLIGHT = 8;          // 16-byte loads in flight per lane
 constexpr int STAGE_SLOTS = 16384;    // merge keys staged in shared memory
 constexpr float BIG_NEG = -1.0e38f;
@@ -188,7 +196,7 @@ __device__ __forceinline__ void copy_row(T* __restrict__ dst, const T* __restric
 }
 
 template <typename T, bool INS, bool QRY>
-__global__ void __launch_bounds__(THREADS, 2) wave_kernel(WaveArgs a) {
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) wave_kernel(WaveArgs a) {
   const int s = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = blockIdx.x * a.chunk;
@@ -392,7 +400,7 @@ extern "C" int cache_wave(int mode, int store, void* doc_emb, const void* rows, 
                           void* pair_pos, int s, int cp, int dp, int kc, int qp, int k, int kp,
                           int chunk, void* stream) {
   if (s == 0) return 0;
-  if (s > 65535 || chunk < 1 || cp % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (s > repro::kMaxRows || chunk < 1 || cp % 4) return static_cast<int>(cudaErrorInvalidValue);
   if (mode != 2 && (k < 1 || k > cp || kp < k || (kp & (kp - 1)) || keys == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   WaveArgs a;

@@ -10,8 +10,32 @@
 
 namespace repro {
 
-// Storage codes passed from Python: 0 fp32, 1 bf16, 2 int8, 3 fp16.
-enum Store { kF32 = 0, kBF16 = 1, kI8 = 2, kF16 = 3 };
+// Storage codes passed from Python (kernels/_build.py STORE).
+#ifndef REPRO_STORE_FLOAT32
+#error "REPRO_STORE_FLOAT32 is set by kernels/_build.py"
+#endif
+#ifndef REPRO_STORE_BFLOAT16
+#error "REPRO_STORE_BFLOAT16 is set by kernels/_build.py"
+#endif
+#ifndef REPRO_STORE_INT8
+#error "REPRO_STORE_INT8 is set by kernels/_build.py"
+#endif
+#ifndef REPRO_STORE_FLOAT16
+#error "REPRO_STORE_FLOAT16 is set by kernels/_build.py"
+#endif
+enum Store {
+  kF32 = REPRO_STORE_FLOAT32,
+  kBF16 = REPRO_STORE_BFLOAT16,
+  kI8 = REPRO_STORE_INT8,
+  kF16 = REPRO_STORE_FLOAT16
+};
+
+// The most rows a select, tile or wave grid takes (its gridDim.y).
+#ifndef REPRO_MAX_ROWS
+#error "REPRO_MAX_ROWS is set by kernels/_build.py"
+#endif
+constexpr int kMaxRows = REPRO_MAX_ROWS;
+static_assert(kMaxRows <= 65535, "CUDA's gridDim.y is at most 65535");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }

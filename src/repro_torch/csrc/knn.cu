@@ -28,7 +28,7 @@
 //         instructions; shared-memory reads held it back, so each lane owns
 //         8 x 16 outputs (24 float4 reads per 512 FMA, each read one
 //         broadcast wavefront per warp).
-//       * single query (B <= 8; every miss of one session): bound by the
+//       * single query (B <= GEMV_MAX_B; every miss of one session): bound by the
 //         bytes, N * Dp * itemsize (8.5 ms for the f32 corpus).  The queries
 //         sit in shared memory; a warp streams one document row at a time
 //         with 16-byte loads (8 in flight per lane), a shuffle reduction
@@ -64,17 +64,15 @@
 //       registers (no block barrier per row), and a tile wider than 256
 //       spans a thread-block cluster whose runs are merged by rank through
 //       distributed shared memory (gemm_tile_kernel).  Every B takes it (a
-//       B <= 8 scan pays the 64-query tile's operations, as knn_score's
-//       GEMM would).  Tiles up to FUSED_MAX_TILE documents, of any width.
-//   (c') knn_tile_select — the kept pair for wider tiles (the wrapper's
-//       shape rule, tile_n > FUSED_MAX_TILE): knn_score into the scratch, then one
-//       block per (tile, query row) selecting from it (select.cuh
-//       block_topk; positions past N read -inf).
+//       single-query scan pays the 64-query tile's operations, as knn_score's
+//       GEMM would).  Tiles up to FUSED_MAX_TILE documents, of any width;
+//       the wrapper answers a wider tile through (a) and (b).
 //
-//   The wrapper merges the candidates of (c) or (c') with (b).
+//   The wrapper merges the candidates of (c) with (b).
 //
-// Every buffer (histograms, counters, candidates, filter buffers, pairs)
-// comes from the wrapper; the kernels allocate nothing.
+// Every buffer (histograms, counters, candidates, filter buffers) comes from
+// the wrapper; the kernels allocate nothing.  The numbers the wrapper shares
+// (REPRO_*) come from kernels/_build.py, which owns each of them.
 
 #include <climits>
 #include <type_traits>
@@ -163,9 +161,17 @@ int sm_count() {
 }
 
 // ------------------------------------------------ batched score: the GEMM
-constexpr int GM = 64;         // queries per tile
-constexpr int GN = 256;        // documents per tile
-constexpr int GK = 32;         // features per ring stage
+#ifndef REPRO_QUERY_TILE
+#error "REPRO_QUERY_TILE is set by kernels/_build.py"
+#endif
+#ifndef REPRO_FEAT
+#error "REPRO_FEAT is set by kernels/_build.py"
+#endif
+constexpr int GM = REPRO_QUERY_TILE;  // queries per tile
+constexpr int GN = 256;               // documents per tile
+constexpr int GK = REPRO_FEAT;        // features per ring stage
+static_assert(GM == 64, "gemm_qrow spreads a tile's queries over 2 warps x 4 lanes x 8 rows");
+static_assert(GK % 16 == 0, "a ring stage row is whole 16-byte chunks of int8");
 constexpr int GLD = GK + 4;    // shared row stride in words: float4 reads of
                                // 8 consecutive rows hit 8 distinct bank quads
 constexpr int GSTAGES = 2;     // 92 KB of ring: two blocks per SM
@@ -410,7 +416,12 @@ cudaError_t launch_gemm(const void* q, const void* q_scale, const void* docs, co
 }
 
 // ------------------------------------------- single-query score: the GEMV
-constexpr int GEMV_MAX_B = 8;   // the widest query block of the GEMV path
+#ifndef REPRO_SCORE_GEMV_MAX_B
+#error "REPRO_SCORE_GEMV_MAX_B is set by kernels/_build.py"
+#endif
+constexpr int GEMV_MAX_B = REPRO_SCORE_GEMV_MAX_B;  // the widest query block of the GEMV path
+static_assert(GEMV_MAX_B > 4 && GEMV_MAX_B <= 32,
+              "launch_score's last block follows 4 queries; a lane keeps one query's sum");
 constexpr int VTHREADS = 256;
 constexpr int VUNROLL = 8;      // 16-byte loads in flight per lane
 
@@ -530,6 +541,10 @@ constexpr int H12 = 4096;    // bins of the second and third digits
 constexpr int WS_HIST1 = 0, WS_HIST2 = H12, WS_CNT = 2 * H12, WS_STATE = 2 * H12 + 4;
 constexpr int WS_HIST0 = 2 * H12 + 16;
 constexpr int WS_ROW = WS_HIST0 + H0;
+#ifndef REPRO_SELECT_WS
+#error "REPRO_SELECT_WS is set by kernels/_build.py"
+#endif
+static_assert(WS_ROW == REPRO_SELECT_WS, "the wrapper sizes a workspace row as SELECT_WS");
 
 // The bin holding the kr-th largest key of histogram h (nb bins): *bin, and
 // *above the keys in the bins over it.  Every thread of the block.
@@ -777,36 +792,11 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// The kept pair's select (knn_tile_select), for tiles wider than the fused
-// kernel holds: one block per (tile, query row), the stable top-k of the
-// tile's tile_n scores from the (B, N) scratch, positions past the corpus
-// reading -inf.  Writes (B, tiles, k) values and corpus positions.
-__global__ void __launch_bounds__(256)
-    tile_select_kernel(const float* __restrict__ scores, float* __restrict__ out_vals,
-                       int* __restrict__ out_pos, uint32_t* pair_key, int* pair_pos,
-                       long long n, int tile_n, int k, int kp) {
-  extern __shared__ uint32_t pairs[];
-  __shared__ repro::SelectShared sh;
-  const long long base = static_cast<long long>(blockIdx.x) * tile_n;
-  const float* row = scores + static_cast<size_t>(blockIdx.y) * n + base;
-  const long long valid = n - base < tile_n ? n - base : tile_n;
-  const size_t o = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-  uint32_t* ck = pair_key ? pair_key + o * kp : pairs;
-  int* cpos = pair_key ? pair_pos + o * kp : reinterpret_cast<int*>(pairs + kp);
-  repro::block_topk(repro::RowKeys{row, valid}, tile_n, k, kp, ck, cpos, sh);
-  for (int r = threadIdx.x; r < k; r += blockDim.x) {
-    const int p = cpos[r];
-    out_vals[o * k + r] = p < valid ? row[p] : -INFINITY;
-    out_pos[o * k + r] = static_cast<int>(base + p);
-  }
-}
-
 // ----------------------------------------- the fused tile stage: score and select
 // knn_tile_topk: the stable top k_eff of every tile_n tile of the masked
 // scores, written as (B, tiles, k_eff) values and corpus positions; no (B,
 // N) score leaves the chip.
-// The widest tile the fused kernel takes: the build passes the wrapper's
-// shape rule (kernels/_build.py FUSED_MAX_TILE) so that one constant owns it.
+// The widest tile the fused kernel takes.
 #ifndef REPRO_FUSED_MAX_TILE
 #error "REPRO_FUSED_MAX_TILE is set by kernels/_build.py"
 #endif
@@ -879,7 +869,7 @@ __device__ __forceinline__ int count_before(const uint32_t* run, uint32_t key, b
   return pos;
 }
 
-// B > 8: the GEMM's main loop (gemm_units), one 64-query x 256-document unit
+// The GEMM's main loop (gemm_units), one 64-query x 256-document unit
 // a block, then a new epilogue in the dead ring.  Bound: the f32 operations,
 // 2 B N Dp at 67 TFLOP/s, as knn_score; what the select adds is issue slots
 // beside the FFMA of the SM's other block.  The unit's masked keys go to
@@ -1098,7 +1088,7 @@ extern "C" int knn_score(const void* q, const void* q_scale, const void* docs,
                          const void* ids, const void* dscale, void* scores, int b, long long n,
                          int dp, int store, int int8_dot, int gemv, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (dp % 32 != 0 || (gemv && b > GEMV_MAX_B)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dp % GK != 0 || (gemv && b > GEMV_MAX_B)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int8_dot) {
     if (store != repro::kI8) return static_cast<int>(cudaErrorInvalidValue);
@@ -1125,7 +1115,7 @@ extern "C" int knn_tile_topk(const void* q, const void* q_scale, const void* doc
                              int b, long long n, int dp, int store, int int8_dot, int tile_n,
                              int k_eff, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (dp % 32 != 0 || b > 65535 || tile_n < 1 ||
+  if (dp % GK != 0 || b > repro::kMaxRows || tile_n < 1 ||
       tile_n > FUSED_MAX_TILE || k_eff < 1 || k_eff > tile_n ||
       n + tile_n >= static_cast<long long>(INT_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1159,7 +1149,7 @@ extern "C" int knn_select(const void* scores, const void* ids, void* scratch,
                           long long bufcap, int sort_global, void* stream) {
   if (b == 0) return 0;
   if (k < 1 || k > n || n >= INT_MAX || cap < 2 * static_cast<long long>(k) ||
-      (cap & (cap - 1)) || b > 65535)
+      (cap & (cap - 1)) || b > repro::kMaxRows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scores);
@@ -1191,24 +1181,5 @@ extern "C" int knn_select(const void* scores, const void* ids, void* scratch,
   finish_kernel<<<b, 1024, smem, st>>>(s, static_cast<const int*>(ids), w, ck, cp,
                                        static_cast<float*>(out_vals), static_cast<int*>(out_ids),
                                        n, k, cap, sort_global);
-  return cudaGetLastError();
-}
-
-extern "C" int knn_tile_select(const void* scores, void* out_vals, void* out_pos,
-                               void* pair_key, void* pair_pos, int b, long long n, int tile_n,
-                               int k, int kp, void* stream) {
-  if (b == 0 || n == 0) return 0;
-  if (k < 1 || k > tile_n || kp < k || (kp & (kp - 1)) || b > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles = (n + tile_n - 1) / tile_n;
-  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = pair_key ? 0 : static_cast<size_t>(kp) * 8;
-  cudaError_t err = repro::allow_smem(tile_select_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(b));
-  tile_select_kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), static_cast<float*>(out_vals),
-      static_cast<int*>(out_pos), static_cast<uint32_t*>(pair_key),
-      static_cast<int*>(pair_pos), n, tile_n, k, kp);
   return cudaGetLastError();
 }

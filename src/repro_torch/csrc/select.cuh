@@ -1,8 +1,7 @@
-// Block-wide exact top-k in the stable order, shared by the two-stage
-// scan's kept tile select (knn.cu tile_select_kernel) and the cache wave's
-// query (cache_wave.cu); the kNN select (knn.cu knn_select) sorts its
-// candidates with the same bitonic sort (sort_pairs), and the fused tile
-// kernel (knn.cu gemm_tile_kernel) uses the same order (key_before).
+// Block-wide exact top-k in the stable order, for the cache wave's query
+// (cache_wave.cu); the kNN select (knn.cu knn_select) sorts its candidates
+// with the same bitonic sort (sort_pairs), and the fused tile kernel (knn.cu
+// gemm_tile_kernel) uses the same order (key_before).
 //
 // One block selects the k largest of n order-preserving uint32 keys
 // (repro::float_key) and writes them in the stable top-k order — key
@@ -35,15 +34,6 @@ struct SelectShared {
   int warp_tot[33];
   uint32_t prefix;
   int kr, ngt, neq;
-};
-
-// Keys of one row of f32 scores; positions at or past n_valid read as -inf.
-struct RowKeys {
-  const float* row;
-  long long n_valid;
-  __device__ __forceinline__ uint32_t operator()(long long i) const {
-    return float_key(i < n_valid ? row[i] : -INFINITY);
-  }
 };
 
 // Exclusive block-wide prefix sum of one int per thread; *total gets the sum.

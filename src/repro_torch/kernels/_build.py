@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -DREPRO_FUSED_MAX_TILE=4096 \\
+         -Xcompiler -fPIC -DREPRO_FUSED_MAX_TILE=4096 ... \\
          -o build/repro_torch/lib<name>-<hash>.so <name>.cu
 
 keyed by a hash of the source (and the shared header) plus the flags, so an
@@ -17,13 +17,14 @@ Every C entry point takes device pointers and the CUDA stream as
 or ``c_longlong``, floats as ``c_float``, launches on the given stream and
 returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 
-The two block selects of ``csrc/select.cuh`` that take any k (the
-two-stage scan's kept tile select, the cache wave's query) keep their
-(key, position) survivors in shared memory up to
-``SMEM_PAIRS`` pairs and in a global scratch buffer beyond;
-``pair_scratch`` makes that choice for both wrappers.  The kNN select sorts
-its candidates in shared memory up to ``SMEM_PAIRS`` pairs too, and in its
-own scratch beyond.
+Every number that the wrappers and ``csrc/`` must agree on is defined
+here once, in ``DEFINES``, and reaches ``nvcc`` as ``-DREPRO_<NAME>``; each
+source that uses one refuses to build without it.  ``library_path`` hashes
+the flags, so a changed value rebuilds.
+
+The block select of ``csrc/select.cuh`` (the cache wave's query) keeps its
+(key, position) survivors in shared memory up to ``SMEM_PAIRS`` pairs and
+in a global scratch buffer beyond, as the kNN select does its candidates.
 """
 
 from __future__ import annotations
@@ -38,29 +39,59 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "STORE",
-           "SMEM_PAIRS", "FUSED_MAX_TILE", "nvcc_path", "library_path",
-           "build_all", "function", "check", "stream_of", "pair_scratch"]
+__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "DEFINES", "STORE",
+           "PAYLOADS", "SMEM_PAIRS", "FUSED_MAX_TILE", "SCORE_GEMV_MAX_B",
+           "QUERY_TILE", "FEAT", "SELECT_WS", "MAX_ROWS",
+           "WAVE_BLOCKS_PER_SM", "WAVE_CHUNK_ALIGN", "nvcc_path",
+           "library_path", "build_all", "function", "check", "stream_of"]
 
 SOURCES = ("cache_probe", "knn", "cache_wave", "embedding_bag")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # storage codes of the C entry points (csrc/common.cuh ``repro::Store``)
-STORE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+STORE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+         torch.float16: 3}
+# the payloads the kNN, probe and cache-wave kernels read
+PAYLOADS = (torch.float32, torch.bfloat16, torch.int8)
 
 # survivors of a block select held in shared memory (8 B each: 128 KB of
 # the 227 KB a Hopper block may opt into)
 SMEM_PAIRS = 16384
 
 # the widest tile of the two-stage scan that the fused tile kernel takes (a
-# thread-block cluster of 16 blocks of 256 documents); ``csrc/knn.cu`` gets
-# it as ``REPRO_FUSED_MAX_TILE`` and ``kernels/knn/ops.py`` keeps the
-# score + tile-select pair for wider tiles
+# thread-block cluster of 16 blocks of 256 documents)
 FUSED_MAX_TILE = 4096
+# the largest B that takes the kNN score's single-query path (a GEMV), and
+# the widest query block of that path (measured crossover: PERF.md)
+SCORE_GEMV_MAX_B = 8
+# queries per tile of the kNN score GEMM; the search's chunks and the plain
+# scores' matrix products come in whole tiles
+QUERY_TILE = 64
+# the score GEMM's features per ring stage: corpus and cache widths are
+# multiples of it (core/layout.py pads to it)
+FEAT = 32
+# int32 words of the kNN select's workspace row: the histograms of its two
+# 12-bit digits, 16 words of counters and pass state, the first digit's 256
+# bins
+SELECT_WS = 2 * 4096 + 16 + 256
+# rows of a select, tile or wave grid (CUDA's gridDim.y)
+MAX_ROWS = 65535
+# the cache-wave kernel: resident blocks per SM (its __launch_bounds__),
+# and its warps a block, the multiple of a block's slot chunk
+WAVE_BLOCKS_PER_SM = 2
+WAVE_CHUNK_ALIGN = 16
+
+DEFINES = {"FUSED_MAX_TILE": FUSED_MAX_TILE,
+           "SCORE_GEMV_MAX_B": SCORE_GEMV_MAX_B, "QUERY_TILE": QUERY_TILE,
+           "FEAT": FEAT, "SELECT_WS": SELECT_WS, "MAX_ROWS": MAX_ROWS,
+           "WAVE_BLOCKS_PER_SM": WAVE_BLOCKS_PER_SM,
+           "WAVE_CHUNK_ALIGN": WAVE_CHUNK_ALIGN,
+           **{"STORE_" + str(dt).removeprefix("torch.").upper(): code
+              for dt, code in STORE.items()}}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
-              f"-DREPRO_FUSED_MAX_TILE={FUSED_MAX_TILE}")
+              *(f"-DREPRO_{name}={value}" for name, value in DEFINES.items()))
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -149,15 +180,3 @@ def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream
 
-
-def pair_scratch(rows: int, k: int, device):
-    """(kp, keys, positions) for ``rows`` block selects of the top ``k``:
-    kp is k rounded up to a power of two; the buffers are None when kp
-    pairs fit in shared memory, else (rows, kp) int32 scratch."""
-    if not 1 <= k <= 2 ** 30:
-        raise ValueError(f"k={k} outside [1, 2**30]")
-    kp = 1 << (k - 1).bit_length()
-    if kp <= SMEM_PAIRS:
-        return kp, None, None
-    return kp, *(torch.empty((rows, kp), dtype=torch.int32, device=device)
-                 for _ in range(2))

@@ -57,7 +57,7 @@ def _launch(counter: dispatch.KernelCounter, q_emb, psi, radius, scale, *,
     mode into ``r_hat``, or decision mode into ``decision`` = (hit,
     best_r, nearest) with the record counts ``n_queries`` (an int or an
     (S,) / 0-dim tensor)."""
-    if q_emb.dtype not in _build.STORE:
+    if q_emb.dtype not in _build.PAYLOADS:
         raise TypeError(f"unsupported record payload dtype {q_emb.dtype}")
     dev = q_emb.device
     qp, dp = q_emb.shape[-2:]

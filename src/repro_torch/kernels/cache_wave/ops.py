@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from repro_torch.core import layout
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.cache_wave import ref
 
@@ -48,9 +49,9 @@ _MODE = {"insert_query": 0, "query_topk": 1, "insert_scatter": 2}
 _ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 25 + [ctypes.c_int] * 8
          + [ctypes.c_void_p])
 # csrc/cache_wave.cu: resident blocks per SM (__launch_bounds__) and the
-# chunk multiple (the block's 16 warps)
-BLOCKS_PER_SM = 2
-CHUNK_ALIGN = 16
+# chunk multiple (the block's warps), owned by the build
+BLOCKS_PER_SM = _build.WAVE_BLOCKS_PER_SM
+CHUNK_ALIGN = _build.WAVE_CHUNK_ALIGN
 
 
 def wave_grid(s: int, cp: int, sms: int) -> tuple[int, int]:
@@ -74,10 +75,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _pair_scratch(rows: int, k: int, device):
+    """(kp, keys, positions) for ``rows`` block selects of the top ``k``:
+    kp is k rounded up to a power of two; the buffers are None when kp
+    pairs fit in shared memory (``_build.SMEM_PAIRS``), else (rows, kp)
+    int32 scratch."""
+    if not 1 <= k <= 2 ** 30:
+        raise ValueError(f"k={k} outside [1, 2**30]")
+    kp = layout.next_pow2(k)
+    if kp <= _build.SMEM_PAIRS:
+        return kp, None, None
+    return kp, *(torch.empty((rows, kp), dtype=torch.int32, device=device)
+                 for _ in range(2))
+
+
 def _check_state(doc_emb, doc_ids, doc_scale, doc_stamp, rows):
     """W, the wave's row count, after checking the state's layout."""
     w, cp = doc_ids.shape
-    if doc_emb.dtype not in _build.STORE:
+    if doc_emb.dtype not in _build.PAYLOADS:
         raise TypeError(f"unsupported cache payload dtype {doc_emb.dtype}")
     if doc_emb.dim() != 3 or doc_emb.shape[1] != cp:
         raise ValueError(f"doc_emb {tuple(doc_emb.shape)} does not hold "
@@ -104,8 +119,8 @@ def _check_state(doc_emb, doc_ids, doc_scale, doc_stamp, rows):
         raise ValueError(f"rows: expected int32 ({w},) on {doc_emb.device}, "
                          f"got {rows.dtype} {tuple(rows.shape)} on "
                          f"{rows.device}")
-    if w > 65535:
-        raise ValueError(f"{w} wave rows exceed the grid's 65535")
+    if w > _build.MAX_ROWS:
+        raise ValueError(f"{w} wave rows exceed the grid's {_build.MAX_ROWS}")
     return w
 
 
@@ -152,7 +167,7 @@ def _launch(mode, counter, doc_emb, doc_ids, doc_scale, doc_stamp=None,
         out = torch.empty((3, w, k), dtype=torch.int32, device=dev)
         vals, ids, slots = out[0].view(torch.float32), out[1], out[2]
         keys = torch.empty((w * (cp + 1),), dtype=torch.float32, device=dev)
-        kp, pair_key, pair_pos = _build.pair_scratch(w, k, dev)
+        kp, pair_key, pair_pos = _pair_scratch(w, k, dev)
     chunk, _ = wave_grid(w, cp, _sms(dev.index))
     fn = _build.function("cache_wave", "cache_wave", _ARGS)
     counter.launch()

@@ -25,12 +25,12 @@ import torch
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.embedding_bag import ref
 
-__all__ = ["embedding_bag", "COUNTER", "MODES", "TABLE_STORE"]
+__all__ = ["embedding_bag", "COUNTER", "MODES", "TABLE_DTYPES"]
 
 COUNTER = dispatch.counter("embedding_bag")
 MODES = {"sum": 0, "mean": 1, "max": 2}
-# storage codes of csrc/common.cuh ``repro::Store`` the table may have
-TABLE_STORE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
+# the table dtypes the kernel reads (storage codes: ``_build.STORE``)
+TABLE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_longlong] \
     + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -39,7 +39,7 @@ _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
 def _validate(table, indices, weights, mode):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
-    if table.dim() != 2 or table.dtype not in TABLE_STORE:
+    if table.dim() != 2 or table.dtype not in TABLE_DTYPES:
         raise TypeError(f"table must be (V, D) f32 / f16 / bf16, got "
                         f"{table.dtype} {tuple(table.shape)}")
     if table.shape[0] < 1:
@@ -91,7 +91,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     COUNTER.launch()
     code = fn(table.data_ptr(), indices.data_ptr(),
               None if weights is None else weights.data_ptr(), out.data_ptr(),
-              b, l, d, v, TABLE_STORE[table.dtype], MODES[mode],
+              b, l, d, v, _build.STORE[table.dtype], MODES[mode],
               _build.stream_of(table))
     _build.check(code, "embedding_bag")
     return out

@@ -19,12 +19,12 @@ with (-inf, -1).  Two paths, any k:
     tile-major candidates, -inf results taking id -1.  Two counted
     launches.  The corpus counts as padded to a tile multiple with id -1
     rows (the kernel reads positions past N as -inf; nothing is copied).
-    The shape rule (``fused_tile``): a tile wider than ``FUSED_MAX_TILE``
-    documents (the widest a cluster of blocks holds; the build passes the
-    same constant to the kernel) keeps the pair ``knn_score`` +
-    ``knn_tile_select`` for the tile stage, counted as those two.  When
-    ``k_eff < k`` the answer can differ from the exact top-k: it is the
-    JAX package's two-stage answer for the same ``tile_n``.
+    When ``k_eff < k`` the answer can differ from the exact top-k: it is
+    the JAX package's two-stage answer for the same ``tile_n``.  A tile
+    wider than ``FUSED_MAX_TILE`` documents (the widest a cluster of
+    blocks holds) has ``k_eff = k``: each tile keeps its whole share of
+    the top k, and the merge orders ties by the lower corpus position, so
+    the answer is the fused search's, and the fused search gives it.
     ``autotune_knn`` is the JAX tuner's arithmetic, so the default
     ``tile_n`` and ``k_eff`` equal the JAX ones.
 
@@ -55,40 +55,31 @@ from repro_torch.core import layout, quant
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.knn import ref
 
-__all__ = ["knn_score", "knn_select", "knn_tile_topk", "knn_tile_select",
-           "merge_tiles", "knn_search", "chunk_rows", "fused_tile",
-           "two_stage_rows",
-           "autotune_knn", "SCORE", "SELECT", "TILE", "TILE_PAIR",
-           "SCORE_GEMV_MAX_B", "FUSED_MAX_TILE", "SCRATCH_BUDGET",
-           "QUERY_TILE"]
+__all__ = ["knn_score", "knn_select", "knn_tile_topk", "merge_tiles",
+           "knn_search", "chunk_rows", "two_stage_rows", "autotune_knn",
+           "SCORE", "SELECT", "TILE", "SCORE_GEMV_MAX_B", "FUSED_MAX_TILE",
+           "SCRATCH_BUDGET", "QUERY_TILE", "MAX_ROWS"]
 
 SCORE = dispatch.counter("knn_score")
 SELECT = dispatch.counter("knn_select")
 TILE = dispatch.counter("knn_tile_topk")           # the fused tile kernel
-TILE_PAIR = dispatch.counter("knn_tile_select")    # the kept pair's select
 # the JAX tuner's padding rules (TPU lane and sublane), kept so that
 # ``autotune_knn`` picks the JAX package's tile for the same call
 LANE, SUBLANE = 128, 8
-# the largest B that takes the single-query score path, and the widest
-# query block of the kernel's GEMV (measured crossover: PERF.md)
-SCORE_GEMV_MAX_B = 8
-# the widest tile the fused tile kernel takes; wider tiles keep the pair
+# the numbers csrc/knn.cu shares, owned by the build
+SCORE_GEMV_MAX_B = _build.SCORE_GEMV_MAX_B
 FUSED_MAX_TILE = _build.FUSED_MAX_TILE
-SELECT_WS = 2 * 4096 + 16 + 256  # csrc/knn.cu WS_ROW
+QUERY_TILE = _build.QUERY_TILE
+MAX_ROWS = _build.MAX_ROWS
 SELECT_BUF = 1 << 16      # filter buffer per row (keys at the k-th digit)
 # bytes one chunk of a search may hold in scratch: its (B_c, N) f32 scores
 # and select scratch (64 queries over the 8,841,823-doc corpus take 2.3 GB)
 SCRATCH_BUDGET = 4 << 30
-# the score GEMM's query tile (csrc/knn.cu), the plain scores' block too
-QUERY_TILE = ref.QUERY_BLOCK
-MAX_ROWS = 65535          # the select and tile grids' row limit
 _SCORE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _SELECT_ARGS = ([ctypes.c_void_p] * 5
                 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-_PAIR_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
-              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _TILE_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong]
               + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
@@ -110,7 +101,7 @@ def autotune_knn(n: int, d: int, b: int, k: int,
     and k_eff = min(k, tile_n)."""
     dp = d + (-d) % LANE
     bp = b + (-b) % SUBLANE
-    cap = max(SUBLANE, 1 << max(n - 1, 1).bit_length())
+    cap = max(SUBLANE, layout.next_pow2(n))
     tile = min(4096, cap)
     budget = 6 * 2 ** 20
 
@@ -143,11 +134,11 @@ def _operands(docs, doc_ids, queries, scale, q_scale):
     n, dp = docs.shape
     b = queries.shape[0]
     dev = docs.device
-    if docs.dtype not in _build.STORE:
+    if docs.dtype not in _build.PAYLOADS:
         raise TypeError(f"unsupported corpus dtype {docs.dtype}")
-    if dp % layout.FEAT:       # the score kernel's feature tile (GK)
+    if dp % _build.FEAT:       # the score kernel's feature tile
         raise ValueError(f"corpus width {dp} is not a multiple of "
-                         f"{layout.FEAT}")
+                         f"{_build.FEAT}")
     if n >= 2 ** 31:
         raise ValueError(f"corpus of {n} rows exceeds int32 positions")
     i8 = q_scale is not None
@@ -193,9 +184,9 @@ def _select_words(n: int, k: int) -> tuple[int, int, int]:
     """(cap, bufcap, int32 words of scratch per row) of a select of the top
     ``k`` of ``n``: every key above the k-th plus its tie run, up to cap;
     the workspace (histograms, counters), candidates and filter buffers."""
-    cap = 2 << (k - 1).bit_length()
+    cap = 2 * layout.next_pow2(k)
     bufcap = min(n, SELECT_BUF)
-    return cap, bufcap, SELECT_WS + 2 * cap + 4 * bufcap
+    return cap, bufcap, _build.SELECT_WS + 2 * cap + 4 * bufcap
 
 
 def chunk_rows(n: int, row_bytes: int) -> int:
@@ -207,27 +198,13 @@ def chunk_rows(n: int, row_bytes: int) -> int:
     return min(max(rows, QUERY_TILE), MAX_ROWS // QUERY_TILE * QUERY_TILE)
 
 
-def fused_tile(tile_n: int) -> bool:
-    """The shape rule of the two-stage scan: whether a ``tile_n`` tile takes
-    the fused tile kernel (else the kept pair)."""
-    return tile_n <= FUSED_MAX_TILE
-
-
 def two_stage_rows(n: int, tile_n: int, k_eff: int, k: int) -> int:
     """``chunk_rows`` of a two-stage search over ``n`` documents: a query
     row holds its tiles * k_eff candidates (value and position) and the
-    merge's select scratch; under the kept pair (not ``fused_tile``) also
-    its f32 scores and the tile select's pairs when they leave shared
-    memory.  At least one ``QUERY_TILE``, even where that exceeds
-    ``SCRATCH_BUDGET``."""
+    merge's select scratch.  At least one ``QUERY_TILE``, even where that
+    exceeds ``SCRATCH_BUDGET``."""
     cands = -(-n // tile_n) * k_eff
-    row = 8 * cands + 4 * _select_words(cands, k)[2]
-    if fused_tile(tile_n):
-        return chunk_rows(0, row)
-    kp = 1 << (k_eff - 1).bit_length()
-    if kp > _build.SMEM_PAIRS:
-        row += 8 * -(-n // tile_n) * kp
-    return chunk_rows(n, row)
+    return chunk_rows(0, 8 * cands + 4 * _select_words(cands, k)[2])
 
 
 @dispatch.kernel_extent
@@ -262,16 +239,14 @@ def knn_select(scores, doc_ids, k: int):
 
 @dispatch.kernel_extent
 def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
-                  scale=None, q_scale=None, gemv: bool | None = None):
+                  scale=None, q_scale=None):
     """Per-tile stable top ``k_eff`` of the masked scores, the corpus read
     as padded to a ``tile_n`` multiple: (vals (tiles, B, k_eff) f32,
     positions (tiles, B, k_eff) int32), each the permuted view of a (B,
     tiles, k_eff) buffer.  Queries at the corpus width (int8 payload with
-    ``q_scale`` under int8-dot).  One launch of the fused kernel where
-    ``fused_tile(tile_n)``, else the kept pair ``knn_score`` +
-    ``knn_tile_select``, whose score takes the single-query path when
-    ``gemv`` (None: B <= ``SCORE_GEMV_MAX_B``).  A position whose value is
-    -inf may be any masked or padded one."""
+    ``q_scale`` under int8-dot).  One launch of the fused kernel, which
+    takes tiles of at most ``FUSED_MAX_TILE`` (the plain version any).  A
+    position whose value is -inf may be any masked or padded one."""
     if not dispatch.is_kernel(docs):
         return ref.tile_topk(docs, doc_ids, queries, k_eff, tile_n, scale,
                              q_scale)
@@ -279,17 +254,15 @@ def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
     b = queries.shape[0]
     if not 1 <= k_eff <= tile_n:
         raise ValueError(f"k_eff={k_eff} outside [1, tile_n={tile_n}]")
+    if tile_n > FUSED_MAX_TILE:
+        raise ValueError(f"tile_n={tile_n} exceeds the fused tile kernel's "
+                         f"{FUSED_MAX_TILE}")
     if b > MAX_ROWS:
         raise ValueError(f"{b} queries exceed the tile grid's {MAX_ROWS} "
                          f"rows")
     if n + tile_n >= 2 ** 31:
         raise ValueError(f"corpus of {n} rows in tiles of {tile_n} exceeds "
                          f"int32 positions")
-    if not fused_tile(tile_n):
-        if gemv is None:
-            gemv = b <= SCORE_GEMV_MAX_B
-        return knn_tile_select(_score(docs, doc_ids, queries, scale, q_scale,
-                                      gemv=gemv), k_eff, tile_n)
     docs, doc_ids, queries, scale, i8 = _operands(docs, doc_ids, queries,
                                                   scale, q_scale)
     tiles = -(-n // tile_n)
@@ -305,26 +278,6 @@ def knn_tile_topk(docs, doc_ids, queries, k_eff: int, tile_n: int,
               _build.STORE[docs.dtype], int(i8), tile_n, k_eff,
               _build.stream_of(docs))
     _build.check(code, "knn_tile_topk")
-    return vals.permute(1, 0, 2), pos.permute(1, 0, 2)
-
-
-@dispatch.kernel_extent
-def knn_tile_select(scores, k_eff: int, tile_n: int):
-    """The kept pair's select on (B, N) f32 scores already computed (the
-    launch it counts): (vals, positions), each the (tiles, B, k_eff) view
-    of a (B, tiles, k_eff) buffer.  CUDA only."""
-    b, n = scores.shape
-    dev = scores.device
-    tiles = -(-n // tile_n)
-    vals = torch.empty((b, tiles, k_eff), dtype=torch.float32, device=dev)
-    pos = torch.empty((b, tiles, k_eff), dtype=torch.int32, device=dev)
-    kp, pair_key, pair_pos = _build.pair_scratch(tiles * b, k_eff, dev)
-    fn = _build.function("knn", "knn_tile_select", _PAIR_ARGS)
-    TILE_PAIR.launch()
-    code = fn(scores.contiguous().data_ptr(), vals.data_ptr(), pos.data_ptr(),
-              _ptr(pair_key), _ptr(pair_pos), b, n, tile_n, k_eff, kp,
-              _build.stream_of(scores))
-    _build.check(code, "knn_tile_select")
     return vals.permute(1, 0, 2), pos.permute(1, 0, 2)
 
 
@@ -363,7 +316,8 @@ def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
     ``REPRO_INT8_DOT`` policy, int8 corpora only) scores int8 x int8 in
     int32.  ``two_stage`` takes the per-tile scan with ``tile_n`` (None =
     ``autotune_knn`` for the whole B), which raises when its tiles * k_eff
-    candidates cannot hold k.  Returns (scores (B, k) descending, ids
+    candidates cannot hold k; a tile over ``FUSED_MAX_TILE`` answers
+    through the fused search.  Returns (scores (B, k) descending, ids
     (B, k), -1 where the score is -inf)."""
     n, dp = docs.shape
     q = torch.nn.functional.pad(queries.to(torch.float32),
@@ -373,32 +327,30 @@ def knn_search(docs: torch.Tensor, doc_ids: torch.Tensor,
         qq = quant.quantize(q, "int8")
         q, q_scale = qq.data, qq.scale
     b = q.shape[0]
-    gemv = b <= SCORE_GEMV_MAX_B     # the whole B's path, for every chunk
     if two_stage:
         if tile_n is None:
             tile_n, k_eff = autotune_knn(n, dp, b, k, docs.element_size())
         else:
-            tile_n = min(tile_n, max(SUBLANE, 1 << max(n - 1, 1).bit_length()))
+            tile_n = min(tile_n, max(SUBLANE, layout.next_pow2(n)))
             k_eff = min(k, tile_n)
         tiles = -(-n // tile_n)
         if tiles * k_eff < k:
             raise ValueError(f"two-stage candidate pool {tiles}x{k_eff} < "
                              f"k={k}; use the fused search")
-        if fused_tile(tile_n):
-            TILE.call()
-        else:
-            SCORE.call()
-            TILE_PAIR.call()
+    # a wider tile keeps its whole share of the top k: the fused answer
+    if two_stage and tile_n <= FUSED_MAX_TILE:
+        TILE.call()
         SELECT.call()
 
         def chunk(lo, hi):
             vals, pos = knn_tile_topk(docs, doc_ids, q[lo:hi], k_eff, tile_n,
-                                      scale, _rows(q_scale, lo, hi), gemv)
+                                      scale, _rows(q_scale, lo, hi))
             return merge_tiles(vals, pos, doc_ids, k)
         return _chunked(chunk, b, k, two_stage_rows(n, tile_n, k_eff, k),
                         q.device)
     SCORE.call()
     SELECT.call()
+    gemv = b <= SCORE_GEMV_MAX_B     # the whole B's path, for every chunk
     k_eff = min(k, n)
 
     def chunk(lo, hi):

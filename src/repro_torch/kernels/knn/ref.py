@@ -3,7 +3,8 @@
 One masked (B, N) score matrix and stable descending sorts, so equal
 scores keep the lower corpus position (``lax.top_k``'s order); -inf
 results carry id -1 and k > N pads with (-inf, -1).  The scores are taken
-``QUERY_BLOCK`` queries at a time, one matrix product per block: a BLAS
+``QUERY_TILE`` queries at a time (the score GEMM's query tile, owned by
+``kernels/_build.py``), one matrix product per block: a BLAS
 sums a row in an order that can depend on how many rows the product
 holds, and blocks aligned to the search's chunks (``ops.chunk_rows``, a
 multiple of the block) make a chunked search equal the unchunked one bit
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-QUERY_BLOCK = 64    # queries per matrix product (the GEMM's query tile)
+from repro_torch.kernels._build import QUERY_TILE
 
 
 def score(docs: torch.Tensor, doc_ids: torch.Tensor, queries: torch.Tensor,
@@ -30,8 +31,8 @@ def score(docs: torch.Tensor, doc_ids: torch.Tensor, queries: torch.Tensor,
     wide = torch.float32 if q_scale is None else torch.float64
     d = docs.to(wide).T
     q = queries.to(wide)
-    parts = [(q[lo:lo + QUERY_BLOCK] @ d).to(torch.float32)
-             for lo in range(0, max(q.shape[0], 1), QUERY_BLOCK)]
+    parts = [(q[lo:lo + QUERY_TILE] @ d).to(torch.float32)
+             for lo in range(0, max(q.shape[0], 1), QUERY_TILE)]
     scores = parts[0] if len(parts) == 1 else torch.cat(parts)
     if q_scale is not None:
         scores = scores * q_scale[:, None]

@@ -21,7 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import layout, quant
 from repro_torch.core.cache import MetricCache
 from repro_torch.core.cache_ops import CacheConfig
 from repro_torch.core.embedding import transform_queries
@@ -161,7 +161,7 @@ def pad_length(tokens: torch.Tensor, chunks: tuple = ()) -> torch.Tensor:
     be neither within nor a multiple of one of ``chunks`` (the attention's
     query and KV chunks, powers of two in every config)."""
     s = tokens.shape[-1]
-    width = 1 << max(s - 1, 0).bit_length()
+    width = layout.next_pow2(s)
     if width == s or any(width > c and width % c for c in chunks):
         return tokens
     return torch.nn.functional.pad(tokens, (0, width - s), value=-1)

@@ -40,10 +40,12 @@ the port so the port imports nothing of the JAX package.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import math
 import threading
 import time
 from typing import Callable, Optional
 
+from repro_torch.core import layout
 from repro_torch.serve.telemetry import SPANS, ServeTelemetry
 
 __all__ = ["ContinuousScheduler"]
@@ -229,10 +231,10 @@ class ContinuousScheduler:
         turn p99 above ``target_p99_s`` backs the limit off one bucket
         step (smaller waves finish sooner) until the SLO recovers.
         """
-        target = rate * max(service_s, 1e-4) * self.headroom
-        b = 1
-        while b < target and b < self.max_wave:
-            b *= 2
+        target = min(rate * max(service_s, 1e-4) * self.headroom,
+                     self.max_wave)
+        # up to one turn a wave, or no reading (NaN): the smallest bucket
+        b = layout.next_pow2(math.ceil(target)) if target > 1 else 1
         limit = max(self.min_wave, min(b, self.max_wave))
         if (self.target_p99_s is not None and p99_s is not None
                 and p99_s == p99_s and p99_s > self.target_p99_s):

@@ -58,7 +58,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import layout, quant
 from repro_torch.core.cache import BatchedMetricCache
 from repro_torch.core.cache_ops import (CacheConfig, CacheState,
                                         insert_query_batched, probe_batched,
@@ -242,10 +242,7 @@ class BatchedEngine:
     def _bucket(self, n: int) -> int:
         """Wave sizes padded to powers of two (capped at n_sessions), the
         JAX engine's wave shapes."""
-        b = 1
-        while b < n:
-            b *= 2
-        return min(b, self.n_sessions)
+        return min(layout.next_pow2(n), self.n_sessions)
 
     def _put_docs(self, new_emb: torch.Tensor, runs: list) -> None:
         """``new_emb[row, col0:col0 + len(ids)] = doc_embeddings[ids]`` for

@@ -59,6 +59,8 @@ import numpy as np
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from repro_torch.core import layout
+
 __all__ = ["TurnSpans", "RingPercentiles", "EwmaRate", "ServeTelemetry",
            "SpanLog", "SpanKind", "SyncSite", "Spans", "SPANS",
            "strict_syncs", "ExpertLoad", "EXPERT_LOAD", "EncoderGraphs",
@@ -261,7 +263,7 @@ class SpanLog:
     """
 
     def __init__(self, capacity: int = 1 << 17):
-        cap = 1 << max(int(capacity) - 1, 1).bit_length()
+        cap = layout.next_pow2(max(int(capacity), 2))   # 1 maps to 2
         self.capacity, self._mask = cap, cap - 1
         self._seq = np.full((cap,), -1, np.int64)
         self._kind = np.zeros((cap,), np.int32)

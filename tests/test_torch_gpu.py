@@ -611,19 +611,6 @@ def test_tile_topk_kernel_matches_plain(card, dtype, i8, tile_n, k):
     assert_topk_agree(v, i, ev, ei, TOL, f"two-stage exact {dtype}")
 
 
-def test_tile_topk_pairs_in_global_scratch(card, monkeypatch):
-    """The kept pair's tile select (tiles wider than the fused kernel takes)
-    with its survivors in global scratch."""
-    from repro_torch.kernels import _build
-    monkeypatch.setattr(_build, "SMEM_PAIRS", 32)
-    docs, ids = _knn_corpus(card, 5003, n_sentinels=7)
-    q = tc.pad_features(_unit(4, DIM, gen=card), 800)
-    vk, pk = knn_ops.knn_tile_select(knn_ops.knn_score(docs, ids, q), 100,
-                                     512)
-    vr, pr = knn_ref.tile_topk(docs, ids, q, 100, 512)
-    _tile_agree(vk, pk, vr, pr, "tiles, global pairs")
-
-
 def _ref_tiles(docs, ids, q, k_eff, tile_n, scale=None, q_scale=None):
     """The plain tile stage, and beside it each (tile, row)'s next rank
     (the ``k_eff + 1``-th) when ``k_eff < tile_n``: a kernel may cut a run
@@ -661,22 +648,33 @@ def _tie_corpus(gen, n):
 @pytest.mark.parametrize("part", [False, True])
 def test_fused_tile_topk_matches_plain(card, b, tile_n, part):
     """The fused tile kernel at every cluster size (tiles of 512 .. 4096
-    span 2 .. 16 blocks), the narrow tiles (16 and 100: whole tiles a
-    block) and the kept pair (8192), at k_eff = tile_n and below it, with
-    ties and a tile past N; one query row, one partial 64-query tile and
-    two (B = 8 and 64 in ``test_two_stage_search_fused_dtypes``)."""
+    span 2 .. 16 blocks) and the narrow tiles (16 and 100: whole tiles a
+    block), at k_eff = tile_n and below it, with ties and a tile past N;
+    one query row, one partial 64-query tile and two (B = 8 and 64 in
+    ``test_two_stage_search_fused_dtypes``).  A wider tile (8192) the
+    kernel refuses, and the two-stage search answers it as the fused
+    search, bit for bit."""
     n = 20011
     docs, ids = _tie_corpus(card, n)
     q = tc.pad_features(_unit(b, DIM, gen=card), 800)
     q[0, :DIM] = docs[17, :DIM]
     k_eff = tile_n // 3 + 1 if part else tile_n
+    if tile_n > knn_ops.FUSED_MAX_TILE:
+        with pytest.raises(ValueError, match="fused tile kernel"):
+            knn_ops.knn_tile_topk(docs, ids, q, k_eff, tile_n)
+        dispatch.reset_counters()
+        v, i = knn_ops.knn_search(docs, ids, q, k_eff, tile_n=tile_n,
+                                  two_stage=True)
+        c = dispatch.counters()
+        assert (c["knn_tile_topk"].launches, c["knn_score"].launches,
+                c["knn_select"].launches) == (0, 1, 1)
+        fv, fi = knn_ops.knn_search(docs, ids, q, k_eff)
+        assert torch.equal(v, fv) and torch.equal(i, fi)
+        return
     dispatch.reset_counters()
     vk, pk = knn_ops.knn_tile_topk(docs, ids, q, k_eff, tile_n)
     c = dispatch.counters()
-    kept = tile_n > knn_ops.FUSED_MAX_TILE
-    assert (c["knn_tile_topk"].launches, c["knn_score"].launches,
-            c["knn_tile_select"].launches) == ((0, 1, 1) if kept
-                                               else (1, 0, 0))
+    assert (c["knn_tile_topk"].launches, c["knn_score"].launches) == (1, 0)
     tiles = -(-n // tile_n)
     assert vk.shape == pk.shape == (tiles, b, k_eff)
     vr, pr, nxt = _ref_tiles(docs, ids, q, k_eff, tile_n)

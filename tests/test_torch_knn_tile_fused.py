@@ -11,9 +11,10 @@ inside a tile and across tiles, id -1 rows, N not a tile multiple, and
 fp32 / bf16 / int8 / int8-dot.  Ids, positions where the value is finite
 and the -inf pattern are equal; scores agree within 1e-5.  Also: the merge
 through the select equals the plain stable sort bit for bit, the tile
-stage's (tiles, B, k_eff) view, the launch accounting by the shape rule,
-and ``two_stage_rows`` (a chunk's candidates and merge scratch fit
-``SCRATCH_BUDGET``, in whole 64-query tiles).
+stage's (tiles, B, k_eff) view, the launch accounting, a tile wider than
+``FUSED_MAX_TILE`` answering as the fused search, and ``two_stage_rows``
+(a chunk's candidates and merge scratch fit ``SCRATCH_BUDGET``, in whole
+64-query tiles).
 """
 
 import jax
@@ -132,7 +133,7 @@ def test_two_stage_search_matches_jax(dtype, int8_dot, k, tile_n):
                               tile_n=tile_n, two_stage=True)
     c = dispatch.counters()
     assert (c["knn_tile_topk"].calls, c["knn_select"].calls,
-            c["knn_score"].calls, c["knn_tile_select"].calls) == (1, 1, 0, 0)
+            c["knn_score"].calls) == (1, 1, 0)
     ps, pi = (x.numpy() for x in port)
     rs, ri = (np.asarray(x) for x in ref)
     np.testing.assert_array_equal(pi, ri)
@@ -195,9 +196,10 @@ def test_tile_stage_returns_a_view_of_the_row_major_buffer():
 
 
 def test_wide_tiles_keep_the_pair():
-    """A tile wider than ``FUSED_MAX_TILE`` takes the kept pair: one score
-    call and one tile-select call, then the merge; the answer equals the
-    plain two-stage version."""
+    """A tile wider than ``FUSED_MAX_TILE`` keeps its whole share of the
+    top k, so the search answers through the fused search: one score call
+    and one select call, no tile call; the answer equals the plain
+    two-stage version bit for bit."""
     rng = np.random.default_rng(5)
     n = 9000
     docs = torch.as_tensor(_unit(rng.standard_normal((n, 32)))
@@ -208,29 +210,49 @@ def test_wide_tiles_keep_the_pair():
     dispatch.reset_counters()
     v, i = knn_ops.knn_search(docs, ids, q, 10, tile_n=8192, two_stage=True)
     c = dispatch.counters()
-    assert (c["knn_score"].calls, c["knn_tile_select"].calls,
-            c["knn_select"].calls, c["knn_tile_topk"].calls) == (1, 1, 1, 0)
+    assert (c["knn_score"].calls, c["knn_select"].calls,
+            c["knn_tile_topk"].calls) == (1, 1, 0)
     rv, rp = knn_ref.tile_topk(docs, ids, q, 10, 8192)
     want = knn_ref.merge_tiles(rv, rp, ids, 10)
     assert torch.equal(v, want[0]) and torch.equal(i, want[1])
+
+
+@pytest.mark.parametrize("dtype,int8_dot", DTYPES)
+def test_wide_tiles_answer_as_the_fused_search(dtype, int8_dot):
+    """``two_stage=True`` at a tile over ``FUSED_MAX_TILE`` equals the fused
+    search bit for bit, at k past N too (ties, id -1 rows), and raises
+    where the tiles' candidates cannot hold k."""
+    n = 5000
+    data, scale, ids, q = _world(7, dtype, n=n)
+    docs, tscale, tids = convert.corpus_from_numpy(data, scale, ids,
+                                                   device="cpu")
+    tq = torch.as_tensor(q)
+    for k in (10, 8192):
+        got = knn_ops.knn_search(docs, tids, tq, k, scale=tscale,
+                                 int8_dot=int8_dot, tile_n=8192,
+                                 two_stage=True)
+        want = knn_ops.knn_search(docs, tids, tq, k, scale=tscale,
+                                  int8_dot=int8_dot)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="candidate pool"):
+        knn_ops.knn_search(docs, tids, tq, 8193, scale=tscale,
+                           int8_dot=int8_dot, tile_n=8192, two_stage=True)
 
 
 @pytest.mark.parametrize("n,tile_n,k", [(8_841_823, 512, 1000),
                                         (1_000_000, 1024, 1000),
                                         (60_000, 4096, 200), (5000, 16, 100),
                                         (200_000_000, 512, 1000),
-                                        (1_000_000, 8192, 1000)])
+                                        (1_048_576, 256, 100)])
 def test_two_stage_rows_fit_the_budget_in_whole_tiles(n, tile_n, k):
     """A chunk's candidates (value and position) and the merge's select
-    scratch fit ``SCRATCH_BUDGET``, in whole 64-query tiles; the kept pair
-    counts its f32 scores too.  One tile is the floor, even past the
-    budget: at the A/B shape one chunk of 64 holds more than 4 GiB."""
+    scratch fit ``SCRATCH_BUDGET``, in whole 64-query tiles.  One tile is
+    the floor, even past the budget: at the A/B shape one chunk of 64
+    holds more than 4 GiB."""
     tile, budget = knn_ops.QUERY_TILE, knn_ops.SCRATCH_BUDGET
     k_eff = min(k, tile_n)
     cands = -(-n // tile_n) * k_eff
     row = 8 * cands + 4 * knn_ops._select_words(cands, k)[2]
-    if not knn_ops.fused_tile(tile_n):
-        row += 4 * n
     rows = knn_ops.two_stage_rows(n, tile_n, k_eff, k)
     assert rows % tile == 0 and tile <= rows <= knn_ops.MAX_ROWS
     assert rows == tile or rows * row <= budget
